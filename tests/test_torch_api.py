@@ -80,11 +80,11 @@ def test_qr_modes_match_tileqr(ref, case):
     _, tcfg = cfgs(nb, chunk, prescale, dt)
     r = ref[case]
     for mode in ("reduced", "complete"):
-        q, rr = tileqr_torch.qr(r["a"], mode, tcfg)
+        q, rr = tileqr_torch.qr(r["a"], mode, tcfg, device="cpu")
         jq, jr = r[mode]
         assert tuple(q.shape) == jq.shape and tuple(rr.shape) == jr.shape
         assert rel(q, jq) <= TOL[dt] and rel(rr, jr) <= TOL[dt], mode
-    rr = tileqr_torch.qr(r["a"], "r", tcfg)
+    rr = tileqr_torch.qr(r["a"], "r", tcfg, device="cpu")
     assert tuple(rr.shape) == r["r"].shape and rel(rr, r["r"]) <= TOL[dt]
 
 
@@ -93,7 +93,7 @@ def test_factor_apply_orgqr_match_tileqr(ref, case):
     shape, nb, chunk, prescale, dt = CASES[case]
     _, tcfg = cfgs(nb, chunk, prescale, dt)
     r = ref[case]
-    f = tileqr_torch.qr_factor(r["a"], tcfg)
+    f = tileqr_torch.qr_factor(r["a"], tcfg, device="cpu")
     jf = r["jf"]
     assert (f.nb, f.chunk, f.shape) == (jf.nb, jf.chunk, jf.shape)
     # the port's scale is an exact power of two; tileqr's comes from
@@ -112,9 +112,9 @@ def test_lstsq_matches_tileqr(ref, case):
     shape, nb, chunk, prescale, dt = CASES[case]
     _, tcfg = cfgs(nb, chunk, prescale, dt)
     r = ref[case]
-    x = tileqr_torch.lstsq(r["a"], r["c"], tcfg)
+    x = tileqr_torch.lstsq(r["a"], r["c"], tcfg, device="cpu")
     assert rel(x, r["lstsq"]) <= TOL[dt]
-    xv = tileqr_torch.lstsq(r["a"], r["c"][:, 0], tcfg)
+    xv = tileqr_torch.lstsq(r["a"], r["c"][:, 0], tcfg, device="cpu")
     assert xv.shape == (shape[1],) and rel(xv, r["lstsq"][:, 0]) <= TOL[dt]
 
 
@@ -139,11 +139,37 @@ def test_caller_tensor_unchanged(rng):
 
 
 def test_unported_settings_raise():
+    """Precisions other than "highest" are not ported, on either square
+    path (the hr path itself is ported: ROADMAP.md queue A item 4)."""
     a = np.eye(32)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        tileqr_torch.qr_factor(a, tileqr_torch.QRConfig(nb=32, square_method="hr"))
     with pytest.raises(NotImplementedError, match="queue A item 7"):
-        tileqr_torch.qr(a, config=tileqr_torch.QRConfig(nb=32, precision="b3"))
+        tileqr_torch.qr_factor(a, tileqr_torch.QRConfig(nb=32, square_method="hr",
+                                                        precision="b3"), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A item 7"):
+        tileqr_torch.qr(a, config=tileqr_torch.QRConfig(nb=32, precision="b3"), device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["qr", "qr_factor", "lstsq"])
+def test_numpy_input_goes_to_the_card(monkeypatch, entry):
+    """A non-tensor input with no ``device`` goes to the card: with no CUDA
+    device it raises before any plain kernel version runs on the CPU."""
+    from tileqr_torch.kernels import _build
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = np.random.default_rng(0).standard_normal((64, 64))
+    cfg = tileqr_torch.QRConfig(nb=32, dtype=torch.float64)
+    _build.reset_counts()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "lstsq":
+            tileqr_torch.lstsq(a, a[:, 0], cfg)
+        else:
+            getattr(tileqr_torch, entry)(a, config=cfg)
+    assert not any(_build.PLAIN_CALLS.values())
+    # a CPU tensor, or device="cpu", runs the plain versions on the CPU
+    assert tileqr_torch.qr(torch.tensor(a), "r", cfg).device.type == "cpu"
+    assert tileqr_torch.qr(a, "r", cfg, device="cpu").device.type == "cpu"
+    with pytest.raises(ValueError, match="device="):
+        tileqr_torch.qr(torch.tensor(a), "r", cfg, device="cuda")
 
 
 def test_config_validation_matches_tileqr():
@@ -152,6 +178,16 @@ def test_config_validation_matches_tileqr():
     for bad in ({"nb": 30}, {"driver": "x"}, {"square_method": "x"}, {"ib": 0}):
         with pytest.raises(ValueError):
             tileqr_torch.QRConfig(**bad)
+
+
+@pytest.mark.parametrize("driver", ["auto", "static", "dynamic"])
+def test_resolve_driver_matches_tileqr(driver):
+    """The panel-count rule reads the same in both packages (the port runs
+    its one driver whatever it says)."""
+    for m, n, nb in ((8192, 8192, 256), (8448, 8448, 256), (16384, 300, 256), (100, 70, 32)):
+        t = tileqr_torch.QRConfig(nb=nb, driver=driver).resolve_driver(m, n)
+        assert t == tileqr.QRConfig(nb=nb, driver=driver).resolve_driver(m, n)
+    assert tileqr_torch.QRConfig.AUTO_STATIC_MAX_PANELS == tileqr.QRConfig.AUTO_STATIC_MAX_PANELS
 
 
 @pytest.mark.parametrize("case", ["unaligned-f64", "prescale-f64"])
@@ -163,17 +199,20 @@ def test_interop_factors_both_ways(ref, case):
     f = factors_from_numpy(r["jf"])
     assert rel(tileqr_torch.apply_q(f, r["c"], trans=True), r["qtc"]) <= TOL[dt]
     assert rel(tileqr_torch.orgqr(f), r["orgqr"]) <= TOL[dt]
-    back = factors_to_numpy(tileqr_torch.qr_factor(r["a"], tcfg))
+    back = factors_to_numpy(tileqr_torch.qr_factor(r["a"], tcfg, device="cpu"))
     jf = tileqr.QRFactors(**back)
     assert rel(tileqr.apply_q(jf, r["c"], trans=False, config=jcfg), r["qc"]) <= TOL[dt]
 
 
 def test_import_leaves_jax_out():
-    """Importing the port (and its interop module) imports no jax, jaxlib or
-    tileqr module."""
+    """Importing the port (its interop module and every driver and kernel
+    module included) imports no jax, jaxlib or tileqr module."""
     code = (
         "import sys; before = set(sys.modules)\n"
         "import tileqr_torch, tileqr_torch.interop, tileqr_torch.kernels.chain\n"
+        "import tileqr_torch.drivers.square_hr, tileqr_torch.drivers.cholqr\n"
+        "import tileqr_torch.kernels.modlu, tileqr_torch.kernels.potrf\n"
+        "import tileqr_torch.kernels.panel_apply, tileqr_torch.utils.profile\n"
         "new = set(sys.modules) - before\n"
         "print(sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'tileqr')))"
     )

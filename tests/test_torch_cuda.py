@@ -1,4 +1,5 @@
-"""tileqr_torch's CUDA kernels on the card, against their plain versions.
+"""tileqr_torch's CUDA kernels on the card, against their plain versions,
+and both square paths (hh and hr) end to end.
 
 Every test here needs a CUDA device and carries the ``cuda_only`` marker;
 without a device the ``cuda`` fixture skips it. Run them on a machine with
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 import tileqr_torch
-from tileqr_torch.kernels import _build, chain, panel
+from tileqr_torch.kernels import _build, chain, modlu, panel, panel_apply, potrf
 from tileqr_torch.utils.verify import backward_error_f64, residuals_f64
 
 pytestmark = pytest.mark.cuda_only
@@ -117,3 +118,101 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         panel.panel_factor(a.T, 0, 64)  # not row-major
     with pytest.raises(ValueError):
         chain.panel_chain(a, torch.zeros((64, 64)), 0, 64, 1, 1, 64)  # mixed devices
+
+
+def hr_inputs(cuda, nb, seed=3):
+    """carry (5nb, 5nb) and the hr factors (Y, T) of its panel 1 column
+    carry[nb:, nb:2nb], from the plain versions."""
+    from tileqr_torch.drivers.square_hr import hr_panel
+
+    carry = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (5 * nb, 5 * nb), dtype=np.float32)).to(cuda)
+    y, t, _ = hr_panel(carry[nb:, nb : 2 * nb].cpu())
+    return carry, y.to(cuda), t.to(cuda)
+
+
+@pytest.mark.parametrize("nb", [64, 256])
+def test_potrf_and_modlu_match_plain(cuda, nb):
+    rng = np.random.default_rng(nb)
+    x = torch.from_numpy(rng.standard_normal((4, 3 * nb, nb), dtype=np.float32)).to(cuda)
+    g = x.transpose(1, 2) @ x
+    for b, group in ((1, 1), (4, 2)):
+        got = potrf.potrf_batched(g[:b], group=group)
+        want = potrf.potrf_batched_plain(g[:b], group=group)
+        torch.cuda.synchronize()
+        assert rel(got, want) <= TOL
+        assert not torch.tril(got, -1).any()
+    q, _ = torch.linalg.qr(x[0].double())
+    q_top = q[:nb].float()
+    lu, d = modlu.modified_lu(q_top)
+    lu_p, d_p = modlu.modified_lu_plain(q_top)
+    torch.cuda.synchronize()
+    assert rel(lu, lu_p) <= TOL and torch.equal(d, d_p)
+
+
+@pytest.mark.parametrize("nb", [64, 256])
+@pytest.mark.parametrize("trans", [True, False])
+def test_panel_apply_carry_matches_plain(cuda, nb, trans):
+    carry, y, t = hr_inputs(cuda, nb)
+    outs = []
+    for fn in (panel_apply.panel_apply_carry, panel_apply.panel_apply_carry,
+               panel_apply.panel_apply_carry_plain):
+        c = carry.clone()
+        fn(y, t, c, 1, nb, trans=trans)
+        outs.append(c)
+    torch.cuda.synchronize()
+    got, again, want = outs
+    assert torch.equal(got, again)  # reruns are bitwise equal
+    assert torch.equal(got[:nb], carry[:nb]) and torch.equal(got[:, : 2 * nb], carry[:, : 2 * nb])
+    assert rel(got, want) <= TOL
+
+
+def test_hr_qr_on_the_card(cuda):
+    a = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2048, 2048), dtype=np.float32)).to(cuda)
+    cfg = tileqr_torch.QRConfig(square_method="hr")
+    _build.reset_counts()
+    q, r = tileqr_torch.qr(a, config=cfg)
+    torch.cuda.synchronize()
+    assert all(_build.LAUNCHES[k] > 0 for k in _build.HR_KERNELS)
+    assert not any(_build.LAUNCHES[k] for k in _build.HH_KERNELS)
+    assert not any(_build.PLAIN_CALLS.values())
+    res = residuals_f64(a, q, r)
+    assert res["relerr"] <= 3e-6 and res["orth"] <= 1e-3
+    f = tileqr_torch.qr_factor(a, cfg)
+    assert isinstance(f, tileqr_torch.HRFactors) and float(f.health) <= cfg.hr_guard_tau
+    assert backward_error_f64(a, tileqr_torch.apply_q(f, a, trans=True), r) <= 1e-6
+
+
+def test_hr_guard_falls_back_to_hh_kernels(cuda):
+    """A breakdown input: the hr kernels run on the panels, the guard trips
+    and warns, and the hh kernels refactor."""
+    b = np.random.default_rng(5).standard_normal((1024, 768)).astype(np.float32)
+    b[:, 1] = b[:, 0] * (1 + 1e-7)  # panel-0 gram numerically singular
+    a = torch.from_numpy(b).to(cuda)
+    cfg = tileqr_torch.QRConfig(square_method="hr")
+    _build.reset_counts()
+    with pytest.warns(UserWarning, match="hr guard"):
+        q, r = tileqr_torch.qr(a, config=cfg)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["modified_lu"] > 0 and _build.LAUNCHES["panel_factor"] > 0
+    assert _build.LAUNCHES["panel_chain"] + _build.LAUNCHES["couple_strip"] > 0
+    assert residuals_f64(a, q, r)["relerr"] <= 3e-6
+
+
+def test_hr_pins_ieee_fp32_and_numpy_input_runs_on_the_card(cuda):
+    """With the caller's TF32 switch on, the hr driver's matmuls still run
+    in IEEE fp32 (a TF32 residual would be near 1e-3) and the switch is
+    restored; a numpy input with no device= runs on the card."""
+    a = np.random.default_rng(6).standard_normal((1024, 1024)).astype(np.float32)
+    cfg = tileqr_torch.QRConfig(square_method="hr")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _build.reset_counts()
+        q, r = tileqr_torch.qr(a, config=cfg)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert q.device.type == "cuda" and r.device.type == "cuda"
+    assert all(_build.LAUNCHES[k] > 0 for k in _build.HR_KERNELS)
+    assert residuals_f64(torch.from_numpy(a).to(cuda), q, r)["relerr"] <= 3e-6

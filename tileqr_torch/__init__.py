@@ -1,25 +1,34 @@
-"""tileqr_torch — the tiled-Householder QR of ``tileqr``, ported to PyTorch
-with hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
+"""tileqr_torch — the square QR of ``tileqr``, ported to PyTorch with
+hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
 
-The port holds the main path of ``tileqr.qr`` at the default ``QRConfig``:
-the right-looking tiled Householder driver, its four panel and update
-kernels (``kernels/panel.py``, ``kernels/chain.py``; CUDA sources in
-``csrc/``), R assembly and Q formation/application. CUDA tensors run the
-CUDA kernels; CPU tensors run each kernel's plain torch version.
+Two square paths, as in ``tileqr.qr``:
+
+- square_method="hh" (the default): the right-looking tiled Householder
+  driver and its four panel and update kernels (``kernels/panel.py``,
+  ``kernels/chain.py``);
+- square_method="hr": CholeskyQR2 panels with Householder reconstruction
+  (``drivers/square_hr.py``) and its POTRF, modified-LU and whole-panel
+  apply kernels (``kernels/potrf.py``, ``kernels/modlu.py``,
+  ``kernels/panel_apply.py``), with the breakdown guard falling back to hh.
+
+CUDA sources are in ``csrc/``. CUDA tensors run the CUDA kernels; CPU
+tensors run each kernel's plain torch version. Non-tensor inputs go to the
+card unless ``device="cpu"`` is passed.
 
 Public API
 ----------
 - :func:`qr`, :func:`qr_factor`, :func:`apply_q`, :func:`orgqr`,
   :func:`lstsq`
-- :class:`QRConfig`, :class:`QRFactors`
+- :class:`QRConfig`, :class:`QRFactors`, :class:`HRFactors`
 - :func:`qr_check` — float64 acceptance metrics of a computed QR.
 """
 
 from tileqr_torch.core.config import QRConfig
-from tileqr_torch.api import QRFactors, apply_q, lstsq, orgqr, qr, qr_factor
+from tileqr_torch.api import HRFactors, QRFactors, apply_q, lstsq, orgqr, qr, qr_factor
 from tileqr_torch.utils.verify import qr_check
 
 __all__ = [
+    "HRFactors",
     "QRConfig",
     "QRFactors",
     "apply_q",

@@ -1,23 +1,32 @@
-"""Public API of the port: the tiled-Householder ("hh") branches of
-``tileqr/api.py`` — qr, qr_factor, apply_q, orgqr, lstsq.
+"""Public API of the port: the square-QR branches of ``tileqr/api.py`` —
+qr, qr_factor, apply_q, orgqr, lstsq — on the tiled-Householder ("hh")
+path and the CholeskyQR2 + reconstruction ("hr") path.
 
 All entries accept arbitrary (M, N); inputs are zero-padded to tile
 multiples (exact for QR: padded rows/columns give tau = 0 reflectors and
-zero R blocks) and results are sliced back. The factorization runs in
-place on a private copy, so the caller's tensor is never written.
+zero R blocks; the hr path pads columns with an α·identity block) and
+results are sliced back. The factorization runs in place on a private
+copy, so the caller's tensor is never written.
+
+Device: a ``torch.Tensor`` input stays on its own device. Any other input
+(numpy arrays, lists) goes to ``device``, which defaults to "cuda": with no
+CUDA device that raises, it does not run on the CPU. CPU runs (the plain
+kernel versions) happen only for CPU tensors or ``device="cpu"``.
+``apply_q`` and ``orgqr`` follow the factors' device.
 """
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tileqr_torch.core.config import QRConfig
-from tileqr_torch.core.layout import pad_to_tiles, round_up
+from tileqr_torch.core.layout import pad_to_tiles, pow2_at_least, round_up
+from tileqr_torch.drivers.cholqr import guard_trips
 from tileqr_torch.drivers.square import apply_q_tiled, assemble_r, qr_tiled
+from tileqr_torch.drivers.square_hr import apply_q_hr, orgqr_hr, pad_for_hr, qr_hr
 
 
 class QRFactors(NamedTuple):
@@ -34,6 +43,24 @@ class QRFactors(NamedTuple):
     # prescale: A was factored as (A/scale) = Q·R_stored, so
     # R_true = scale · R_stored; 1.0 when prescaling is off.
     scale: object = 1.0
+
+
+class HRFactors(NamedTuple):
+    """Factors of the hr square path (``drivers/square_hr.py``): per-panel
+    whole-panel compact-WY pairs (Y_k, T_k) and the assembled R (padded
+    K × N_pad).
+
+    ``health`` (0-d tensor, None under hr_guard="off") is the max over
+    panels of the CholeskyQR round-1 orthogonality defect ‖Q₁ᵀQ₁ − I‖_max:
+    ≲ 1e-3 is deep inside the hr contract; above QRConfig.hr_guard_tau (or
+    NaN) a panel broke the cond²·eps limit."""
+
+    r: torch.Tensor
+    panels: Tuple  # ((Y_0, T_0), (Y_1, T_1), ...), Y_k: (M_pad − k·nb, nb)
+    nb: int
+    shape: Tuple[int, int]  # original (M, N)
+    scale: object = 1.0  # see QRFactors.scale
+    health: object = None
 
 
 def _cfg(config: Optional[QRConfig]) -> QRConfig:
@@ -56,36 +83,52 @@ def _check_matrix(a, who: str) -> None:
         raise ValueError(f"{who}: zero-size dimension in input shape {shape}")
 
 
-def _pow2(e: torch.Tensor) -> torch.Tensor:
-    """2**e built from its exponent bits: exact, where torch.exp2 may round
-    (e: integer-valued, in the normal range of its float32/float64 dtype)."""
-    if e.dtype == torch.float64:
-        return ((e.to(torch.int64) + 1023) << 52).view(torch.float64)
-    if e.dtype == torch.float32:
-        return ((e.to(torch.int32) + 127) << 23).view(torch.float32)
-    return torch.exp2(e)
+def _to_device(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """A tensor stays where it is; anything else goes to ``device``
+    ("cuda" when None), which must exist."""
+    if isinstance(a, torch.Tensor):
+        want = None if device is None else torch.device(device)
+        if want is not None and (want.type != a.device.type or
+                                 want.index not in (None, a.device.index)):
+            raise ValueError(
+                f"input tensor is on {a.device}, device={device!r} was asked for: "
+                "move the tensor, or drop device="
+            )
+        return a.to(dtype=dtype)
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "tileqr_torch runs on the GPU by default and no CUDA device is "
+            "available; pass device='cpu' (or a CPU tensor) to run the plain "
+            "CPU versions"
+        )
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
 
-def qr_factor(a, config: Optional[QRConfig] = None) -> QRFactors:
-    """Factor A → packed tiled Householder form (no Q/R assembly)."""
+def qr_factor(a, config: Optional[QRConfig] = None, device=None):
+    """Factor A → QRFactors (hh) or HRFactors (hr), with no Q/R assembly."""
     _check_matrix(a, "qr_factor")
     cfg = _cfg(config)
     cfg.check_ported()
-    a = torch.as_tensor(a, dtype=cfg.dtype)
+    a = _to_device(a, cfg.dtype, device)
     m, n = a.shape
     scale = 1.0
     if cfg.prescale:
         # exact power-of-2 scaling: QR(A/s) has identical reflectors/τ and
-        # R_true = s · R_stored, with no rounding introduced by the division
-        fi = torch.finfo(a.dtype)
-        amax = a.abs().max()
-        e = torch.ceil(torch.log2(torch.clamp(amax, min=fi.tiny)))
-        maxexp = int(math.log2(fi.max)) + 1
-        s = _pow2(torch.clamp(e, max=float(maxexp - 1)))
-        scale = torch.where(amax > 0, s, torch.ones((), dtype=a.dtype, device=a.device))
-        # true division, not multiply-by-reciprocal: 1/2^127 is subnormal
-        # and would flush to zero where denormals are off
+        # R_true = s · R_stored; true division, not multiply-by-reciprocal
+        # (1/2^127 is subnormal and would flush to zero where denormals
+        # are off)
+        scale = pow2_at_least(a.abs().max())
         a = a / scale
+    if cfg.square_method == "hr":
+        stats = cfg.hr_guard != "off"
+        ap, _ = pad_for_hr(a, cfg.nb)
+        r, panels, health = qr_hr(ap, cfg.nb, stats=stats)
+        f = HRFactors(r, panels, cfg.nb, (m, n), scale, health)
+        if not guard_trips(health, cfg, "qr_factor/hr") or cfg.hr_guard != "fallback":
+            return f
+        # fall through to the hh path: `a` is already prescaled and `scale`
+        # already captured, so the fallback reuses both
     ap, _ = pad_to_tiles(a, cfg.nb)
     # the driver works in place: never on the caller's storage
     ap = ap.clone(memory_format=torch.contiguous_format)
@@ -93,10 +136,18 @@ def qr_factor(a, config: Optional[QRConfig] = None) -> QRFactors:
     return QRFactors(packed, r_diag, t_g, panels, cfg.nb, cfg.chunk, (m, n), scale)
 
 
-def apply_q(f: QRFactors, c, trans: bool = False,
-            config: Optional[QRConfig] = None) -> torch.Tensor:
+def apply_q(f, c, trans: bool = False, config: Optional[QRConfig] = None) -> torch.Tensor:
     """C ← Q C (or Qᵀ C). c: (M, P) in the ORIGINAL row dimension."""
     _cfg(config).check_ported()
+    if isinstance(f, HRFactors):
+        mp = f.panels[0][0].shape[0]
+        c = torch.as_tensor(c, dtype=f.r.dtype, device=f.r.device)
+        mc, p = c.shape
+        if mc != f.shape[0]:
+            raise ValueError(f"c rows {mc} != M {f.shape[0]}")
+        cp = c.new_zeros((mp, p))
+        cp[:mc] = c
+        return apply_q_hr(f.panels, cp, f.nb, trans=trans)[:mc]
     mp = f.packed.shape[0]
     c = torch.as_tensor(c, dtype=f.packed.dtype, device=f.packed.device)
     mc, p = c.shape
@@ -109,13 +160,16 @@ def apply_q(f: QRFactors, c, trans: bool = False,
     return out[:mc, :p]
 
 
-def orgqr(f: QRFactors, ncols: Optional[int] = None,
+def orgqr(f, ncols: Optional[int] = None,
           config: Optional[QRConfig] = None) -> torch.Tensor:
     """Form Q explicitly: M×ncols (default: reduced, ncols = min(M, N)),
-    with the xORGQR growing window (panel k skips column tiles < k)."""
+    with the xORGQR growing window (panel k skips columns left of it)."""
     _cfg(config).check_ported()
     m, n = f.shape
     k = min(m, n) if ncols is None else ncols
+    if isinstance(f, HRFactors):
+        mp = f.panels[0][0].shape[0]
+        return orgqr_hr(f.panels, mp, f.nb, max(k, 1))[:m, :k]
     mp = f.packed.shape[0]
     pp = round_up(max(k, 1), f.nb)
     eye_p = torch.eye(mp, pp, dtype=f.packed.dtype, device=f.packed.device)
@@ -124,17 +178,26 @@ def orgqr(f: QRFactors, ncols: Optional[int] = None,
     return out[:m, :k]
 
 
-def qr(a, mode: str = "reduced", config: Optional[QRConfig] = None):
+def _r_of(f) -> torch.Tensor:
+    """R with the prescale folded back in: (K, N_pad) for hr, padded for hh."""
+    if isinstance(f, HRFactors):
+        return f.r * f.scale
+    return assemble_r(f.packed, f.r_diag, f.nb) * f.scale
+
+
+def qr(a, mode: str = "reduced", config: Optional[QRConfig] = None, device=None):
     """Tiled blocked QR. mode: "reduced" → (Q (M,K), R (K,N)); "complete" →
     (Q (M,M), R (M,N)); "r" → R (K,N) only. K = min(M, N)."""
     _check_matrix(a, "qr")
     if mode not in ("reduced", "complete", "r"):
         raise ValueError(f"unknown mode {mode!r}")
     cfg = _cfg(config)
-    f = qr_factor(a, cfg)
+    f = qr_factor(a, cfg, device=device)
     m, n = f.shape
     k = min(m, n)
-    r_full = assemble_r(f.packed, f.r_diag, f.nb) * f.scale
+    r_full = _r_of(f)
+    if r_full.shape[0] < m:  # hr R has K rows; complete mode on tall input needs M
+        r_full = torch.cat([r_full, r_full.new_zeros((m - r_full.shape[0], r_full.shape[1]))])
     if mode == "r":
         return r_full[:k, :n]
     if mode == "reduced":
@@ -142,14 +205,14 @@ def qr(a, mode: str = "reduced", config: Optional[QRConfig] = None):
     return orgqr(f, m, cfg), r_full[:m, :n]
 
 
-def lstsq(a, b, config: Optional[QRConfig] = None) -> torch.Tensor:
+def lstsq(a, b, config: Optional[QRConfig] = None, device=None) -> torch.Tensor:
     """Least-squares solve min ‖Ax − b‖₂ via QR (M >= N, full rank).
 
-    b: (M,) or (M, P). Returns x: (N,) or (N, P): Qᵀb through the tiled
+    b: (M,) or (M, P). Returns x: (N,) or (N, P): Qᵀb through the
     reflectors, then a back-solve on R."""
     _check_matrix(a, "lstsq")
     cfg = _cfg(config)
-    a = torch.as_tensor(a, dtype=cfg.dtype)
+    a = _to_device(a, cfg.dtype, device)
     b_in = torch.as_tensor(b, dtype=cfg.dtype, device=a.device)
     if b_in.dim() not in (1, 2):
         raise ValueError(f"lstsq: b must be (M,) or (M, P), got shape {tuple(b_in.shape)}")
@@ -160,6 +223,6 @@ def lstsq(a, b, config: Optional[QRConfig] = None) -> torch.Tensor:
         raise ValueError("lstsq requires M >= N")
     f = qr_factor(a, cfg)
     qtb = apply_q(f, bmat, trans=True, config=cfg)[:n]
-    r = assemble_r(f.packed, f.r_diag, f.nb)[:n, :n] * f.scale
+    r = _r_of(f)[:n, :n]
     x = torch.linalg.solve_triangular(r, qtb, upper=True)
     return x[:, 0] if vec else x

@@ -6,7 +6,8 @@ validation, so a configuration means the same thing in both packages.
 and ignored (they steer Pallas interpretation and XLA buffer donation,
 which have no counterpart here). ``driver`` is accepted for parity: the
 port has one driver, which takes integer offsets at launch time, so
-"auto", "static" and "dynamic" all run it.
+"auto", "static" and "dynamic" all run it (``resolve_driver`` is kept so
+that the rule reads the same in both packages).
 """
 
 from __future__ import annotations
@@ -27,12 +28,14 @@ class QRConfig:
         columns are produced with rank-1 updates, then the rest of the tile
         gets one block-reflector apply. Clamped to the largest divisor of
         nb not exceeding it.
-      batched_ib, batched_method, hr_guard, hr_guard_tau, mesh_shape: kept
-        for parity with ``tileqr.QRConfig``; the paths that read them are
-        not ported yet (ROADMAP.md queue A).
-      square_method: "hh" (tiled Householder, the ported path) or "hr"
-        (valid value; factoring with it raises NotImplementedError until
-        ROADMAP.md queue A item 4 lands).
+      hr_guard, hr_guard_tau: the hr breakdown guard ("fallback" refactors
+        on the hh path, "warn" keeps the hr factors, "off" runs no check)
+        and its threshold on the panels' health.
+      batched_ib, batched_method, mesh_shape: kept for parity with
+        ``tileqr.QRConfig``; the paths that read them are not ported yet
+        (ROADMAP.md queue A).
+      square_method: "hh" (tiled Householder) or "hr" (CholeskyQR2 panels
+        with Householder reconstruction, ``drivers/square_hr.py``).
       chunk: sub-diagonal couple height in tiles; reduced by the driver to
         the largest divisor of the row-tile count.
       dtype: compute dtype; float32 on the GPU (float64 runs only on the
@@ -63,6 +66,9 @@ class QRConfig:
     prescale: bool = False
     donate: bool = False
 
+    # static-driver panel-count ceiling of driver="auto" in tileqr
+    AUTO_STATIC_MAX_PANELS = 32
+
     def __post_init__(self):
         if self.nb % 8 != 0:
             raise ValueError(f"nb={self.nb} must be a multiple of 8")
@@ -86,13 +92,17 @@ class QRConfig:
                 f"hr_guard={self.hr_guard!r} must be fallback|warn|off"
             )
 
+    def resolve_driver(self, m: int, n: int) -> str:
+        """The driver tileqr would pick for an (m, n) problem ("auto" → the
+        panel-count rule). The port runs one driver whatever this says."""
+        if self.driver != "auto":
+            return self.driver
+        k_max = min(-(-m // self.nb), -(-n // self.nb))
+        return "static" if k_max <= self.AUTO_STATIC_MAX_PANELS else "dynamic"
+
     def check_ported(self) -> None:
         """Raise NotImplementedError for valid settings whose path is not
         ported yet, naming the ROADMAP.md item that brings it."""
-        if self.square_method != "hh":
-            raise NotImplementedError(
-                "square_method='hr' is not ported yet (ROADMAP.md queue A item 4)"
-            )
         if self.precision != "highest":
             raise NotImplementedError(
                 f"precision={self.precision!r} is not ported yet "

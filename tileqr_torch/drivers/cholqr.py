@@ -1,0 +1,109 @@
+"""CholeskyQR helpers of the hr panel, as plain torch.
+
+Counterparts of ``tileqr/drivers/cholqr.py``: the pairwise tall
+contraction ``bdot_pair_rows``, the breakdown guard ``guard_trips``, and the
+matmul-only triangular inverse (``_diag_of``, ``_inv_factors``,
+``_apply_rinv``, ``_triu_inv_doubling``) and ``_up_half``. The POTRF kernel
+itself (B9) is ``tileqr_torch/kernels/potrf.py``. Products accumulate in
+the operand dtype (float32 on the card, never TF32 inside the hr driver;
+float64 on the CPU), as ``acc_type`` does in the reference.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import torch
+
+
+def bdot_pair_rows(x: torch.Tensor, y: torch.Tensor, blk: int = 512,
+                   cap_bytes: int = 1 << 28) -> torch.Tensor:
+    """xᵀ·y contracting the ROW dim of (B, m, p) × (B, m, q) → (B, p, q)
+    with pairwise (binary-tree) block accumulation: block partials from one
+    batched matmul, tree-summed. A single contraction accumulates the m
+    terms in sequence (error ~ √m·eps); the tree's is ~ √(blk + log m)·eps.
+    nblk is capped so the partials stay under ``cap_bytes``."""
+    b, m, p = x.shape
+    q = y.shape[2]
+    itemsize = x.element_size()
+    nblk = min(m // blk, max(1, cap_bytes // max(1, b * p * q * itemsize)))
+    if nblk < 2:
+        return x.transpose(1, 2) @ y
+    be = (m // nblk) // 8 * 8
+    body = nblk * be
+    px = x[:, :body].reshape(b, nblk, be, p)
+    py = y[:, :body].reshape(b, nblk, be, q)
+    parts = px.transpose(2, 3) @ py  # (B, nblk, p, q)
+    if body < m:
+        tail = x[:, body:].transpose(1, 2) @ y[:, body:]
+        parts = torch.cat([parts, tail[:, None]], dim=1)
+    while parts.shape[1] > 1:
+        n2 = parts.shape[1] // 2
+        s = parts[:, 0 : 2 * n2 : 2] + parts[:, 1 : 2 * n2 : 2]
+        if parts.shape[1] % 2:
+            s = torch.cat([s, parts[:, 2 * n2 :]], dim=1)
+        parts = s
+    return parts[:, 0]
+
+
+def guard_trips(health, cfg, where: str) -> bool:
+    """Host check of a CholeskyQR breakdown scalar (the round-1
+    orthogonality defect). True ⇒ it exceeds cfg.hr_guard_tau (or is NaN)
+    and a warning was emitted; the caller decides fallback or keep from
+    cfg.hr_guard. The reference's tracer branch has no counterpart: torch
+    runs eagerly, so the scalar is always concrete."""
+    if health is None:
+        return False
+    h = float(health)
+    if h <= cfg.hr_guard_tau:  # NaN fails the comparison → guard trips
+        return False
+    action = (
+        "falling back to the unconditionally stable Householder path"
+        if cfg.hr_guard == "fallback"
+        else "keeping the CholeskyQR result (hr_guard='warn')"
+    )
+    warnings.warn(
+        f"tileqr_torch hr guard [{where}]: CholeskyQR round-1 orthogonality "
+        f"defect {h:.3e} exceeds hr_guard_tau={cfg.hr_guard_tau:.1e} — the "
+        f"conditioning contract (cond ≲ 1e3 in fp32) is broken; {action}."
+    )
+    return True
+
+
+def _diag_of(r: torch.Tensor) -> torch.Tensor:
+    """(B, n) diagonal. The reference sums r·I because an indexed diagonal
+    lowers to a slow gather on the TPU; here it is a strided view, and the
+    values are the same (adding zeros is exact)."""
+    return torch.diagonal(r, dim1=1, dim2=2)
+
+
+def _inv_factors(r: torch.Tensor):
+    """R = D(I+N) with N strictly upper nilpotent: (dinv, [X, X², X⁴, …])
+    with X = −N, so that R⁻¹ = (I+X)(I+X²)(I+X⁴)… D⁻¹."""
+    n = r.shape[-1]
+    dinv = 1.0 / _diag_of(r)
+    eye = torch.eye(n, dtype=r.dtype, device=r.device)
+    x = eye - r * dinv[:, :, None]
+    pows = [x]
+    for _ in range(1, max(1, (n - 1).bit_length())):
+        pows.append(pows[-1] @ pows[-1])
+    return dinv, pows
+
+
+def _apply_rinv(c: torch.Tensor, dinv: torch.Tensor, pows) -> torch.Tensor:
+    """C ← C R⁻¹ without forming R⁻¹: ((C(I+X))(I+X²))…·D⁻¹."""
+    for p in pows:
+        c = c + c @ p
+    return c * dinv[:, None, :]
+
+
+def _triu_inv_doubling(r: torch.Tensor) -> torch.Tensor:
+    """Batched upper-triangular inverse, matmul only (see _inv_factors)."""
+    dinv, pows = _inv_factors(r)
+    eye = torch.eye(r.shape[-1], dtype=r.dtype, device=r.device)
+    return _apply_rinv(eye.expand(r.shape), dinv, pows)
+
+
+def _up_half(e: torch.Tensor) -> torch.Tensor:
+    """up(E): strict upper + half diagonal of a (B, n, n) stack."""
+    return torch.triu(e, 1) + torch.diag_embed(torch.diagonal(e, dim1=1, dim2=2) * 0.5)

@@ -1,10 +1,12 @@
 """Moving factors between the JAX package and the port.
 
-QR has no weights: its state is the packed factors. These helpers convert
-the static driver's ``QRFactors`` (``packed``, ``r_diag``, ``t_geqrt``,
-``panels``, ``nb``, ``chunk``, ``shape``, ``scale``) between numpy arrays
-and the port's torch tensors, so that either package's ``apply_q`` /
-``orgqr`` can consume factors the other made. Neither direction imports
+QR has no weights: its state is the factors. These helpers convert the
+static driver's ``QRFactors`` (``packed``, ``r_diag``, ``t_geqrt``,
+``panels``, ``nb``, ``chunk``, ``shape``, ``scale``) and the hr path's
+``HRFactors`` (``r``, ``panels`` as (Y_k, T_k), ``nb``, ``shape``,
+``scale``, ``health``) between numpy arrays and the port's torch tensors,
+so that either package's ``apply_q`` / ``orgqr`` can consume factors the
+other made. Neither direction imports
 jax: the JAX side is reached through ``numpy.asarray`` on its arrays.
 """
 
@@ -15,7 +17,16 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from tileqr_torch.api import QRFactors
+from tileqr_torch.api import HRFactors, QRFactors
+
+
+def _scalar_from(x, t):
+    return x if x is None or isinstance(x, float) else t(x)
+
+
+def _scalar_to(x):
+    return x if x is None or isinstance(x, float) else np.asarray(x.detach().cpu())
+
 
 def factors_from_numpy(f: Any, device=None, dtype=None) -> QRFactors:
     """A mapping or NamedTuple with the QRFactors fields (arrays as numpy
@@ -26,9 +37,7 @@ def factors_from_numpy(f: Any, device=None, dtype=None) -> QRFactors:
     def t(x):
         return torch.as_tensor(np.array(x), device=device, dtype=dtype)
 
-    scale = d.get("scale", 1.0)
-    if not isinstance(scale, float):
-        scale = t(scale)
+    scale = _scalar_from(d.get("scale", 1.0), t)
     return QRFactors(
         t(d["packed"]), t(d["r_diag"]), t(d["t_geqrt"]),
         tuple(tuple(t(x) for x in p) for p in d["panels"]),
@@ -43,10 +52,38 @@ def factors_to_numpy(f: QRFactors) -> Dict[str, Any]:
     def n(x):
         return x.detach().cpu().numpy()
 
-    scale = f.scale if isinstance(f.scale, float) else n(f.scale)
+    scale = _scalar_to(f.scale)
     out = dict(zip(QRFactors._fields, (
         n(f.packed), n(f.r_diag), n(f.t_geqrt),
         tuple(tuple(n(x) for x in p) for p in f.panels),
         f.nb, f.chunk, tuple(f.shape), scale,
     )))
     return out
+
+
+def hr_factors_from_numpy(f: Any, device=None, dtype=None) -> HRFactors:
+    """A mapping or NamedTuple with the HRFactors fields → the port's
+    HRFactors on ``device``."""
+    d = f._asdict() if hasattr(f, "_asdict") else dict(f)
+
+    def t(x):
+        return torch.as_tensor(np.array(x), device=device, dtype=dtype)
+
+    return HRFactors(
+        t(d["r"]), tuple((t(y), t(tk)) for y, tk in d["panels"]), int(d["nb"]),
+        tuple(int(s) for s in d["shape"]), _scalar_from(d.get("scale", 1.0), t),
+        _scalar_from(d.get("health"), t),
+    )
+
+
+def hr_factors_to_numpy(f: HRFactors) -> Dict[str, Any]:
+    """The port's HRFactors → a dict of numpy arrays under the HRFactors
+    field names (``tileqr.api.HRFactors(**d)`` rebuilds the JAX record)."""
+
+    def n(x):
+        return x.detach().cpu().numpy()
+
+    return dict(zip(HRFactors._fields, (
+        n(f.r), tuple((n(y), n(t)) for y, t in f.panels), f.nb, tuple(f.shape),
+        _scalar_to(f.scale), _scalar_to(f.health),
+    )))

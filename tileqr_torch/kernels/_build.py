@@ -1,10 +1,13 @@
 """Build, load and count the CUDA kernels.
 
 At first use, every ``tileqr_torch/csrc/*.cu`` file is compiled by ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, under
+for ``sm_90a`` (one ``nvcc`` process per source, all started together),
+linked into one shared library with a plain C interface under
 ``build/tileqr_torch/<hash of the sources>/``, and loaded with ``ctypes``.
 Nothing is compiled or loaded when a module is imported, and nothing falls
-back: a CUDA tensor with no ``nvcc`` raises.
+back: a CUDA tensor with no ``nvcc`` raises. ``NVCC_FLAGS`` carries no
+``--use_fast_math``: the Kahan compensation of ``panel_apply_carry``
+needs its float ops kept as written.
 
 The launch and call counts let a run show which path it took: each CUDA
 wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel, and
@@ -25,7 +28,9 @@ from typing import Optional
 
 import torch
 
-KERNELS = ("panel_factor", "panel_chain", "couple_strip", "larfb_strip")
+HH_KERNELS = ("panel_factor", "panel_chain", "couple_strip", "larfb_strip")
+HR_KERNELS = ("modified_lu", "potrf_batched", "panel_apply_carry")
+KERNELS = HH_KERNELS + HR_KERNELS
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
 
@@ -33,7 +38,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tileqr_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -53,6 +58,12 @@ SIGNATURES = {
     "tq_larfb_strip": (_P, _P, _P, _L, _I, _I, _I, _P),
     # panel_factor / panel_chain workspace size in floats: nb, rows, ib
     "tq_geqrt_work_floats": (_I, _I, _I),
+    # lu (in place), n, d, stream
+    "tq_modified_lu": (_P, _I, _P, _P),
+    # r (in place), batch, n, bp, stream
+    "tq_potrf_batched": (_P, _I, _I, _I, _P),
+    # y, tm, c, ldc, m, n, nb, mr, w, stream
+    "tq_panel_apply_carry": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -100,17 +111,27 @@ def build() -> Path:
         return out
     t0 = time.perf_counter()
     out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     cu, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs = [os.path.join(tmpdir, p.stem + ".o") for p in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)] for p, o in zip(cu, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for c in cmds]
+        errs = [p.communicate()[1] for p in procs]
+        failed = [(c, p.returncode, e) for c, p, e in zip(cmds, procs, errs)
+                  if p.returncode != 0]
+        if not failed:
+            tmp = os.path.join(tmpdir, out.name)
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                failed = [(cmd, proc.returncode, proc.stderr)]
+        if failed:
+            raise RuntimeError("\n".join(
+                f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{err}" for cmd, rc, err in failed
+            ))
+        os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -1,0 +1,136 @@
+"""Device time per CUDA kernel of one factorization, by torch.profiler.
+
+    python -m tileqr_torch.utils.profile --n 16384 --method hr [--qr] [--health]
+
+Builds the kernels, runs ``qr_factor`` (or, with ``--qr``, ``qr``) once
+warm on a gaussian fp32 (n, n) A made from ``--seed``, then once more under
+``torch.profiler``, and prints the device time of every CUDA kernel name
+(launches, total ms, share of the device total), the same summed over
+groups (this package's kernels by name, cuBLAS GEMMs as "torch.matmul",
+everything else as "other torch ops"), the wall time of the profiled call
+and the device's idle share of it. With ``--health`` (hr only) it also prints
+each panel's round-1 orthogonality defect, whose max is the hr health.
+The card's name and power limit from nvidia-smi head the output. Needs a
+CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+# CUDA kernel name fragments of this package's kernels (csrc/*.cu)
+OWN = {
+    "panel_factor_kernel": "panel_factor",
+    "panel_chain_kernel": "panel_chain",
+    "couple_strip_kernel": "couple_strip",
+    "larfb_strip_kernel": "larfb_strip",
+    "modlu_kernel": "modified_lu",
+    "potrf_kernel": "potrf_batched",
+    "project_kernel": "panel_apply_carry (phase 1)",
+    "apply_kernel": "panel_apply_carry (phase 2)",
+}
+
+
+def group_of(name: str) -> str:
+    for frag, g in OWN.items():
+        if frag in name:
+            return g
+    if "gemm" in name.lower() or "xmma" in name or "cutlass" in name.lower():
+        return "torch.matmul (cuBLAS)"
+    return "other torch ops"
+
+
+def kernel_times(prof) -> dict:
+    """{kernel name: (launches, device ms)} from the profiler's events."""
+    out = defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        rec = out[e.name]
+        rec[0] += 1
+        rec[1] += e.time_range.elapsed_us() / 1e3
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def panel_health(a: torch.Tensor, cfg) -> list:
+    """Each panel's round-1 defect over the hr driver's panel loop on A
+    (``square_hr.hr_steps``), unscaled: prescaling by a power of two
+    changes no defect."""
+    from tileqr_torch.drivers import square_hr
+
+    ap, _ = square_hr.pad_for_hr(a, cfg.nb)
+    return [float(h) for _, _, h in square_hr.hr_steps(ap, cfg.nb, stats=True)]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n", type=int, default=16384)
+    ap.add_argument("--method", choices=("hh", "hr"), default="hr")
+    ap.add_argument("--qr", action="store_true", help="profile qr (factor + R + Q)")
+    ap.add_argument("--health", action="store_true", help="hr: print each panel's defect")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile needs a CUDA device")
+
+    import tileqr_torch
+    from tileqr_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    _build.lib()
+    cfg = tileqr_torch.QRConfig(square_method=args.method)
+    rng = np.random.default_rng(args.seed)
+    a = torch.from_numpy(rng.standard_normal((args.n, args.n), dtype=np.float32)).cuda()
+
+    def call():
+        if args.qr:
+            return tileqr_torch.qr(a, config=cfg)
+        return tileqr_torch.qr_factor(a, cfg)
+
+    call()  # warm: build, cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    kt = kernel_times(prof)
+    total = sum(ms for _, ms in kt.values())
+    what = "qr" if args.qr else "qr_factor"
+    print(f"{args.method} {what} {args.n}x{args.n}: wall {wall_ms:.3f} ms under the profiler, "
+          f"device total {total:.3f} ms, idle share {max(0.0, 1 - total / wall_ms):.4f} [{card}]")
+    groups = defaultdict(lambda: [0, 0.0])
+    for name, (cnt, ms) in kt.items():
+        g = groups[group_of(name)]
+        g[0] += cnt
+        g[1] += ms
+    print("group | launches | device ms | share")
+    for g, (cnt, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
+        print(f"{g} | {cnt} | {ms:.3f} | {ms / max(total, 1e-9):.4f}")
+    print("kernel | launches | device ms | share")
+    for name, (cnt, ms) in sorted(kt.items(), key=lambda kv: -kv[1][1])[:25]:
+        print(f"{name[:110]} | {cnt} | {ms:.3f} | {ms / max(total, 1e-9):.4f}")
+    if args.health and args.method == "hr":
+        hs = panel_health(a, cfg)
+        top = sorted(range(len(hs)), key=lambda k: -hs[k])[:6]
+        print(f"hr panel health (round-1 defect) over {len(hs)} panels: max {max(hs):.3e} at "
+              f"panel {top[0]}, median {float(np.median(hs)):.3e}; largest: "
+              + ", ".join(f"panel {k} ({args.n - k * cfg.nb} rows) {hs[k]:.3e}" for k in top))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
