@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two square paths on one GPU and check them.
+"""Drive the PyTorch/CUDA port's square, tall-skinny and batched paths on
+one GPU and check them.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -40,7 +41,36 @@ use (one nvcc per source, in parallel), then:
    apply's rounding: above 1e-6 it is printed as a shortfall against the
    1e-6 target and held only to a 3e-6 regression bound;
 6. times the hr ``qr_factor``, ``qr`` and ``torch.linalg.qr(mode="r")`` at
-   16384².
+   16384²;
+7. the tall-skinny path at BASELINE config 3, a 1048576×512 gaussian A with
+   ``QRConfig(nb=512)``: holds the batched GEQRT kernel against its plain
+   version on the 512 leaves of 2048 rows and on the first tree level's
+   (128, 2048, 512) stack, and times it beside its plain version and
+   ``torch.geqrf`` on the leaf stack; runs ``tsqr(a, "r")`` (auto → tree)
+   with the counts set to 0 just before and read just after (6 launches of
+   the kernel: the leaves and 5 levels; no other kernel, no plain version)
+   and ``tsqr(a, "reduced")``, and checks the relerr ‖QᵀA − [R; 0]‖F/‖A‖F
+   through ``apply_q`` on the tree's ``TSQRFactors`` ≤ 1e-6, the explicit-Q
+   residual ≤ 3e-6, ‖QᵀQ − I‖F ≤ 1e-3, R against ``torch.linalg.qr`` up to
+   row signs (printed), bitwise reruns; then ``tsqr(a, "factor")`` (auto →
+   cholqr2 → ``HRFactors``): health ≤ hr_guard_tau with no guard warning,
+   B9 and B8 launched at n = 512, the relerr with Qᵀ applied in float64
+   ≤ 1e-6, and the fp32 ``apply_q`` relerr printed (held to 3e-6 when above
+   1e-6, as for hr); times ``tsqr`` r (tree), factor (cholqr2), factor +
+   ``apply_q`` on 16 columns and ``torch.linalg.qr(mode="r")``;
+8. the batched path at BASELINE config 4, a (4096, 128, 128) gaussian
+   stack with the default QRConfig: holds the kernel against its plain
+   version at ib = 32 (``qr_batched``'s width) and ib = 128, and ``geqrt``
+   on one 256² tile (the global-workspace variant), each timed beside
+   ``torch.geqrf``; runs ``qr_batched(a)`` with the counts set to 0 just
+   before and read just after (one kernel launch, no plain version) and
+   checks the max over the batch of ‖A − QR‖F/‖A‖F ≤ 1e-6 and of
+   ‖QᵀQ − I‖F ≤ 1e-3 and bitwise reruns; with
+   ``batched_method="cholqr2"`` the guard must trip on the gaussian stack
+   (its ill-conditioned tail) and the fallback meet the same gates, and on
+   a well-conditioned stack (G + 4·√128·I) must not trip: health ≤ tau,
+   one B9 launch, no GEQRT launch, the same gates; times both methods
+   beside ``torch.linalg.qr`` on the stack.
 
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
@@ -68,6 +98,9 @@ TOL_KERNEL = 1e-5
 TOL_RELERR, TOL_RESID, TOL_ORTH, TOL_LSTSQ = 1e-6, 3e-6, 1e-3, 1e-5
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM fp32 CUDA cores, HBM3
 
+M_TS, N_TS, NB_TS = 1048576, 512, 512  # BASELINE config 3 (tall-skinny)
+B_BA, N_BA = 4096, 128  # BASELINE config 4 (batched)
+
 KERNEL_INFO = {
     "panel_factor": ("tileqr_torch/csrc/panel.cu", "tileqr/kernels/panel.py:90"),
     "panel_chain": ("tileqr_torch/csrc/chain.cu", "tileqr/kernels/chain.py:83"),
@@ -77,6 +110,9 @@ KERNEL_INFO = {
     "potrf_batched": ("tileqr_torch/csrc/potrf.cu", "tileqr/drivers/cholqr.py:203"),
     "panel_apply_carry": ("tileqr_torch/csrc/panel_apply.cu",
                           "tileqr/kernels/panel_apply.py:227"),
+    "geqrt_batched": ("tileqr_torch/csrc/geqrt_batched.cu",
+                      "tileqr/drivers/tsqr.py:217, tileqr/drivers/batched.py:167, "
+                      "tileqr/drivers/batched.py:41, tileqr/kernels/geqrt.py:225"),
 }
 
 
@@ -131,21 +167,30 @@ class KernelRecord:
             require(np.isfinite(r) and r <= TOL_KERNEL,
                     f"{name} {label} output {i} differs from its plain version: {r:.3e}")
 
-    def set_bound(self, name: str, flops: float, nbytes: float) -> None:
+    @staticmethod
+    def bound_of(flops: float, nbytes: float):
         t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        self.bound[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
-    def time(self, name: str, kern, plain, library, reps: int, preps: int, card: str) -> None:
+    def set_bound(self, name: str, flops: float, nbytes: float) -> None:
+        self.bound[name] = self.bound_of(flops, nbytes)
+
+    def time(self, name: str, kern, plain, library, reps: int, preps: int, card: str,
+             label: str = "", bound=None) -> None:
+        """Times of the kernel, its plain version and the library call. With
+        a label (another shape of the same kernel) they are printed only,
+        beside that shape's ``bound`` (from ``bound_of``)."""
         for fn in (kern, plain, library):
             if fn is not None:
                 fn()
         torch.cuda.synchronize()
-        self.ms[name] = cuda_ms(kern, reps)
-        self.plain_ms[name] = cuda_ms(plain, preps)
-        self.library_ms[name] = cuda_ms(library, reps) if library is not None else None
-        lib = "none" if library is None else f"{self.library_ms[name]:.4f} ms"
-        b, by = self.bound[name]
-        print(f"time {name}: kernel {self.ms[name]:.4f} ms, plain {self.plain_ms[name]:.4f} ms, "
+        ms, pms = cuda_ms(kern, reps), cuda_ms(plain, preps)
+        lms = cuda_ms(library, reps) if library is not None else None
+        if not label:
+            self.ms[name], self.plain_ms[name], self.library_ms[name] = ms, pms, lms
+        lib = "none" if library is None else f"{lms:.4f} ms"
+        b, by = bound if label else self.bound[name]
+        print(f"time {name}{' ' + label if label else ''}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
               f"library {lib}, bound {b:.4f} ms ({by}) [{card}]")
 
     def line(self, launches: dict) -> list:
@@ -369,7 +414,7 @@ def phase4(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
     del parts
 
     rec.compare("potrf_batched", "panel 0 gram (1, 256, 256)",
-                [potrf.potrf_batched(g, group=1)], [potrf.potrf_batched_plain(g, group=1)])
+                [potrf.potrf_batched(g)], [potrf.potrf_batched_plain(g)])
     got, want = modlu.modified_lu(q_top), modlu.modified_lu_plain(q_top)
     require(torch.equal(got[1], want[1]), "modified_lu signs differ from the plain version")
     rec.compare("modified_lu", "panel 0 Q_top (256, 256)", [got[0]], [want[0]])
@@ -440,12 +485,230 @@ def phase4(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
         del c, win, win_c
 
     with square_hr._highest():
-        rec.time("potrf_batched", lambda: potrf.potrf_batched(g, group=1),
-                 lambda: potrf.potrf_batched_plain(g, group=1),
+        rec.time("potrf_batched", lambda: potrf.potrf_batched(g),
+                 lambda: potrf.potrf_batched_plain(g),
                  lambda: torch.linalg.cholesky(g, upper=True), 20, 2, card)
         rec.time("modified_lu", lambda: modlu.modified_lu(q_top),
                  lambda: modlu.modified_lu_plain(q_top),
                  lambda: torch.linalg.lu_factor(shifted, pivot=False), 20, 2, card)
+
+
+def sign_fixed_rel(r: torch.Tensor, ref: torch.Tensor) -> float:
+    """‖R − R_ref‖F/‖R_ref‖F after matching R's row signs to R_ref's."""
+    s = torch.sign(torch.diagonal(r)) * torch.sign(torch.diagonal(ref))
+    s[s == 0] = 1
+    return rel(r * s[:, None], ref)
+
+
+def run_counted(fn, own: tuple, expect: dict, what: str):
+    """fn() with the counts set to 0 just before and read just after:
+    ``own`` kernels must launch (as often as ``expect`` says, where it
+    does), every other kernel and every plain version must not."""
+    from tileqr_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # a guard trip fails the run
+        _build.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    print(f"{what} launches {json.dumps(launches)} plain_calls {json.dumps(plain)}")
+    require(all(launches[k] >= 1 for k in own), f"{what}: a kernel never launched: {launches}")
+    require(all(launches[k] == v for k, v in expect.items()), f"{what}: launches {launches}")
+    require(not any(v for k, v in launches.items() if k not in own),
+            f"{what} launched other kernels: {launches}")
+    require(not any(plain.values()), f"a plain version ran in {what}: {plain}")
+    return out, launches
+
+
+def geqrt_bound(b: int, m: int, n: int):
+    """(ms, binds) of GEQRT on a (b, m, n) stack: read A, write packed and T."""
+    return KernelRecord.bound_of(b * geqrf_flops(m, n), 4.0 * b * (2 * m * n + n * n))
+
+
+def phase7(rec: KernelRecord, rng, card: str) -> int:
+    """The tall-skinny path at config 3; returns the kernel's launches in
+    its ``tsqr`` run."""
+    import tileqr_torch
+    from tileqr_torch.drivers import tsqr as dtsqr
+    from tileqr_torch.drivers.square_hr import apply_q_hr
+    from tileqr_torch.kernels import geqrt
+    from tileqr_torch.utils.verify import backward_error_f64, residuals_f64
+
+    m, n = M_TS, N_TS
+    cfg = tileqr_torch.QRConfig(nb=NB_TS)
+    a = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32)).cuda()
+    lr = dtsqr.auto_leaf_rows(m, n)
+    p = m // lr
+    leaves = a.view(p, lr, n)
+
+    # the kernel on the leaves, and on the first level's stack as
+    # tsqr_factor forms it from the leaves' R factors
+    got = geqrt.geqrt_batched(leaves, IB)
+    want = geqrt.geqrt_batched_plain(leaves, IB)
+    rec.compare("geqrt_batched", f"tsqr leaves ({p}, {lr}, {n}) ib={IB}", got, want)
+    del want
+    a_l = dtsqr._tree_plan(p, n, lr, 8)[0][1]
+    stack = torch.triu(got[0].view(p, lr, n)[:, :n]).reshape(p // a_l, a_l * n, n)
+    del got
+    rec.compare("geqrt_batched", f"tsqr level 1 {tuple(stack.shape)} ib={IB}",
+                geqrt.geqrt_batched(stack, IB), geqrt.geqrt_batched_plain(stack, IB))
+    del stack
+    torch.cuda.empty_cache()
+    rec.bound["geqrt_batched"] = geqrt_bound(p, lr, n)
+    rec.time("geqrt_batched", lambda: geqrt.geqrt_batched(leaves, IB),
+             lambda: geqrt.geqrt_batched_plain(leaves, IB), lambda: torch.geqrf(leaves),
+             2, 1, card)
+    torch.cuda.empty_cache()
+
+    # the path: tsqr r (auto → tree)
+    r, launches = run_counted(lambda: tileqr_torch.tsqr(a, "r", cfg), ("geqrt_batched",),
+                              {"geqrt_batched": 1 + len(dtsqr._tree_plan(p, n, lr, 8))},
+                              "tsqr r (auto → tree)")
+    require(tuple(r.shape) == (n, n) and bool(torch.isfinite(r).all()), "tsqr R shape/finite")
+    same = torch.equal(r, tileqr_torch.tsqr(a, "r", cfg))
+    print(f"tsqr r rerun bitwise equal: {same}")
+    require(same, "tsqr r reruns differ")
+    rc = torch.linalg.qr(a, mode="r")[1]
+    print(f"tsqr {m}x{n}: R vs torch.linalg.qr's R (row signs matched): "
+          f"rel_fro={sign_fixed_rel(r, rc):.3e} [{card}]")
+    del rc
+    f = tileqr_torch.tsqr(a, "factor", cfg, strategy="tree")
+    require(isinstance(f, tileqr_torch.TSQRFactors) and torch.equal(f.r[:n, :n], r),
+            "tree TSQRFactors differ from tsqr r")
+    relerr = backward_error_f64(a, tileqr_torch.apply_q(f, a, trans=True), r)
+    print(f"tsqr tree {m}x{n}: relerr ||Q^T A - [R; 0]||F/||A||F = {relerr:.3e} [{card}]")
+    require(relerr <= TOL_RELERR, f"tsqr relerr {relerr:.3e} > {TOL_RELERR}")
+    del f
+    torch.cuda.empty_cache()
+    q, r2 = tileqr_torch.tsqr(a, "reduced", cfg)
+    require(tuple(q.shape) == (m, n) and torch.equal(r2, r), "tsqr reduced Q shape / R")
+    res = residuals_f64(a, q, r2)
+    print(f"tsqr tree {m}x{n}: explicit-Q residual={res['relerr']:.3e} orth={res['orth']:.3e} "
+          f"[{card}]")
+    require(res["relerr"] <= TOL_RESID and res["orth"] <= TOL_ORTH, f"tsqr reduced: {res}")
+    del q, r2
+    torch.cuda.empty_cache()
+
+    # tsqr factor (auto → cholqr2 → HRFactors)
+    f, _ = run_counted(lambda: tileqr_torch.tsqr(a, "factor", cfg),
+                       ("potrf_batched", "modified_lu"), {}, "tsqr factor (auto → cholqr2)")
+    h = float(f.health)
+    print(f"tsqr factor {m}x{n}: HRFactors health {h:.3e}, hr_guard_tau {cfg.hr_guard_tau}")
+    require(isinstance(f, tileqr_torch.HRFactors) and f.nb == n and h <= cfg.hr_guard_tau,
+            f"tsqr factor health {h:.3e}")
+    rf = f.r[:n, :n]
+    panels64 = [(y.double(), t.double()) for y, t in f.panels]
+    rel64 = backward_error_f64(a, apply_q_hr(panels64, a.double(), f.nb, trans=True), rf)
+    del panels64
+    print(f"tsqr cholqr2 {m}x{n}: relerr, Q^T applied in float64 = {rel64:.3e} [{card}]")
+    require(rel64 <= TOL_RELERR, f"tsqr cholqr2 relerr {rel64:.3e} > {TOL_RELERR}")
+    rel32 = backward_error_f64(a, tileqr_torch.apply_q(f, a, trans=True), rf)
+    verdict = ("within the 1e-6 target" if rel32 <= TOL_RELERR else
+               f"SHORTFALL against the 1e-6 target (regression bound {TOL_RESID})")
+    print(f"tsqr cholqr2 {m}x{n}: relerr with the fp32 apply_q = {rel32:.3e}: {verdict} [{card}]")
+    require(rel32 <= TOL_RESID, f"tsqr cholqr2 fp32 apply_q relerr {rel32:.3e} > {TOL_RESID}")
+    del f, rf
+    torch.cuda.empty_cache()
+
+    flops = 2.0 * n * n * (m - n / 3.0)
+    c16 = torch.from_numpy(rng.standard_normal((m, 16), dtype=np.float32)).cuda()
+
+    def factor_apply():
+        return tileqr_torch.apply_q(tileqr_torch.tsqr(a, "factor", cfg), c16, trans=True)
+
+    for label, fn in (("tsqr r (tree)", lambda: tileqr_torch.tsqr(a, "r", cfg)),
+                      ("tsqr factor (cholqr2)", lambda: tileqr_torch.tsqr(a, "factor", cfg)),
+                      ("tsqr factor + apply_q (16 columns)", factor_apply),
+                      ("torch.linalg.qr(mode='r') (cuSOLVER reference)",
+                       lambda: torch.linalg.qr(a, mode="r"))):
+        fn()
+        t = cuda_ms(fn, 3)
+        print(f"{label} {m}x{n}: {t:.3f} ms, {flops / t / 1e9:.3f} TFLOP/s [{card}]")
+    del a, leaves, c16
+    torch.cuda.empty_cache()
+    return launches["geqrt_batched"]
+
+
+def batched_gates(a: torch.Tensor, q: torch.Tensor, r: torch.Tensor, what: str, card: str):
+    a64, q64, r64 = a.double(), q.double(), r.double()
+    res = torch.linalg.norm(a64 - q64 @ r64, dim=(1, 2)) / torch.linalg.norm(a64, dim=(1, 2))
+    eye = torch.eye(q.shape[2], dtype=torch.float64, device=q.device)
+    orth = torch.linalg.norm(q64.transpose(1, 2) @ q64 - eye, dim=(1, 2))
+    res, orth = float(res.max()), float(orth.max())
+    print(f"{what}: max residual ||A-QR||F/||A||F {res:.3e}, max orth {orth:.3e} [{card}]")
+    require(res <= TOL_RELERR and orth <= TOL_ORTH, f"{what}: residual {res:.3e} orth {orth:.3e}")
+
+
+def phase8(rec: KernelRecord, rng, card: str) -> int:
+    """The batched path at config 4; returns the kernel's launches in its
+    ``qr_batched`` run."""
+    import tileqr_torch
+    from tileqr_torch.drivers import cholqr
+    from tileqr_torch.kernels import geqrt
+
+    b, n = B_BA, N_BA
+    hh = tileqr_torch.QRConfig()
+    a = torch.from_numpy(rng.standard_normal((b, n, n), dtype=np.float32)).cuda()
+    for ib in (hh.batched_ib, IB):
+        rec.compare("geqrt_batched", f"batch ({b}, {n}, {n}) ib={ib}",
+                    geqrt.geqrt_batched(a, ib), geqrt.geqrt_batched_plain(a, ib))
+        rec.time("geqrt_batched", lambda: geqrt.geqrt_batched(a, ib),
+                 lambda: geqrt.geqrt_batched_plain(a, ib), lambda: torch.geqrf(a),
+                 5, 1, card, label=f"batch ({b}, {n}, {n}) ib={ib}", bound=geqrt_bound(b, n, n))
+    tile = torch.from_numpy(rng.standard_normal((2 * n, 2 * n), dtype=np.float32)).cuda()
+    rec.compare("geqrt_batched", "geqrt one (256, 256) tile ib=128",
+                geqrt.geqrt(tile), [x[0] for x in geqrt.geqrt_batched_plain(tile[None], IB)])
+    rec.time("geqrt_batched", lambda: geqrt.geqrt(tile),
+             lambda: geqrt.geqrt_batched_plain(tile[None], IB), lambda: torch.geqrf(tile),
+             10, 2, card, label="geqrt one (256, 256) tile ib=128",
+             bound=geqrt_bound(1, 2 * n, 2 * n))
+
+    (q, r), launches = run_counted(lambda: tileqr_torch.qr_batched(a, config=hh),
+                                   ("geqrt_batched",), {"geqrt_batched": 1},
+                                   "qr_batched (hh)")
+    batched_gates(a, q, r, f"qr_batched hh ({b}, {n}, {n})", card)
+    q2, r2 = tileqr_torch.qr_batched(a, config=hh)
+    same = torch.equal(q, q2) and torch.equal(r, r2)
+    print(f"qr_batched rerun bitwise equal: {same}")
+    require(same, "qr_batched reruns differ")
+    del q, r, q2, r2
+
+    ch = tileqr_torch.QRConfig(batched_method="cholqr2")
+    h = float(cholqr.cholqr2_batched(a, mode="r", stats=True)[1])
+    print(f"cholqr2 on the gaussian stack: health {h:.3e} (tau {ch.hr_guard_tau})")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        q, r = tileqr_torch.qr_batched(a, config=ch)
+    require(any("hr guard" in str(w.message) for w in caught),
+            "the cholqr2 guard did not trip on the gaussian stack")
+    batched_gates(a, q, r, "qr_batched cholqr2 → guard → hh fallback", card)
+    del q, r
+    eye = torch.eye(n, device=a.device)
+    wc = a + 4 * float(np.sqrt(n)) * eye
+    h = float(cholqr.cholqr2_batched(wc, mode="r", stats=True)[1])
+    print(f"cholqr2 on G + 4*sqrt({n})*I: health {h:.3e} (tau {ch.hr_guard_tau})")
+    require(h <= ch.hr_guard_tau, f"well-conditioned stack health {h:.3e}")
+    (q, r), _ = run_counted(lambda: tileqr_torch.qr_batched(wc, config=ch), ("potrf_batched",),
+                            {"potrf_batched": 1}, "qr_batched (cholqr2, well-conditioned)")
+    batched_gates(wc, q, r, "qr_batched cholqr2 (well-conditioned)", card)
+    del q, r
+
+    flops = b * 2.0 * n * n * (n - n / 3.0)
+    for label, x, fn in (
+            ("qr_batched hh", a, lambda: tileqr_torch.qr_batched(a, config=hh)),
+            ("qr_batched cholqr2 (well-conditioned stack)", wc,
+             lambda: tileqr_torch.qr_batched(wc, config=ch)),
+            ("torch.linalg.qr (reduced)", a, lambda: torch.linalg.qr(a)),
+            ("torch.linalg.qr (reduced, well-conditioned stack)", wc,
+             lambda: torch.linalg.qr(wc))):
+        fn()
+        t = cuda_ms(fn, 5)
+        print(f"{label} ({b}, {n}, {n}): {t:.3f} ms, {flops / t / 1e9:.3f} TFLOP/s [{card}]")
+    del a, wc, tile
+    torch.cuda.empty_cache()
+    return launches["geqrt_batched"]
 
 
 def main() -> int:
@@ -489,6 +752,14 @@ def main() -> int:
     time_path(a, hr, "hr", card, 2)
 
     launches.update({k: hr_launches[k] for k in _build.HR_KERNELS})
+    del a
+    torch.cuda.empty_cache()
+
+    # the tall-skinny and batched paths at BASELINE configs 3 and 4
+    ts = phase7(rec, rng, card)
+    ba = phase8(rec, rng, card)
+    print(f"geqrt_batched launches: {ts} in tsqr r, {ba} in qr_batched")
+    launches["geqrt_batched"] = ts + ba
     print(json.dumps({"kernels": rec.line(launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {

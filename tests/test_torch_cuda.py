@@ -1,5 +1,5 @@
 """tileqr_torch's CUDA kernels on the card, against their plain versions,
-and both square paths (hh and hr) end to end.
+both square paths (hh and hr), tsqr and qr_batched end to end.
 
 Every test here needs a CUDA device and carries the ``cuda_only`` marker;
 without a device the ``cuda`` fixture skips it. Run them on a machine with
@@ -17,7 +17,7 @@ import pytest
 import torch
 
 import tileqr_torch
-from tileqr_torch.kernels import _build, chain, modlu, panel, panel_apply, potrf
+from tileqr_torch.kernels import _build, chain, geqrt, modlu, panel, panel_apply, potrf
 from tileqr_torch.utils.verify import backward_error_f64, residuals_f64
 
 pytestmark = pytest.mark.cuda_only
@@ -136,9 +136,9 @@ def test_potrf_and_modlu_match_plain(cuda, nb):
     rng = np.random.default_rng(nb)
     x = torch.from_numpy(rng.standard_normal((4, 3 * nb, nb), dtype=np.float32)).to(cuda)
     g = x.transpose(1, 2) @ x
-    for b, group in ((1, 1), (4, 2)):
-        got = potrf.potrf_batched(g[:b], group=group)
-        want = potrf.potrf_batched_plain(g[:b], group=group)
+    for b in (1, 4):
+        got = potrf.potrf_batched(g[:b])
+        want = potrf.potrf_batched_plain(g[:b])
         torch.cuda.synchronize()
         assert rel(got, want) <= TOL
         assert not torch.tril(got, -1).any()
@@ -216,3 +216,100 @@ def test_hr_pins_ieee_fp32_and_numpy_input_runs_on_the_card(cuda):
     assert q.device.type == "cuda" and r.device.type == "cuda"
     assert all(_build.LAUNCHES[k] > 0 for k in _build.HR_KERNELS)
     assert residuals_f64(torch.from_numpy(a).to(cuda), q, r)["relerr"] <= 3e-6
+
+
+# (B, m, n, ib): the shared-memory variant (up to 4(mn + n² + m) <= 200 KiB,
+# m < n included) and the global-workspace one (a tall leaf, a 256² tile,
+# and n = 8 leaves of 131072 rows whose reflector is past shared memory)
+GEQRT_CASES = [(64, 128, 128, 32), (16, 128, 128, 128), (5, 72, 40, 32), (3, 32, 48, 16),
+               (3, 2048, 64, 64), (2, 256, 256, 128), (2, 131072, 8, 8)]
+
+
+@pytest.mark.parametrize("b,m,n,ib", GEQRT_CASES,
+                         ids=[f"{b}x{m}x{n}-ib{ib}" for b, m, n, ib in GEQRT_CASES])
+def test_geqrt_batched_matches_plain(cuda, b, m, n, ib):
+    a = torch.from_numpy(np.random.default_rng(m + n).standard_normal(
+        (b, m, n), dtype=np.float32)).to(cuda)
+    before = a.clone()
+    got = geqrt.geqrt_batched(a, ib)
+    again = geqrt.geqrt_batched(a, ib)
+    want = geqrt.geqrt_batched_plain(a, ib)
+    torch.cuda.synchronize()
+    assert torch.equal(a, before)  # the input is read only
+    for g, h, w in zip(got, again, want):
+        assert torch.equal(g, h)  # reruns are bitwise equal
+        assert g.shape == w.shape and rel(g, w) <= TOL
+
+
+def test_geqrt_batched_raises_on_float64(cuda):
+    with pytest.raises(TypeError):
+        geqrt.geqrt_batched(torch.zeros((2, 16, 16), dtype=torch.float64, device=cuda), 8)
+    with pytest.raises(TypeError):
+        tileqr_torch.qr_batched(torch.zeros((2, 16, 16), dtype=torch.float64, device=cuda),
+                                config=tileqr_torch.QRConfig(dtype=torch.float64))
+
+
+@pytest.mark.parametrize("m", [8192, 65536])
+@pytest.mark.parametrize("strategy", ["tree", "cholqr2", "chain"])
+def test_tsqr_on_the_card(cuda, strategy, m):
+    """8192×64 is one leaf; 65536×64 four leaves of 16384 rows and a level."""
+    a = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (m, 64), dtype=np.float32)).to(cuda)
+    cfg = tileqr_torch.QRConfig(nb=64)
+    _build.reset_counts()
+    q, r = tileqr_torch.tsqr(a, "reduced", cfg, strategy=strategy)
+    torch.cuda.synchronize()
+    assert not any(_build.PLAIN_CALLS.values())
+    own = {"tree": "geqrt_batched", "cholqr2": "potrf_batched", "chain": "panel_factor"}
+    assert _build.LAUNCHES[own[strategy]] > 0
+    res = residuals_f64(a, q, r)
+    assert res["relerr"] <= 3e-6 and res["orth"] <= 1e-4
+    if strategy != "chain":
+        f = tileqr_torch.tsqr(a, "factor", cfg, strategy=strategy)
+        rf = f.r[:64, :64]  # the reconstruction's R carries its own signs
+        assert backward_error_f64(a, tileqr_torch.apply_q(f, a, trans=True), rf) <= 1e-6
+
+
+@pytest.mark.parametrize("method", ["hh", "cholqr2"])
+def test_qr_batched_on_the_card(cuda, method):
+    """A well-conditioned batch (G + 4·√128·I), so cholqr2 keeps its result."""
+    g = np.random.default_rng(9).standard_normal((64, 128, 128), dtype=np.float32)
+    a = torch.from_numpy(g + np.float32(4 * np.sqrt(128)) * np.eye(128, dtype=np.float32)).to(cuda)
+    cfg = tileqr_torch.QRConfig(batched_method=method)
+    _build.reset_counts()
+    q, r = tileqr_torch.qr_batched(a, config=cfg)
+    torch.cuda.synchronize()
+    assert not any(_build.PLAIN_CALLS.values())
+    own, other = (("geqrt_batched", "potrf_batched") if method == "hh"
+                  else ("potrf_batched", "geqrt_batched"))
+    assert _build.LAUNCHES[own] == 1 and _build.LAUNCHES[other] == 0
+    a64, q64, r64 = a.double(), q.double(), r.double()
+    res = torch.linalg.norm(a64 - q64 @ r64, dim=(1, 2)) / torch.linalg.norm(a64, dim=(1, 2))
+    orth = torch.linalg.norm(q64.transpose(1, 2) @ q64 - torch.eye(128, device=cuda,
+                                                                   dtype=torch.float64),
+                             dim=(1, 2))
+    assert float(res.max()) <= 1e-6 and float(orth.max()) <= 1e-4
+    assert torch.equal(tileqr_torch.qr_batched(a, "r", cfg), r)
+
+
+def test_tsqr_and_qr_batched_pin_ieee_fp32(cuda):
+    """With the caller's TF32 switch on, tsqr_apply_q's and qr_batched's
+    products still run in IEEE fp32: the results equal those made with TF32
+    off, and the switch is restored."""
+    rng = np.random.default_rng(10)
+    a = torch.from_numpy(rng.standard_normal((65536, 64), dtype=np.float32)).to(cuda)
+    stack = torch.from_numpy(rng.standard_normal((32, 128, 128), dtype=np.float32)).to(cuda)
+    cfg = tileqr_torch.QRConfig(nb=64)
+    f = tileqr_torch.tsqr(a, "factor", cfg, strategy="tree")
+
+    def run():
+        return (tileqr_torch.apply_q(f, a, trans=True),) + tileqr_torch.qr_batched(stack)
+
+    off = run()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        on = run()
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert all(torch.equal(x, y) for x, y in zip(on, off))

@@ -73,7 +73,7 @@ def test_potrf_batched_matches_jax(b, group, bp, n):
     x = np.random.default_rng(n + bp).standard_normal((b, 2 * n, n))
     g = np.einsum("bmi,bmj->bij", x, x)
     want = jcholqr.potrf_batched(jnp.asarray(g), group=group, bp=bp, interpret=True)
-    got = potrf.potrf_batched(torch.tensor(g), group=group, bp=bp)
+    got = potrf.potrf_batched(torch.tensor(g), bp=bp)
     assert rel(got, want) <= 1e-12
     assert not torch.tril(got, -1).any()  # zeros below the diagonal
     r = got.numpy()
@@ -83,10 +83,12 @@ def test_potrf_batched_matches_jax(b, group, bp, n):
 def test_potrf_batched_breakdown_is_not_an_exception():
     """A singular gram: the clamped pivot gives a huge or NaN R, no raise."""
     g = torch.zeros((1, 8, 8), dtype=torch.float64)
-    r = potrf.potrf_batched(g, group=1)
+    r = potrf.potrf_batched(g)
     assert not torch.isfinite(r).all() or r.abs().max() > 1e10 or not r.any()
     with pytest.raises(ValueError):
-        potrf.potrf_batched(torch.zeros((3, 8, 8)), group=2)
+        potrf.potrf_batched(torch.zeros((3, 8, 6)))  # not square
+    with pytest.raises(ValueError):
+        potrf.potrf_batched(torch.zeros((3, 8, 8)), bp=0)
 
 
 NB_B6, M_B6 = 32, 576

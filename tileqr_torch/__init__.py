@@ -1,5 +1,5 @@
-"""tileqr_torch — the square QR of ``tileqr``, ported to PyTorch with
-hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
+"""tileqr_torch — ``tileqr`` ported to PyTorch with hand-written CUDA
+kernels for the NVIDIA H100 (sm_90a).
 
 Two square paths, as in ``tileqr.qr``:
 
@@ -11,6 +11,10 @@ Two square paths, as in ``tileqr.qr``:
   apply kernels (``kernels/potrf.py``, ``kernels/modlu.py``,
   ``kernels/panel_apply.py``), with the breakdown guard falling back to hh.
 
+Beside them, ``tsqr`` (tall-skinny: a tree of leaves and combines, chain or
+CholeskyQR2) and ``qr_batched`` (stacks of small matrices), whose
+Householder routes run one batched GEQRT kernel (``kernels/geqrt.py``).
+
 CUDA sources are in ``csrc/``. CUDA tensors run the CUDA kernels; CPU
 tensors run each kernel's plain torch version. Non-tensor inputs go to the
 card unless ``device="cpu"`` is passed.
@@ -18,23 +22,38 @@ card unless ``device="cpu"`` is passed.
 Public API
 ----------
 - :func:`qr`, :func:`qr_factor`, :func:`apply_q`, :func:`orgqr`,
-  :func:`lstsq`
-- :class:`QRConfig`, :class:`QRFactors`, :class:`HRFactors`
+  :func:`lstsq`, :func:`tsqr`, :func:`qr_batched`
+- :class:`QRConfig`, :class:`QRFactors`, :class:`HRFactors`,
+  :class:`TSQRFactors`
 - :func:`qr_check` — float64 acceptance metrics of a computed QR.
 """
 
 from tileqr_torch.core.config import QRConfig
-from tileqr_torch.api import HRFactors, QRFactors, apply_q, lstsq, orgqr, qr, qr_factor
+from tileqr_torch.api import (
+    HRFactors,
+    QRFactors,
+    TSQRFactors,
+    apply_q,
+    lstsq,
+    orgqr,
+    qr,
+    qr_batched,
+    qr_factor,
+    tsqr,
+)
 from tileqr_torch.utils.verify import qr_check
 
 __all__ = [
     "HRFactors",
     "QRConfig",
     "QRFactors",
+    "TSQRFactors",
     "apply_q",
     "lstsq",
     "orgqr",
     "qr",
+    "qr_batched",
     "qr_check",
     "qr_factor",
+    "tsqr",
 ]

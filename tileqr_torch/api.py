@@ -1,6 +1,7 @@
-"""Public API of the port: the square-QR branches of ``tileqr/api.py`` —
-qr, qr_factor, apply_q, orgqr, lstsq — on the tiled-Householder ("hh")
-path and the CholeskyQR2 + reconstruction ("hr") path.
+"""Public API of the port, as ``tileqr/api.py``: qr, qr_factor, apply_q,
+orgqr and lstsq on the tiled-Householder ("hh") and the CholeskyQR2 +
+reconstruction ("hr") square paths; tsqr, the tall-skinny QR (tree, chain
+or CholeskyQR2); qr_batched, the QR of a stack of small matrices.
 
 All entries accept arbitrary (M, N); inputs are zero-padded to tile
 multiples (exact for QR: padded rows/columns give tau = 0 reflectors and
@@ -12,7 +13,8 @@ Device: a ``torch.Tensor`` input stays on its own device. Any other input
 (numpy arrays, lists) goes to ``device``, which defaults to "cuda": with no
 CUDA device that raises, it does not run on the CPU. CPU runs (the plain
 kernel versions) happen only for CPU tensors or ``device="cpu"``.
-``apply_q`` and ``orgqr`` follow the factors' device.
+``apply_q`` and ``orgqr`` follow the factors' device and take all three
+factor records: ``QRFactors``, ``HRFactors`` and ``TSQRFactors``.
 """
 
 from __future__ import annotations
@@ -24,9 +26,17 @@ import torch
 
 from tileqr_torch.core.config import QRConfig
 from tileqr_torch.core.layout import pad_to_tiles, pow2_at_least, round_up
-from tileqr_torch.drivers.cholqr import guard_trips
+from tileqr_torch.drivers.batched import qr_batched as _qr_batched
+from tileqr_torch.drivers.cholqr import _highest, cholqr2_batched, guard_trips
 from tileqr_torch.drivers.square import apply_q_tiled, assemble_r, qr_tiled
-from tileqr_torch.drivers.square_hr import apply_q_hr, orgqr_hr, pad_for_hr, qr_hr
+from tileqr_torch.drivers.square_hr import apply_q_hr, hr_panel, orgqr_hr, pad_for_hr, qr_hr
+from tileqr_torch.drivers.tsqr import (
+    TSQRFactors,
+    auto_leaf_rows,
+    tsqr_apply_q,
+    tsqr_factor,
+    tsqr_form_q,
+)
 
 
 class QRFactors(NamedTuple):
@@ -73,11 +83,7 @@ def _check_matrix(a, who: str) -> None:
     factors instead)."""
     shape = tuple(a.shape) if hasattr(a, "shape") else tuple(np.shape(a))
     if len(shape) != 2:
-        hint = (
-            " (batched QR is not ported yet: ROADMAP.md queue A item 6)"
-            if len(shape) == 3
-            else ""
-        )
+        hint = " — for a stack of matrices use tileqr_torch.qr_batched" if len(shape) == 3 else ""
         raise ValueError(f"{who} expects a 2-D matrix, got shape {shape}{hint}")
     if shape[0] == 0 or shape[1] == 0:
         raise ValueError(f"{who}: zero-size dimension in input shape {shape}")
@@ -137,8 +143,12 @@ def qr_factor(a, config: Optional[QRConfig] = None, device=None):
 
 
 def apply_q(f, c, trans: bool = False, config: Optional[QRConfig] = None) -> torch.Tensor:
-    """C ← Q C (or Qᵀ C). c: (M, P) in the ORIGINAL row dimension."""
+    """C ← Q C (or Qᵀ C). c: (M, P) in the ORIGINAL row dimension (for
+    ``TSQRFactors``, at most the factored rows)."""
     _cfg(config).check_ported()
+    if isinstance(f, TSQRFactors):
+        c = torch.as_tensor(c, dtype=f.r.dtype, device=f.r.device)
+        return tsqr_apply_q(f, c, trans=trans)
     if isinstance(f, HRFactors):
         mp = f.panels[0][0].shape[0]
         c = torch.as_tensor(c, dtype=f.r.dtype, device=f.r.device)
@@ -163,9 +173,15 @@ def apply_q(f, c, trans: bool = False, config: Optional[QRConfig] = None) -> tor
 def orgqr(f, ncols: Optional[int] = None,
           config: Optional[QRConfig] = None) -> torch.Tensor:
     """Form Q explicitly: M×ncols (default: reduced, ncols = min(M, N)),
-    with the xORGQR growing window (panel k skips columns left of it)."""
+    with the xORGQR growing window (panel k skips columns left of it).
+    ``TSQRFactors`` give the reduced Q of the factored (padded) matrix,
+    ``f.shape``, and only that: ncols other than its n raises."""
     _cfg(config).check_ported()
     m, n = f.shape
+    if isinstance(f, TSQRFactors):
+        if ncols not in (None, n):
+            raise ValueError(f"the TSQR tree forms the reduced Q only: ncols={ncols} != n={n}")
+        return tsqr_form_q(f)
     k = min(m, n) if ncols is None else ncols
     if isinstance(f, HRFactors):
         mp = f.panels[0][0].shape[0]
@@ -226,3 +242,125 @@ def lstsq(a, b, config: Optional[QRConfig] = None, device=None) -> torch.Tensor:
     r = _r_of(f)[:n, :n]
     x = torch.linalg.solve_triangular(r, qtb, upper=True)
     return x[:, 0] if vec else x
+
+
+def tsqr(a, mode: str = "r", config: Optional[QRConfig] = None, strategy: str = "auto",
+         device=None):
+    """Tall-skinny QR of A (M, n), M >= n, n <= nb.
+
+    mode "r" → R (n, n); "reduced" → (Q (M, n), R); "factor" →
+    ``TSQRFactors`` (tree) or ``HRFactors`` (cholqr2), for ``apply_q`` and
+    ``orgqr``.
+
+    strategy:
+      "tree": leaves of ``auto_leaf_rows`` rows, each factored by the
+        batched GEQRT kernel in one launch, then wide-arity combines of the
+        stacked R factors by the same kernel (``drivers/tsqr.py``).
+      "chain": the square driver (``qr``) on the one wide panel; no
+        "factor" mode.
+      "cholqr2": CholeskyQR2 (``drivers/cholqr.py``, B = 1): one gram, the
+        POTRF kernel, matmuls. Needs cond(A) ≲ 1e3 in fp32; its guard falls
+        back to the tree. mode="factor" returns whole-panel compact-WY
+        ``HRFactors`` by modified-LU reconstruction (``square_hr.hr_panel``
+        with nb = the padded width).
+      "auto": mode "factor" → "cholqr2" under hr_guard="fallback" (torch
+        runs eagerly, so the guard can always act; the reference's
+        trace-state test has no counterpart), else "tree". Modes "r" and
+        "reduced" → "tree" on every device. The reference takes "chain" on a
+        compiled TPU from TPU timings; on the H100 the chain is the hh square
+        path, whose panel kernel K2 runs on ONE SM per launch, and a single
+        512-wide panel would push its 2047 sub-diagonal tiles through it in
+        series, while the tree spreads 512 leaves over the 132 SMs. On the
+        CPU "tree" is also what the reference's interpret-mode rule picks.
+    """
+    _check_matrix(a, "tsqr")
+    if strategy not in ("auto", "tree", "chain", "cholqr2"):
+        raise ValueError(f"unknown strategy {strategy!r} (auto/tree/chain/cholqr2)")
+    if mode not in ("r", "reduced", "factor"):
+        raise ValueError(f"unknown mode {mode!r}")
+    cfg = _cfg(config)
+    cfg.check_ported()
+    a = _to_device(a, cfg.dtype, device)
+    m, n = a.shape
+    if m < n:
+        raise ValueError(f"tsqr requires M >= n, got shape {(m, n)}")
+    if strategy == "auto":
+        strategy = "cholqr2" if mode == "factor" and cfg.hr_guard == "fallback" else "tree"
+    stats = cfg.hr_guard != "off"
+    if strategy == "cholqr2":
+        if mode == "factor":
+            nbp = round_up(max(n, 8), 8)
+            ap, _ = pad_for_hr(a, nbp)
+            with _highest():
+                out = hr_panel(ap, stats=stats)
+            health = out[3] if stats else None
+            if guard_trips(health, cfg, "tsqr(factor, strategy='cholqr2')") and \
+                    cfg.hr_guard == "fallback":
+                return tsqr(a, "factor", cfg, "tree")
+            return HRFactors(out[2], ((out[0], out[1]),), nbp, (m, n), 1.0, health)
+        out = cholqr2_batched(a[None], mode=mode, stats=stats)
+        health = out[-1] if stats else None
+        if guard_trips(health, cfg, "tsqr(strategy='cholqr2')") and cfg.hr_guard == "fallback":
+            return tsqr(a, mode, cfg, "tree")
+        if mode == "r":
+            return (out[0] if stats else out)[0]
+        return out[0][0], out[1][0]
+    if n > cfg.nb:
+        raise ValueError(f"tsqr requires n={n} <= nb={cfg.nb}")
+    if strategy == "chain":
+        if mode == "factor":
+            raise ValueError(
+                'tsqr(strategy="chain") has no "factor" mode; use strategy="tree" '
+                "(TSQRFactors) or qr_factor (square factors)"
+            )
+        return qr(a, mode=mode, config=cfg)
+    np_ = round_up(n, 8)
+    lr = auto_leaf_rows(round_up(m, 8), np_)
+    ap = torch.nn.functional.pad(a, (0, np_ - n, 0, round_up(m, lr) - m))
+    f = tsqr_factor(ap, cfg.nb, ib=cfg.ib, leaf_rows=lr)
+    if mode == "factor":
+        return f
+    r = f.r[:n, :n]
+    if mode == "r":
+        return r
+    return tsqr_form_q(f)[:m, :n], r
+
+
+def qr_batched(a, mode: str = "reduced", config: Optional[QRConfig] = None, device=None):
+    """Batched QR of a (B, m, n) stack, m >= n: mode "reduced" → (Q (B, m, n),
+    R (B, n, n)); "r" → R. ``QRConfig.batched_method`` picks the route: "hh"
+    (the batched GEQRT kernel at ``batched_ib``, every batch size) or
+    "cholqr2" (rows padded only; one bad member trips the guard and sends
+    the whole batch to the hh route under hr_guard="fallback")."""
+    shape = tuple(a.shape) if hasattr(a, "shape") else tuple(np.shape(a))
+    if len(shape) != 3 or 0 in shape:
+        raise ValueError(
+            f"qr_batched expects a (B, m, n) stack with no zero-size dimension, got shape {shape}"
+        )
+    if mode not in ("reduced", "r"):
+        raise ValueError(f"unknown mode {mode!r}")
+    cfg = _cfg(config)
+    cfg.check_ported()
+    if cfg.batched_method not in ("hh", "cholqr2"):
+        raise ValueError(f"unknown batched_method {cfg.batched_method!r} (hh/cholqr2)")
+    a = _to_device(a, cfg.dtype, device)
+    b, m, n = a.shape
+    if m < n:
+        raise ValueError(f"qr_batched requires m >= n, got ({m}, {n})")
+    mp, np_ = round_up(m, 8), round_up(n, 8)
+    if cfg.batched_method == "cholqr2":
+        # column padding would make the gram singular: rows only
+        stats = cfg.hr_guard != "off"
+        out = cholqr2_batched(torch.nn.functional.pad(a, (0, 0, 0, mp - m)), mode=mode,
+                              stats=stats)
+        health = out[-1] if stats else None
+        if not (guard_trips(health, cfg, "qr_batched/cholqr2") and cfg.hr_guard == "fallback"):
+            if mode == "r":
+                return out[0] if stats else out
+            return out[0][:, :m, :], out[1]
+    ap = torch.nn.functional.pad(a, (0, np_ - n, 0, mp - m))
+    out = _qr_batched(ap, mode=mode, ib=cfg.batched_ib)
+    if mode == "r":
+        return out[:, :n, :n]
+    q, r = out
+    return q[:, :m, :n], r[:, :n, :n]

@@ -6,8 +6,7 @@ validation, so a configuration means the same thing in both packages.
 and ignored (they steer Pallas interpretation and XLA buffer donation,
 which have no counterpart here). ``driver`` is accepted for parity: the
 port has one driver, which takes integer offsets at launch time, so
-"auto", "static" and "dynamic" all run it (``resolve_driver`` is kept so
-that the rule reads the same in both packages).
+"auto", "static" and "dynamic" all run it.
 """
 
 from __future__ import annotations
@@ -31,9 +30,11 @@ class QRConfig:
       hr_guard, hr_guard_tau: the hr breakdown guard ("fallback" refactors
         on the hh path, "warn" keeps the hr factors, "off" runs no check)
         and its threshold on the panels' health.
-      batched_ib, batched_method, mesh_shape: kept for parity with
-        ``tileqr.QRConfig``; the paths that read them are not ported yet
-        (ROADMAP.md queue A).
+      batched_ib: inner block width of ``qr_batched``'s GEQRT (hh route).
+      batched_method: ``qr_batched``'s route, "hh" (batched GEQRT) or
+        "cholqr2" (CholeskyQR2, guarded like hr).
+      mesh_shape: kept for parity with ``tileqr.QRConfig``; the sharded
+        paths that read it are not ported yet (ROADMAP.md queue A).
       square_method: "hh" (tiled Householder) or "hr" (CholeskyQR2 panels
         with Householder reconstruction, ``drivers/square_hr.py``).
       chunk: sub-diagonal couple height in tiles; reduced by the driver to
@@ -66,9 +67,6 @@ class QRConfig:
     prescale: bool = False
     donate: bool = False
 
-    # static-driver panel-count ceiling of driver="auto" in tileqr
-    AUTO_STATIC_MAX_PANELS = 32
-
     def __post_init__(self):
         if self.nb % 8 != 0:
             raise ValueError(f"nb={self.nb} must be a multiple of 8")
@@ -91,14 +89,6 @@ class QRConfig:
             raise ValueError(
                 f"hr_guard={self.hr_guard!r} must be fallback|warn|off"
             )
-
-    def resolve_driver(self, m: int, n: int) -> str:
-        """The driver tileqr would pick for an (m, n) problem ("auto" → the
-        panel-count rule). The port runs one driver whatever this says."""
-        if self.driver != "auto":
-            return self.driver
-        k_max = min(-(-m // self.nb), -(-n // self.nb))
-        return "static" if k_max <= self.AUTO_STATIC_MAX_PANELS else "dynamic"
 
     def check_ported(self) -> None:
         """Raise NotImplementedError for valid settings whose path is not

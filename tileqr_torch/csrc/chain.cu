@@ -50,7 +50,7 @@ panel_chain_kernel(const float* __restrict__ a, long long lda, const float* r_in
       at[(long long)c * m + nb + r] = b[r * lda + c];
     }
     __syncthreads();
-    geqrt_couple(at, nb, m, tt, ib, ws, v_sh);
+    geqrt_couple(at, nb, m, tt, ib, ws, v_sh, nb);
     float* v_out = v_chunks + (long long)i * block_rows * nb;
     float* t_out = t2 + i * tile2;
     for (long long idx = tid; idx < tile2; idx += bd) {

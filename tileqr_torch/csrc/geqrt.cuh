@@ -66,6 +66,12 @@ __device__ __forceinline__ float mat_at(const Mat& a, int i, int j) {
   return a.p[i * a.rs + j * a.cs];
 }
 
+// K terms a thread sums in sequence before adding the partial to its total:
+// the contractions over a tall couple's rows (K = m, up to 131072 in a TSQR
+// leaf) then carry ~(sqrt(256) + sqrt(K/256)) eps of rounding, not
+// sqrt(K) eps. For K <= 256 the result is the plain sequential sum, bitwise.
+constexpr int GEMM_KCHUNK = 256;
+
 // C (M x N, row stride ldc) = [C +] alpha * A (M x K) B (K x N), by the
 // whole block (blockDim.x == GEQRT_THREADS). C must not overlap A or B.
 // 64x64 output tiles, K in steps of 16, four outputs per thread.
@@ -78,6 +84,7 @@ __device__ void block_gemm(int M, int N, int K, Mat A, Mat B, float* C,
   for (int i0 = 0; i0 < M; i0 += 64) {
     for (int j0 = 0; j0 < N; j0 += 64) {
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      float tot[4] = {0.f, 0.f, 0.f, 0.f};
       for (int k0 = 0; k0 < K; k0 += 16) {
         {
           const int i = tid >> 4, kk = tid & 15;
@@ -97,15 +104,23 @@ __device__ void block_gemm(int M, int N, int K, Mat A, Mat B, float* C,
           for (int q = 0; q < 4; ++q) acc[q] = fmaf(a, Bs[kk][tx + 16 * q], acc[q]);
         }
         __syncthreads();
+        if ((k0 + 16) % GEMM_KCHUNK == 0) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            tot[q] += acc[q];
+            acc[q] = 0.f;
+          }
+        }
       }
       const int gi = i0 + ty;
       if (gi < M) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int gj = j0 + tx + 16 * q;
+          const float sum = tot[q] + acc[q];
           if (gj < N) {
             float* c = C + gi * ldc + gj;
-            *c = accumulate ? *c + alpha * acc[q] : alpha * acc[q];
+            *c = accumulate ? *c + alpha * sum : alpha * sum;
           }
         }
       }
@@ -140,12 +155,15 @@ __host__ __device__ inline long long geqrt_ws_floats(int n, int ib) {
   return 5LL * ib * ib + 4LL * n * ib;
 }
 
-// Factor the couple held transposed in `at` (n x m, row stride m) in place;
-// `tt` (n x n, row stride n) must be zero on entry and receives T^T.
-// ws: geqrt_ws_floats(n, ib) floats of global scratch. v: m floats of
-// shared memory. Called by all GEQRT_THREADS threads of the block.
+// Factor the couple held transposed in `at` (n x m, row stride m) in place,
+// eliminating its first kcols columns (kcols <= min(m, n); the block apply
+// still reaches all n); `tt` (n x n, row stride n) must be zero on entry and
+// receives T^T. ws: geqrt_ws_floats(n, ib) floats of global scratch. v: m
+// floats, shared memory where they fit (global otherwise). `at` and `tt`
+// may lie in shared or global memory. Called by all GEQRT_THREADS threads
+// of the block.
 __device__ void geqrt_couple(float* at, int n, int m, float* tt, int ib,
-                             float* ws, float* v) {
+                             float* ws, float* v, int kcols) {
   __shared__ float red[33];
   __shared__ float sc[3];
   const int tid = threadIdx.x, bd = blockDim.x;
@@ -161,8 +179,8 @@ __device__ void geqrt_couple(float* at, int n, int m, float* tt, int ib,
   float* ZT = W2 + (long long)n * ib;
   float* M2 = ZT + (long long)ib * n;
 
-  for (int s = 0; s < n; s += ib) {
-    const int ibk = min(ib, n - s);
+  for (int s = 0; s < kcols; s += ib) {
+    const int ibk = min(ib, kcols - s);
 
     // ---- column loop: LARFG + rank-1 updates inside the block ----
     for (int jj = 0; jj < ibk; ++jj) {

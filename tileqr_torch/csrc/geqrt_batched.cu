@@ -1,0 +1,154 @@
+// Batched GEQRT: for every matrix of a (B x m x n) stack, the Householder QR
+// with inner block width ib, kcols = min(m, n), into fresh outputs: packed
+// (B x m x n; R on and above the diagonal, the reflectors below) and T
+// (B x n x n). The input is read only.
+//
+// Replaces four TPU kernels that compute this one function:
+//   - tileqr/drivers/batched.py:geqrt_batched (one matrix per grid step);
+//   - tileqr/drivers/batched.py:geqrt_batched_grouped (G matrices per grid
+//     step, to amortise the TPU's per-column latency);
+//   - tileqr/drivers/tsqr.py:tall_geqrt (every leaf_rows-row leaf of a tall
+//     matrix, i.e. the stack a.view(p, leaf_rows, n), and the tree levels'
+//     stacked R factors; its staging DMA only fitted a 16 MB VMEM);
+//   - tileqr/kernels/geqrt.py:geqrt (B = 1).
+// Each matrix is factored by geqrt_couple (geqrt.cuh), B1's algebra step by
+// step, so the column loop stays in one place for every kernel.
+//
+// Design: one thread block of GEQRT_THREADS (1024) threads per matrix; the
+// TPU's sequential grid and B11's G-per-step grouping become the CUDA grid.
+// The grid is capped at the blocks the card holds at once and each block
+// walks the batch with stride gridDim.x, so the workspace is bounded by the
+// card, not by B; which block takes a matrix changes no result (no atomics,
+// reruns are bitwise equal). Two variants of one kernel:
+//   - resident: the transposed tile, T^T and the reflector live in dynamic
+//     shared memory (4(mn + n^2 + m) bytes; 128x128 takes 128.5 KiB, above
+//     the 48 KB default, hence cudaFuncSetAttribute); only geqrt_couple's
+//     small work matrices are in global memory. The tile is loaded
+//     transposed once and written back once.
+//   - global: the transposed tile and T^T live in a per-block global
+//     workspace (K1's design), for tall leaves (2048 x 512 = 4 MiB at
+//     1048576 x 512) and larger tiles. The reflector v (m floats) is in
+//     shared memory up to V_SHARED_MAX floats and in the workspace beyond,
+//     since auto_leaf_rows makes 131072-row leaves at n = 8.
+// Loads and stores go through a 32 x 33 shared tile, coalesced both ways.
+//
+// What bounds it on the H100: latency of the serial column loop (two
+// block-wide reductions and barriers per column) on each SM, and the
+// block GEMMs' fp32 FMA issue. At 132 leaves of 4 MiB in flight the global
+// variant's working set (528 MB) no longer stays in the 50 MB L2, as K1's
+// single couple did: it streams from HBM. Arithmetic is IEEE fp32 FMA on
+// CUDA cores (precision "highest", never TF32). A faster design (several
+// small matrices per block, tensor-core block applies) is later work.
+#include "geqrt.cuh"
+
+namespace {
+
+constexpr int V_SHARED_MAX = 16384;  // reflector floats kept in shared memory
+
+// dst (cols x rows, row stride dld) = src (rows x cols, row stride sld)^T,
+// by all 1024 threads of the block as 32 x 32.
+__device__ void block_transpose(const float* src, long long sld, int rows, int cols,
+                                float* dst, long long dld) {
+  __shared__ float tile[32][33];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int r0 = 0; r0 < rows; r0 += 32) {
+    for (int c0 = 0; c0 < cols; c0 += 32) {
+      const int r = r0 + ty, c = c0 + tx;
+      if (r < rows && c < cols) tile[ty][tx] = src[r * sld + c];
+      __syncthreads();
+      const int rr = r0 + tx, cc = c0 + ty;
+      if (rr < rows && cc < cols) dst[cc * dld + rr] = tile[tx][ty];
+      __syncthreads();
+    }
+  }
+}
+
+__host__ __device__ inline bool v_in_shared(int m) { return m <= V_SHARED_MAX; }
+
+__host__ __device__ inline long long work_floats(int m, int n, int ib, bool resident) {
+  const long long ws = geqrt_ws_floats(n, ib);
+  if (resident) return ws;
+  return (long long)m * n + (long long)n * n + ws + (v_in_shared(m) ? 0 : m);
+}
+
+__host__ inline size_t smem_bytes(int m, int n, bool resident) {
+  if (resident) return sizeof(float) * ((size_t)m * n + (size_t)n * n + m);
+  return v_in_shared(m) ? sizeof(float) * m : 0;
+}
+
+template <bool RESIDENT>
+__global__ void __launch_bounds__(GEQRT_THREADS)
+geqrt_batched_kernel(const float* __restrict__ a, float* packed, float* t_out, float* work,
+                     long long batch, int m, int n, int kcols, int ib) {
+  extern __shared__ float sh[];
+  const long long mn = (long long)m * n, nn = (long long)n * n;
+  float* wb = work + blockIdx.x * work_floats(m, n, ib, RESIDENT);
+  float *at, *tt, *v, *ws;
+  if (RESIDENT) {
+    at = sh;
+    tt = sh + mn;
+    v = tt + nn;
+    ws = wb;
+  } else {
+    at = wb;
+    tt = at + mn;
+    ws = tt + nn;
+    v = v_in_shared(m) ? sh : ws + geqrt_ws_floats(n, ib);
+  }
+  for (long long b = blockIdx.x; b < batch; b += gridDim.x) {
+    block_transpose(a + b * mn, n, m, n, at, m);
+    for (long long idx = threadIdx.x; idx < nn; idx += blockDim.x) tt[idx] = 0.f;
+    __syncthreads();
+    geqrt_couple(at, n, m, tt, ib, ws, v, kcols);
+    block_transpose(at, m, n, m, packed + b * mn, n);
+    block_transpose(tt, n, n, n, t_out + b * nn, n);
+  }
+}
+
+template <bool RESIDENT>
+cudaError_t prepare(int m, int n, int* blocks_per_sm) {
+  const size_t smem = smem_bytes(m, n, RESIDENT);
+  cudaError_t e = cudaFuncSetAttribute(geqrt_batched_kernel<RESIDENT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess || blocks_per_sm == nullptr) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, geqrt_batched_kernel<RESIDENT>, GEQRT_THREADS, smem);
+}
+
+}  // namespace
+
+extern "C" int tq_geqrt_batched_work_floats(int m, int n, int ib, int resident) {
+  return static_cast<int>(work_floats(m, n, ib, resident != 0));
+}
+
+// Blocks to launch: min(batch, blocks the card holds at once), or the
+// negated CUDA error.
+extern "C" int tq_geqrt_batched_grid(long long batch, int m, int n, int resident) {
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t e = resident ? prepare<true>(m, n, &per_sm) : prepare<false>(m, n, &per_sm);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return -(int)e;
+  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  const long long cap = (long long)per_sm * sms;
+  return (int)(batch < cap ? batch : cap);
+}
+
+extern "C" int tq_geqrt_batched(const float* a, float* packed, float* t, float* work,
+                                long long batch, int m, int n, int kcols, int ib,
+                                int resident, int grid, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (resident) {
+    e = prepare<true>(m, n, nullptr);
+    if (e != cudaSuccess) return (int)e;
+    geqrt_batched_kernel<true><<<grid, GEQRT_THREADS, smem_bytes(m, n, true), s>>>(
+        a, packed, t, work, batch, m, n, kcols, ib);
+  } else {
+    e = prepare<false>(m, n, nullptr);
+    if (e != cudaSuccess) return (int)e;
+    geqrt_batched_kernel<false><<<grid, GEQRT_THREADS, smem_bytes(m, n, false), s>>>(
+        a, packed, t, work, batch, m, n, kcols, ib);
+  }
+  return (int)cudaGetLastError();
+}

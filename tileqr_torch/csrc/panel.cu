@@ -42,7 +42,7 @@ panel_factor_kernel(const float* __restrict__ a, long long lda, int k, int nb, i
       tt[idx] = 0.f;
     }
     __syncthreads();
-    geqrt_couple(at, nb, m, tt, ib, ws, v_sh);
+    geqrt_couple(at, nb, m, tt, ib, ws, v_sh, nb);
     float* v_out = v_stack + i * tile2;
     float* t_out = (i == 0) ? t_geqrt : t2_stack + i * tile2;
     for (long long idx = tid; idx < tile2; idx += bd) {

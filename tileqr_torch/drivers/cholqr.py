@@ -1,19 +1,39 @@
-"""CholeskyQR helpers of the hr panel, as plain torch.
+"""Batched CholeskyQR2 and the CholeskyQR helpers of the hr panel.
 
-Counterparts of ``tileqr/drivers/cholqr.py``: the pairwise tall
-contraction ``bdot_pair_rows``, the breakdown guard ``guard_trips``, and the
-matmul-only triangular inverse (``_diag_of``, ``_inv_factors``,
-``_apply_rinv``, ``_triu_inv_doubling``) and ``_up_half``. The POTRF kernel
+Counterparts of ``tileqr/drivers/cholqr.py``: ``cholqr2_batched``, the
+pairwise tall contraction ``bdot_pair_rows``, the breakdown guard
+``guard_trips``, the matmul-only triangular inverse (``_diag_of``,
+``_inv_factors``, ``_apply_rinv``, ``_triu_inv_doubling``), ``_up_half``
+the matmul-only second round (``_correction``) and the health
+(``_defect``). The POTRF kernel
 itself (B9) is ``tileqr_torch/kernels/potrf.py``. Products accumulate in
-the operand dtype (float32 on the card, never TF32 inside the hr driver;
+the operand dtype (float32 on the card, never TF32: ``_highest``, the
+port's ``Precision.HIGHEST``, which every driver's products run under;
 float64 on the CPU), as ``acc_type`` does in the reference.
 """
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 
 import torch
+
+from tileqr_torch.kernels.potrf import potrf_batched
+
+# quadratic iterations of the second CholeskyQR round (the reference's default)
+_CORRECTION_ITERS = 2
+
+
+@contextlib.contextmanager
+def _highest():
+    """IEEE fp32 matmuls (no TF32) inside, the caller's setting after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def bdot_pair_rows(x: torch.Tensor, y: torch.Tensor, blk: int = 512,
@@ -107,3 +127,48 @@ def _triu_inv_doubling(r: torch.Tensor) -> torch.Tensor:
 def _up_half(e: torch.Tensor) -> torch.Tensor:
     """up(E): strict upper + half diagonal of a (B, n, n) stack."""
     return torch.triu(e, 1) + torch.diag_embed(torch.diagonal(e, dim1=1, dim2=2) * 0.5)
+
+
+def _defect(e: torch.Tensor) -> torch.Tensor:
+    """max |E| over every entry (0-d), NaN when E has a NaN: the health."""
+    return torch.where(torch.isnan(e).any(), e.new_full((), float("nan")), e.abs().max())
+
+
+def _correction(e: torch.Tensor) -> torch.Tensor:
+    """(I+U)⁻¹ for E = Q₁ᵀQ₁ − I (B, n, n), by matmuls: chol(I+E) = I + U
+    with U = up(E − UᵀU) iterated, then the Horner series I − U + U² − U³
+    (‖U‖ ≪ 1)."""
+    eye = torch.eye(e.shape[-1], dtype=e.dtype, device=e.device)
+    u = _up_half(e)
+    for _ in range(_CORRECTION_ITERS):
+        u = _up_half(e - u.transpose(1, 2) @ u)
+    w = eye - u
+    w = eye - u @ w
+    return eye - u @ w
+
+
+def cholqr2_batched(a: torch.Tensor, mode: str = "reduced", stats: bool = False):
+    """Batched CholeskyQR2 of a (B, m, n), m >= n: (Q (B, m, n), R (B, n, n))
+    or R alone (mode "r"); gram → POTRF (B9) → Q₁ = A·R₁⁻¹ → the matmul-only
+    second round → R = triu(QᵀA). Needs cond(A) ≲ 1e3 in fp32.
+
+    stats=True appends the round-1 orthogonality defect max ‖Q₁ᵀQ₁ − I‖_max
+    over the batch (NaN if E has a NaN), the breakdown detector that
+    ``guard_trips`` reads."""
+    m, n = a.shape[1:]
+    eye = torch.eye(n, dtype=a.dtype, device=a.device)
+    with _highest():
+        g = bdot_pair_rows(a, a)
+        r1 = potrf_batched(g)
+        # tall A: form S1 = R1⁻¹ and touch A once; near-square: fold the
+        # doubling factors into A, skipping the inverse's own products
+        if m > 2 * n:
+            q1 = a @ _triu_inv_doubling(r1)
+        else:
+            dinv, pows = _inv_factors(r1)
+            q1 = _apply_rinv(a, dinv, pows)
+        e = bdot_pair_rows(q1, q1) - eye
+        q = q1 @ _correction(e)
+        r = torch.triu(bdot_pair_rows(q, a))
+    out = ((r,) if mode == "r" else (q, r)) + ((_defect(e),) if stats else ())
+    return out[0] if len(out) == 1 else out

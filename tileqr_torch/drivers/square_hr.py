@@ -37,13 +37,18 @@ panel's condition number, so cond(A) ≲ 1e3 in fp32; the health scalar
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Tuple
 
 import torch
 
 from tileqr_torch.core.layout import pow2_at_least, round_up
-from tileqr_torch.drivers.cholqr import _triu_inv_doubling, _up_half, bdot_pair_rows
+from tileqr_torch.drivers.cholqr import (
+    _correction,
+    _defect,
+    _highest,
+    _triu_inv_doubling,
+    bdot_pair_rows,
+)
 from tileqr_torch.kernels.modlu import modified_lu
 from tileqr_torch.kernels.panel_apply import panel_apply_carry
 from tileqr_torch.kernels.potrf import potrf_batched
@@ -52,19 +57,6 @@ from tileqr_torch.kernels.potrf import potrf_batched
 _W_PAIR_MAX_COLS = 1024
 # split count of the wide split-K W projection
 _W_SPLITK = 4
-# quadratic iterations of the second CholeskyQR round (the reference's default)
-_CORRECTION_ITERS = 2
-
-
-@contextlib.contextmanager
-def _highest():
-    """IEEE fp32 matmuls (no TF32) inside, the caller's setting after."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _w_splitk(y: torch.Tensor, c: torch.Tensor, s: Optional[int] = None) -> torch.Tensor:
@@ -108,18 +100,11 @@ def hr_panel_parts(panel: torch.Tensor) -> dict:
     nb = panel.shape[1]
     eye = torch.eye(nb, dtype=panel.dtype, device=panel.device)
     g = bdot_pair_rows(panel[None], panel[None])  # tall pass 1
-    r1 = potrf_batched(g, group=1)
+    r1 = potrf_batched(g)
     s1 = _triu_inv_doubling(r1)[0]
     q1 = panel @ s1  # tall pass 2
     e = bdot_pair_rows(q1[None], q1[None])[0] - eye  # tall pass 3
-    # second round by matmuls: chol(I+E) = I + U by the quadratic
-    # iteration, (I+U)⁻¹ by Horner
-    u = _up_half(e[None])[0]
-    for _ in range(_CORRECTION_ITERS):
-        u = _up_half((e - u.T @ u)[None])[0]
-    w = eye - u
-    w = eye - u @ w
-    w = eye - u @ w
+    w = _correction(e[None])[0]  # the second round, by matmuls
     q_top = q1[:nb] @ w
     lu, d = modified_lu(q_top)
     l1 = torch.tril(lu, -1) + eye
@@ -141,10 +126,7 @@ def hr_panel(panel: torch.Tensor, stats: bool = False):
     p = hr_panel_parts(panel)
     if not stats:
         return p["y"], p["t"], p["r"]
-    e = p["e"]
-    emax = torch.where(torch.isnan(e).any(), torch.full_like(e[0, 0], float("nan")),
-                       e.abs().max())
-    return p["y"], p["t"], p["r"], emax
+    return p["y"], p["t"], p["r"], _defect(p["e"])
 
 
 def hr_steps(ap: torch.Tensor, nb: int, stats: bool = False):

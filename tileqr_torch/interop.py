@@ -2,10 +2,12 @@
 
 QR has no weights: its state is the factors. These helpers convert the
 static driver's ``QRFactors`` (``packed``, ``r_diag``, ``t_geqrt``,
-``panels``, ``nb``, ``chunk``, ``shape``, ``scale``) and the hr path's
+``panels``, ``nb``, ``chunk``, ``shape``, ``scale``), the hr path's
 ``HRFactors`` (``r``, ``panels`` as (Y_k, T_k), ``nb``, ``shape``,
-``scale``, ``health``) between numpy arrays and the port's torch tensors,
-so that either package's ``apply_q`` / ``orgqr`` can consume factors the
+``scale``, ``health``) and the TSQR tree's ``TSQRFactors``
+(``packed_leaves``, ``t_leaves``, ``levels`` as (pk, tl, count, arity),
+``r``, ``leaf_rows``, ``shape``, ``plan``) between numpy arrays and the
+port's torch tensors, so that either package can consume factors the
 other made. Neither direction imports
 jax: the JAX side is reached through ``numpy.asarray`` on its arrays.
 """
@@ -17,7 +19,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from tileqr_torch.api import HRFactors, QRFactors
+from tileqr_torch.api import HRFactors, QRFactors, TSQRFactors
 
 
 def _scalar_from(x, t):
@@ -86,4 +88,39 @@ def hr_factors_to_numpy(f: HRFactors) -> Dict[str, Any]:
     return dict(zip(HRFactors._fields, (
         n(f.r), tuple((n(y), n(t)) for y, t in f.panels), f.nb, tuple(f.shape),
         _scalar_to(f.scale), _scalar_to(f.health),
+    )))
+
+
+def _plan(plan) -> tuple:
+    return tuple((int(c), int(a), tuple(int(i) for i in flat), tuple(int(i) for i in rem))
+                 for c, a, flat, rem in plan)
+
+
+def tsqr_factors_from_numpy(f: Any, device=None, dtype=None) -> TSQRFactors:
+    """A mapping or NamedTuple with the TSQRFactors fields → the port's
+    TSQRFactors on ``device``."""
+    d = f._asdict() if hasattr(f, "_asdict") else dict(f)
+
+    def t(x):
+        return torch.as_tensor(np.array(x), device=device, dtype=dtype)
+
+    return TSQRFactors(
+        t(d["packed_leaves"]), t(d["t_leaves"]),
+        tuple((t(pk), t(tl), int(c), int(a)) for pk, tl, c, a in d["levels"]),
+        t(d["r"]), int(d["leaf_rows"]), tuple(int(s) for s in d["shape"]), _plan(d["plan"]),
+    )
+
+
+def tsqr_factors_to_numpy(f: TSQRFactors) -> Dict[str, Any]:
+    """The port's TSQRFactors → a dict of numpy arrays under the TSQRFactors
+    field names (``tileqr.drivers.tsqr.TSQRFactors(**d)`` rebuilds the JAX
+    record)."""
+
+    def n(x):
+        return x.detach().cpu().numpy()
+
+    return dict(zip(TSQRFactors._fields, (
+        n(f.packed_leaves), n(f.t_leaves),
+        tuple((n(pk), n(tl), int(c), int(a)) for pk, tl, c, a in f.levels),
+        n(f.r), f.leaf_rows, tuple(f.shape), _plan(f.plan),
     )))

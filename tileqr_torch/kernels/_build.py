@@ -30,7 +30,8 @@ import torch
 
 HH_KERNELS = ("panel_factor", "panel_chain", "couple_strip", "larfb_strip")
 HR_KERNELS = ("modified_lu", "potrf_batched", "panel_apply_carry")
-KERNELS = HH_KERNELS + HR_KERNELS
+TS_KERNELS = ("geqrt_batched",)
+KERNELS = HH_KERNELS + HR_KERNELS + TS_KERNELS
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
 
@@ -42,7 +43,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# argtypes of every C launcher (csrc/panel.cu, csrc/chain.cu)
+# argtypes of every C function of csrc/*.cu
 SIGNATURES = {
     # a, lda, k, nb, ib, n_couples, r_out, v_stack, t_geqrt, t2_stack, work, stream
     "tq_panel_factor": (_P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
@@ -64,6 +65,12 @@ SIGNATURES = {
     "tq_potrf_batched": (_P, _I, _I, _I, _P),
     # y, tm, c, ldc, m, n, nb, mr, w, stream
     "tq_panel_apply_carry": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _P),
+    # geqrt_batched blocks to launch (or -cudaError): batch, m, n, resident
+    "tq_geqrt_batched_grid": (_L, _I, _I, _I),
+    # geqrt_batched workspace floats per block: m, n, ib, resident
+    "tq_geqrt_batched_work_floats": (_I, _I, _I, _I),
+    # a, packed, t, work, batch, m, n, kcols, ib, resident, grid, stream
+    "tq_geqrt_batched": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

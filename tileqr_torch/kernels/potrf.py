@@ -12,9 +12,9 @@ diagonal.
 On a CUDA tensor the wrapper launches ``tq_potrf_batched``
 (``csrc/potrf.cu``, one thread block per matrix); on a CPU tensor it runs
 the plain version, which keeps the JAX kernel's bp-row panels and its
-symmetric trailing update, so float64 parity is at rounding level.
-``group`` (matrices per TPU grid step) has no counterpart in the kernel; it
-is validated as the reference does.
+symmetric trailing update, so float64 parity is at rounding level. The
+reference's ``group`` (matrices per TPU grid step) has no counterpart: the
+CUDA grid is the batch.
 """
 
 from __future__ import annotations
@@ -27,19 +27,17 @@ from tileqr_torch.kernels import _build
 _MAX_PANEL_BYTES = 200 * 1024
 
 
-def _check(g: torch.Tensor, group: int, bp: int) -> None:
+def _check(g: torch.Tensor, bp: int) -> None:
     if g.dim() != 3 or g.shape[1] != g.shape[2]:
         raise ValueError(f"potrf_batched expects (B, n, n), got {tuple(g.shape)}")
-    if group < 1 or g.shape[0] % group:
-        raise ValueError(f"batch {g.shape[0]} not divisible by group {group}")
     if bp < 1:
         raise ValueError(f"bp={bp} must be >= 1")
 
 
-def potrf_batched_plain(g: torch.Tensor, group: int = 16, bp: int = 16) -> torch.Tensor:
+def potrf_batched_plain(g: torch.Tensor, bp: int = 16) -> torch.Tensor:
     """Plain torch B9, the JAX kernel's steps on the whole batch."""
     _build.PLAIN_CALLS["potrf_batched"] += 1
-    _check(g, group, bp)
+    _check(g, bp)
     n = g.shape[1]
     r = g.clone()
     lane = torch.arange(n, device=g.device)
@@ -59,12 +57,12 @@ def potrf_batched_plain(g: torch.Tensor, group: int = 16, bp: int = 16) -> torch
     return r
 
 
-def potrf_batched(g: torch.Tensor, group: int = 16, bp: int = 16) -> torch.Tensor:
+def potrf_batched(g: torch.Tensor, bp: int = 16) -> torch.Tensor:
     """Batched upper Cholesky of g (B, n, n) SPD. Returns R (B, n, n)."""
     if not _build.is_cuda(g):
-        return potrf_batched_plain(g, group, bp)
+        return potrf_batched_plain(g, bp)
     _build.require_fp32(g)
-    _check(g, group, bp)
+    _check(g, bp)
     b, n, _ = g.shape
     if min(bp, n) * n * 4 > _MAX_PANEL_BYTES:
         raise ValueError(f"potrf_batched: a {bp}-row panel of n={n} exceeds shared memory")

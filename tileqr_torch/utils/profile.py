@@ -1,10 +1,16 @@
 """Device time per CUDA kernel of one factorization, by torch.profiler.
 
     python -m tileqr_torch.utils.profile --n 16384 --method hr [--qr] [--health]
+    python -m tileqr_torch.utils.profile --method tsqr [--n 512] [--qr]
+    python -m tileqr_torch.utils.profile --method batched [--n 128]
 
 Builds the kernels, runs ``qr_factor`` (or, with ``--qr``, ``qr``) once
 warm on a gaussian fp32 (n, n) A made from ``--seed``, then once more under
-``torch.profiler``, and prints the device time of every CUDA kernel name
+``torch.profiler``; ``--method tsqr`` profiles ``tsqr(a, "r")`` (with
+``--qr``: "reduced") on a (1048576, n) A with ``QRConfig(nb=n)``, and
+``--method batched`` ``qr_batched`` (Q and R) on a (4096, n, n) stack:
+BASELINE's configs 3 and 4 at the default n.
+It prints the device time of every CUDA kernel name
 (launches, total ms, share of the device total), the same summed over
 groups (this package's kernels by name, cuBLAS GEMMs as "torch.matmul",
 everything else as "other torch ops"), the wall time of the profiled call
@@ -34,6 +40,7 @@ OWN = {
     "potrf_kernel": "potrf_batched",
     "project_kernel": "panel_apply_carry (phase 1)",
     "apply_kernel": "panel_apply_carry (phase 2)",
+    "geqrt_batched_kernel": "geqrt_batched",
 }
 
 
@@ -70,8 +77,9 @@ def panel_health(a: torch.Tensor, cfg) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--n", type=int, default=16384)
-    ap.add_argument("--method", choices=("hh", "hr"), default="hr")
+    ap.add_argument("--n", type=int, default=None,
+                    help="columns (default 16384 square, 512 tsqr, 128 batched)")
+    ap.add_argument("--method", choices=("hh", "hr", "tsqr", "batched"), default="hr")
     ap.add_argument("--qr", action="store_true", help="profile qr (factor + R + Q)")
     ap.add_argument("--health", action="store_true", help="hr: print each panel's defect")
     ap.add_argument("--seed", type=int, default=0)
@@ -89,11 +97,20 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}")
     _build.lib()
-    cfg = tileqr_torch.QRConfig(square_method=args.method)
+    n = args.n or {"tsqr": 512, "batched": 128}.get(args.method, 16384)
+    shape = {"tsqr": (1048576, n), "batched": (4096, n, n)}.get(args.method, (n, n))
     rng = np.random.default_rng(args.seed)
-    a = torch.from_numpy(rng.standard_normal((args.n, args.n), dtype=np.float32)).cuda()
+    a = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+    if args.method == "tsqr":
+        cfg = tileqr_torch.QRConfig(nb=n)
+    else:
+        cfg = tileqr_torch.QRConfig(square_method="hr" if args.method == "hr" else "hh")
 
     def call():
+        if args.method == "tsqr":
+            return tileqr_torch.tsqr(a, "reduced" if args.qr else "r", cfg)
+        if args.method == "batched":
+            return tileqr_torch.qr_batched(a, config=cfg)
         if args.qr:
             return tileqr_torch.qr(a, config=cfg)
         return tileqr_torch.qr_factor(a, cfg)
@@ -109,8 +126,9 @@ def main(argv=None) -> int:
     del out
     kt = kernel_times(prof)
     total = sum(ms for _, ms in kt.values())
-    what = "qr" if args.qr else "qr_factor"
-    print(f"{args.method} {what} {args.n}x{args.n}: wall {wall_ms:.3f} ms under the profiler, "
+    what = {"tsqr": "tsqr reduced" if args.qr else "tsqr r", "batched": "qr_batched"}.get(
+        args.method, f"{args.method} {'qr' if args.qr else 'qr_factor'}")
+    print(f"{what} {'x'.join(map(str, shape))}: wall {wall_ms:.3f} ms under the profiler, "
           f"device total {total:.3f} ms, idle share {max(0.0, 1 - total / wall_ms):.4f} [{card}]")
     groups = defaultdict(lambda: [0, 0.0])
     for name, (cnt, ms) in kt.items():
@@ -128,7 +146,7 @@ def main(argv=None) -> int:
         top = sorted(range(len(hs)), key=lambda k: -hs[k])[:6]
         print(f"hr panel health (round-1 defect) over {len(hs)} panels: max {max(hs):.3e} at "
               f"panel {top[0]}, median {float(np.median(hs)):.3e}; largest: "
-              + ", ".join(f"panel {k} ({args.n - k * cfg.nb} rows) {hs[k]:.3e}" for k in top))
+              + ", ".join(f"panel {k} ({n - k * cfg.nb} rows) {hs[k]:.3e}" for k in top))
     return 0
 
 
