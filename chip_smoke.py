@@ -32,14 +32,15 @@ use (one nvcc per source, in parallel), then:
    so it applies the same Qᵀ); B6's three-matmul chain is timed beside it;
 5. runs ``tileqr_torch.qr`` with ``square_method="hr"`` at 16384² (64
    panels) and checks the same metrics, that the health is ≤ hr_guard_tau
-   with no guard warning, that B6, B8 and B9 launched, no hh kernel did and
-   no plain version ran, reruns bitwise equal, and ``lstsq``. On this path
+   with no guard warning, that B6, B8, B9 and B7 (``orgqr``'s windows
+   wider than 1024 columns) launched and nothing else did, no plain
+   version ran, reruns bitwise equal, and ``lstsq``. On this path
    the explicit-Q residual is gated at 1e-6 (BASELINE's gate). Its relerr
-   ‖QᵀA−R‖F/‖A‖F is printed twice: with Qᵀ applied through the factors'
-   reflectors in float64 on the card (the factorization's own error; gated
-   at 1e-6) and with the fp32 ``apply_q`` a user calls, which adds that
-   apply's rounding: above 1e-6 it is printed as a shortfall against the
-   1e-6 target and held only to a 3e-6 regression bound;
+   ‖QᵀA−R‖F/‖A‖F is printed twice, each gated at 1e-6: with Qᵀ applied
+   through the factors' reflectors in float64 on the card (the
+   factorization's own error) and with the fp32 ``apply_q`` a user calls,
+   which adds that apply's rounding (B7 with its Kahan sums, for targets
+   wider than 1024 columns);
 6. times the hr ``qr_factor``, ``qr`` and ``torch.linalg.qr(mode="r")`` at
    16384²;
 7. the tall-skinny path at BASELINE config 3, a 1048576×512 gaussian A with
@@ -56,8 +57,12 @@ use (one nvcc per source, in parallel), then:
    cholqr2 → ``HRFactors``): health ≤ hr_guard_tau with no guard warning,
    B9 and B8 launched at n = 512, the relerr with Qᵀ applied in float64
    ≤ 1e-6, and the fp32 ``apply_q`` relerr printed (held to 3e-6 when above
-   1e-6, as for hr); times ``tsqr`` r (tree), factor (cholqr2), factor +
-   ``apply_q`` on 16 columns and ``torch.linalg.qr(mode="r")``;
+   1e-6, as for hr); ``apply_q`` in "b3" of those factors to A, with the
+   counts set to 0 just before and read just after (nb = 512: one launch
+   of B7's split instantiation, no plain version; relerr ≤ 1e-4), and B7
+   at that shape against its b3 and "highest" plain versions, timed; times
+   ``tsqr`` r (tree), factor (cholqr2), factor + ``apply_q`` on 16 columns
+   and ``torch.linalg.qr(mode="r")``;
 8. the batched path at BASELINE config 4, a (4096, 128, 128) gaussian
    stack with the default QRConfig: holds the kernel against its plain
    version at ib = 32 (``qr_batched``'s width) and ib = 128, and ``geqrt``
@@ -70,11 +75,30 @@ use (one nvcc per source, in parallel), then:
    (its ill-conditioned tail) and the fallback meet the same gates, and on
    a well-conditioned stack (G + 4·√128·I) must not trip: health ≤ tau,
    one B9 launch, no GEQRT launch, the same gates; times both methods
-   beside ``torch.linalg.qr`` on the stack.
+   beside ``torch.linalg.qr`` on the stack;
+9. the emulated precisions "b3", "b4" and "default" (bf16 split products
+   on the tensor cores, ``csrc/bx_mma.cuh``): K3 and K4 at phase 1's
+   shapes, B6 on panels 0 and 48 of a 16384² A and B7 (also in "highest")
+   on ``orgqr``'s k = 0 (16384², both trans) and k = 63 (256²) windows,
+   each held against the plain version of its own mode within
+   ``TOL_MODE_KERNEL`` and printed beside its distance to the "highest"
+   plain version, which must be larger (the split ran); each timed beside
+   that plain version and three bf16 ``torch.matmul`` calls of the same
+   shapes (one pass; no single PyTorch call computes the split product, so
+   the library column is empty); then ``qr`` at 8192² on the hh path and
+   at 16384² on the hr path in each mode, with the counts set to 0 just
+   before and read just after (only that mode's K3/K4 or B6/B7 and the fp32
+   panel kernels launch, no plain version runs), checked: relerr
+   ‖QᵀA − R‖F/‖A‖F (Qᵀ in float64 for hr, the fp32 "highest" apply for hh)
+   and the explicit-Q residual ≤ 1e-4 in b3/b4 (1e-1 in "default"), orth
+   ≤ 1e-2 in b3/b4, hr health ≤ tau, bitwise reruns; and ``qr_factor``
+   timed in each mode beside "highest" and cuSOLVER.
 
 Every kernel's bound is the larger of its bytes (each input read once,
-each output written once) over 3.35 TB/s and its operations over the
-67 TFLOP/s fp32 peak, computed from this run's shapes. Any failure raises
+each output written once) over 3.35 TB/s and its operations over their
+type's peak, computed from this run's shapes: fp32 at 67 TFLOP/s, and the
+split products' bf16 passes (3, 4 or 1 per product) at the dense bf16
+tensor-core rate of 989 TFLOP/s. Any failure raises
 (non-zero exit). With no CUDA device it exits non-zero and prints no
 result. The last line is the device record.
 """
@@ -90,6 +114,9 @@ import warnings
 import numpy as np
 import torch
 
+from tileqr_torch.kernels._build import EMULATED_MODES, MODE_KERNELS
+from tileqr_torch.kernels.common import counter_key, passes_of
+
 NB, IB, CHUNK = 256, 128, 4
 N = 8192  # hh path
 N_HR = 16384  # hr path: the BASELINE gate size, 64 panels
@@ -97,6 +124,17 @@ HR_PANELS_TIMED = (0, 48)
 TOL_KERNEL = 1e-5
 TOL_RELERR, TOL_RESID, TOL_ORTH, TOL_LSTSQ = 1e-6, 3e-6, 1e-3, 1e-5
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM fp32 CUDA cores, HBM3
+PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor cores
+
+# a kernel against its own mode's plain version: "default" keeps no lo
+# half, so where the two fp32 sums of an intermediate (W, W2) differ in the
+# last bit its bf16 rounding can flip (2^-9 relative in that entry), and
+# the flips compound over a strip's chained couples: 1.1e-4..3.8e-4 on K3
+# and K4, against that mode's own 2.3e-3..8.6e-3 from "highest" (PERF.md)
+TOL_MODE_KERNEL = {"highest": TOL_KERNEL, "b3": TOL_KERNEL, "b4": TOL_KERNEL, "default": 1e-3}
+# qr in a mode: relerr and explicit-Q residual (and orth, b3/b4 only)
+TOL_MODE_RELERR = {"b3": 1e-4, "b4": 1e-4, "default": 1e-1}
+TOL_MODE_ORTH = 1e-2
 
 M_TS, N_TS, NB_TS = 1048576, 512, 512  # BASELINE config 3 (tall-skinny)
 B_BA, N_BA = 4096, 128  # BASELINE config 4 (batched)
@@ -113,7 +151,13 @@ KERNEL_INFO = {
     "geqrt_batched": ("tileqr_torch/csrc/geqrt_batched.cu",
                       "tileqr/drivers/tsqr.py:217, tileqr/drivers/batched.py:167, "
                       "tileqr/drivers/batched.py:41, tileqr/kernels/geqrt.py:225"),
+    "panel_apply": ("tileqr_torch/csrc/panel_apply.cu", "tileqr/kernels/panel_apply.py:112"),
 }
+# the split-product instantiations (the in-kernel _dot_bx of tileqr/kernels/common.py:95)
+KERNEL_INFO.update({
+    f"{k}[{m}]": (f"{KERNEL_INFO[k][0]} + tileqr_torch/csrc/bx_mma.cuh", KERNEL_INFO[k][1])
+    for k in MODE_KERNELS for m in EMULATED_MODES
+})
 
 
 def require(cond: bool, msg: str) -> None:
@@ -159,21 +203,24 @@ class KernelRecord:
         self.err = {k: 0.0 for k in KERNEL_INFO}
         self.ms, self.plain_ms, self.library_ms, self.bound = {}, {}, {}, {}
 
-    def compare(self, name: str, label: str, got, want) -> None:
+    def compare(self, name: str, label: str, got, want, tol: float = TOL_KERNEL) -> None:
         for i, (g, w) in enumerate(zip(got, want)):
             r = rel(g, w)
             self.err[name] = max(self.err[name], max_abs(g, w))
             print(f"kernel {name} {label} out{i}: rel_fro={r:.3e}")
-            require(np.isfinite(r) and r <= TOL_KERNEL,
+            require(np.isfinite(r) and r <= tol,
                     f"{name} {label} output {i} differs from its plain version: {r:.3e}")
 
     @staticmethod
-    def bound_of(flops: float, nbytes: float):
-        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    def bound_of(flops: float, nbytes: float, bf16_flops: float = 0.0):
+        """fp32 flops at the CUDA-core peak plus bf16 flops at the
+        tensor-core peak, against the bytes at the HBM rate."""
+        t_ops = (flops / PEAK_FLOPS + bf16_flops / PEAK_BF16) * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
         return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
-    def set_bound(self, name: str, flops: float, nbytes: float) -> None:
-        self.bound[name] = self.bound_of(flops, nbytes)
+    def set_bound(self, name: str, flops: float, nbytes: float, bf16_flops: float = 0.0) -> None:
+        self.bound[name] = self.bound_of(flops, nbytes, bf16_flops)
 
     def time(self, name: str, kern, plain, library, reps: int, preps: int, card: str,
              label: str = "", bound=None) -> None:
@@ -210,7 +257,6 @@ def phase1(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
     mt = a.shape[0] // NB
     n_head, br = CHUNK - 1, CHUNK * NB
     n_chunks = (mt - 1 - n_head) // CHUNK
-    width = a.shape[1] - NB
 
     # K1: GEQRT of tile (0, 0) + the 3 head couples of panel 0
     got = panel.panel_factor(a, 0, NB, IB, n_head)
@@ -224,33 +270,6 @@ def phase1(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
     rec.compare("panel_chain", f"n_chunks={n_chunks} rows={br}", got, want)
     _, v_chunks, t2t = want
 
-    # K3: the variants of the factor sweep (trans, forward) and the Q sweep
-    # (no trans, reverse), fused LARFB on and off, col_start 1 and 0
-    variants = [
-        ("head trans fwd fused cs=1", (v_stack, t2h, 1, 1, n_head, NB), 1, True, False, True),
-        ("chunks trans fwd cs=1", (v_chunks, t2t, 0, 1, n_chunks, br), 1, True, False, False),
-        ("chunks notrans rev fused cs=0", (v_chunks, t2t, 0, 1, n_chunks, br), 0, False, True, True),
-        ("head notrans rev cs=0", (v_stack, t2h, 1, 1, n_head, NB), 0, False, True, False),
-    ]
-    for label, (vs, ts, sb, bb, nc, rows), cs, trans, rev, fused in variants:
-        outs = []
-        for fn in (chain.couple_strip, chain.couple_strip_plain):
-            c = a.clone()
-            strip = c[:NB, cs * NB :]
-            fn(vs, ts, c, strip, sb, bb, nc, rows, NB, cs, trans=trans, reverse=rev,
-               vkk=v_stack[0] if fused else None, tg=tg if fused else None)
-            rows_touched = torch.cat([c[:NB], c[bb * rows : (bb + nc) * rows]])
-            outs.append(rows_touched[:, cs * NB :])
-        rec.compare("couple_strip", label, [outs[0]], [outs[1]])
-
-    # K4: both trans values on the 7936-column strip
-    for trans in (True, False):
-        s1 = a[:NB, NB:].clone()
-        s2 = s1.clone()
-        chain.larfb_strip(v_stack[0], tg, s1, NB, trans=trans)
-        chain.larfb_strip_plain(v_stack[0], tg, s2, NB, trans=trans)
-        rec.compare("larfb_strip", f"trans={trans}", [s1], [s2])
-
     # bounds at these shapes (fp32, 4 bytes an element)
     head_rows = (1 + n_head) * NB
     rec.set_bound("panel_factor", geqrf_flops(head_rows, NB),
@@ -258,9 +277,6 @@ def phase1(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
     chain_rows = NB + n_chunks * br
     rec.set_bound("panel_chain", geqrf_flops(chain_rows, NB),
                   4 * (2 * n_chunks * br * NB + 2 * NB * NB + n_chunks * NB * NB))
-    rec.set_bound("couple_strip", n_chunks * (2.0 * (2 * br * NB + NB * NB) + NB) * width,
-                  4 * (2 * NB * width + 2 * n_chunks * br * width + n_chunks * (br + NB) * NB))
-    rec.set_bound("larfb_strip", 6.0 * NB * NB * width, 4 * (2 * NB * width + 2 * NB * NB))
 
     # the PyTorch calls that compute the same functions (yardsticks, never
     # called by the port): geqrf of the panel blocks, ormqr of their
@@ -271,25 +287,127 @@ def phase1(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
     tile_qr = torch.geqrf(a[:NB, :NB].contiguous())
     c_all = torch.cat([a[:NB, NB:], a[br : br * (1 + n_chunks), NB:]]).contiguous()
     strip_c = a[:NB, NB:].contiguous()
+    strip_kernels(a, rec, card, (v_stack, tg, t2h, v_chunks, t2t), "highest", (
+        lambda: torch.ormqr(chain_qr[0], chain_qr[1], c_all, left=True, transpose=True),
+        lambda: torch.ormqr(tile_qr[0], tile_qr[1], strip_c, left=True, transpose=True)))
 
     # times at the same shapes
-    c = a.clone()
-    strip = c[:NB, NB:]
-    sargs = (v_chunks, t2t, c, strip, 0, 1, n_chunks, br, NB, 1)
     rec.time("panel_factor", lambda: panel.panel_factor(a, 0, NB, IB, n_head),
              lambda: panel.panel_factor_plain(a, 0, NB, IB, n_head),
              lambda: torch.geqrf(head_blk), 5, 1, card)
     rec.time("panel_chain", lambda: chain.panel_chain(a, r_k, 0, NB, 1, n_chunks, br, IB),
              lambda: chain.panel_chain_plain(a, r_k, 0, NB, 1, n_chunks, br, IB),
              lambda: torch.geqrf(chain_blk), 5, 1, card)
-    rec.time("couple_strip", lambda: chain.couple_strip(*sargs, trans=True),
-             lambda: chain.couple_strip_plain(*sargs, trans=True),
-             lambda: torch.ormqr(chain_qr[0], chain_qr[1], c_all, left=True, transpose=True),
-             10, 3, card)
-    rec.time("larfb_strip", lambda: chain.larfb_strip(v_stack[0], tg, strip, NB),
-             lambda: chain.larfb_strip_plain(v_stack[0], tg, strip, NB),
-             lambda: torch.ormqr(tile_qr[0], tile_qr[1], strip_c, left=True, transpose=True),
-             10, 3, card)
+
+
+def compare_mode(rec: KernelRecord, name: str, mode: str, label: str, got, want,
+                 want_highest) -> None:
+    """A kernel against its own mode's plain version; in an emulated mode
+    also its distance to the "highest" plain version, which must be the
+    larger (the split product ran)."""
+    rec.compare(counter_key(name, mode), label, [got], [want], TOL_MODE_KERNEL[mode])
+    if mode != "highest":
+        d_own, d_hi = rel(got, want), rel(got, want_highest)
+        print(f"kernel {counter_key(name, mode)} {label}: to its own mode's plain version "
+              f"{d_own:.3e}, to the 'highest' plain version {d_hi:.3e}")
+        require(d_own < d_hi, f"{name}[{mode}] {label} is not nearer its own mode")
+
+
+def bf16_chain_ms(fn, card: str, what: str) -> None:
+    """Time three bf16 torch.matmul calls of a kernel's shapes (one pass)."""
+    fn()
+    torch.cuda.synchronize()
+    print(f"time {what}: three bf16 torch.matmul calls (one pass, same shapes) "
+          f"{cuda_ms(fn, 5):.4f} ms [{card}]")
+
+
+def strip_kernels(a: torch.Tensor, rec: KernelRecord, card: str, fac, mode: str,
+                  libraries=None) -> None:
+    """K3 and K4 in one precision mode at the hh path's shapes, against the
+    plain version of the same mode: bounds and times beside that plain
+    version and the library calls (``libraries``, "highest" only) or, in an
+    emulated mode, three bf16 matmuls of the same shapes."""
+    from tileqr_torch.kernels import chain
+    from tileqr_torch.kernels.common import unit_lower
+
+    v_stack, tg, t2h, v_chunks, t2t = fac
+    mt = a.shape[0] // NB
+    n_head, br = CHUNK - 1, CHUNK * NB
+    n_chunks = (mt - 1 - n_head) // CHUNK
+    width = a.shape[1] - NB
+    k3, k4 = counter_key("couple_strip", mode), counter_key("larfb_strip", mode)
+    pm = dict(precision=mode)
+
+    # K3: the variants of the factor sweep (trans, forward) and the Q sweep
+    # (no trans, reverse), fused LARFB on and off, col_start 1 and 0
+    variants = [
+        ("head trans fwd fused cs=1", (v_stack, t2h, 1, 1, n_head, NB), 1, True, False, True),
+        ("chunks trans fwd cs=1", (v_chunks, t2t, 0, 1, n_chunks, br), 1, True, False, False),
+        ("chunks notrans rev fused cs=0", (v_chunks, t2t, 0, 1, n_chunks, br), 0, False, True, True),
+        ("head notrans rev cs=0", (v_stack, t2h, 1, 1, n_head, NB), 0, False, True, False),
+    ]
+    for label, (vs, ts, sb, bb, nc, rows), cs, trans, rev, fused in variants:
+        outs = []
+        runs = [(chain.couple_strip, mode), (chain.couple_strip_plain, mode)]
+        if mode != "highest":
+            runs.append((chain.couple_strip_plain, "highest"))
+        for fn, prec in runs:
+            c = a.clone()
+            strip = c[:NB, cs * NB :]
+            fn(vs, ts, c, strip, sb, bb, nc, rows, NB, cs, trans=trans, reverse=rev,
+               vkk=v_stack[0] if fused else None, tg=tg if fused else None, precision=prec)
+            rows_touched = torch.cat([c[:NB], c[bb * rows : (bb + nc) * rows]])
+            outs.append(rows_touched[:, cs * NB :])
+        compare_mode(rec, "couple_strip", mode, label, outs[0], outs[1], outs[-1])
+        del outs
+
+    # K4: both trans values on the 7936-column strip
+    for trans in (True, False):
+        outs = []
+        for fn, prec in [(chain.larfb_strip, mode), (chain.larfb_strip_plain, mode),
+                         (chain.larfb_strip_plain, "highest")]:
+            s1 = a[:NB, NB:].clone()
+            fn(v_stack[0], tg, s1, NB, trans=trans, precision=prec)
+            outs.append(s1)
+        compare_mode(rec, "larfb_strip", mode, f"trans={trans}", outs[0], outs[1], outs[2])
+
+    # bounds: the products' flops (bf16 passes in an emulated mode), the
+    # adds in fp32, each input read once and each output written once
+    p = passes_of(mode)
+    k3_mm, k3_add = n_chunks * 2.0 * (2 * br * NB + NB * NB) * width, n_chunks * NB * width
+    k4_mm = 6.0 * NB * NB * width
+    k3_bytes = 4 * (2 * NB * width + 2 * n_chunks * br * width + n_chunks * (br + NB) * NB)
+    k4_bytes = 4 * (2 * NB * width + 2 * NB * NB)
+    if p:
+        rec.set_bound(k3, k3_add, k3_bytes, p * k3_mm)
+        rec.set_bound(k4, 0.0, k4_bytes, p * k4_mm)
+    else:
+        rec.set_bound(k3, k3_mm + k3_add, k3_bytes)
+        rec.set_bound(k4, k4_mm, k4_bytes)
+
+    c = a.clone()
+    strip = c[:NB, NB:]
+    sargs = (v_chunks, t2t, c, strip, 0, 1, n_chunks, br, NB, 1)
+    lib3, lib4 = libraries if libraries else (None, None)
+    rec.time(k3, lambda: chain.couple_strip(*sargs, trans=True, **pm),
+             lambda: chain.couple_strip_plain(*sargs, trans=True, **pm), lib3, 10, 3, card)
+    rec.time(k4, lambda: chain.larfb_strip(v_stack[0], tg, strip, NB, **pm),
+             lambda: chain.larfb_strip_plain(v_stack[0], tg, strip, NB, **pm), lib4, 10, 3,
+             card)
+    if p:
+        vb, tb = v_chunks.bfloat16(), t2t.bfloat16()
+        cb = c[br : br * (1 + n_chunks), NB:].bfloat16().reshape(n_chunks, br, width)
+        topb = c[:NB, NB:].bfloat16()
+
+        def k3_chain():
+            w = topb + vb.transpose(1, 2) @ cb
+            return cb - vb @ (tb.transpose(1, 2) @ w)
+
+        vkb = unit_lower(v_stack[0]).bfloat16()
+        tgb = tg.bfloat16()
+        bf16_chain_ms(k3_chain, card, k3)
+        bf16_chain_ms(lambda: topb - vkb @ (tgb.T @ (vkb.T @ topb)), card, k4)
+    del c, strip
 
 
 def run_path(a: torch.Tensor, cfg, path: str, card: str):
@@ -298,8 +416,7 @@ def run_path(a: torch.Tensor, cfg, path: str, card: str):
     import tileqr_torch
     from tileqr_torch.kernels import _build
 
-    own, other = ((_build.HH_KERNELS, _build.HR_KERNELS) if path == "hh"
-                  else (_build.HR_KERNELS, _build.HH_KERNELS))
+    own = _build.HH_KERNELS if path == "hh" else _build.HR_KERNELS + _build.APPLY_KERNELS
     torch.cuda.synchronize()
     with warnings.catch_warnings():
         warnings.simplefilter("error")  # a guard trip fails the run
@@ -310,7 +427,8 @@ def run_path(a: torch.Tensor, cfg, path: str, card: str):
         plain = dict(_build.PLAIN_CALLS)
     print(f"{path} path launches {json.dumps(launches)} plain_calls {json.dumps(plain)}")
     require(all(launches[k] >= 1 for k in own), f"a {path} kernel never launched: {launches}")
-    require(not any(launches[k] for k in other), f"the {path} path launched other kernels")
+    require(not any(v for k, v in launches.items() if k not in own),
+            f"the {path} path launched other kernels")
     require(not any(plain.values()), f"a plain version ran on the {path} path: {plain}")
     return launches, q, r
 
@@ -347,11 +465,9 @@ def check_path(a, q, r, cfg, rng, path: str, card: str) -> None:
         print(f"{path} qr {n}x{n}: relerr ||Q^T A - R||F/||A||F, Q^T applied in float64 "
               f"= {relerr:.3e} [{card}]")
         rel32 = backward_error_f64(a, tileqr_torch.apply_q(f, a, trans=True), r)
-        verdict = ("within the 1e-6 target" if rel32 <= TOL_RELERR else
-                   f"SHORTFALL against the 1e-6 target (regression bound {TOL_RESID})")
         print(f"{path} qr {n}x{n}: relerr ||Q^T A - R||F/||A||F with the fp32 apply_q "
-              f"= {rel32:.3e}: {verdict} [{card}]")
-        require(rel32 <= TOL_RESID, f"fp32 apply_q relerr {rel32:.3e} > {TOL_RESID}")
+              f"(B7) = {rel32:.3e} [{card}]")
+        require(rel32 <= TOL_RELERR, f"fp32 apply_q relerr {rel32:.3e} > {TOL_RELERR}")
     else:
         relerr = backward_error_f64(a, tileqr_torch.apply_q(f, a, trans=True), r)
         print(f"{path} qr {n}x{n}: relerr ||Q^T A - R||F/||A||F = {relerr:.3e} [{card}]")
@@ -527,9 +643,51 @@ def geqrt_bound(b: int, m: int, n: int):
     return KernelRecord.bound_of(b * geqrf_flops(m, n), 4.0 * b * (2 * m * n + n * n))
 
 
-def phase7(rec: KernelRecord, rng, card: str) -> int:
-    """The tall-skinny path at config 3; returns the kernel's launches in
-    its ``tsqr`` run."""
+def tsqr_factor_b3(a: torch.Tensor, f, rf: torch.Tensor, rec: KernelRecord, card: str) -> int:
+    """``apply_q`` in "b3" of the tsqr factor's one nb = 512 panel to A's
+    512 columns, with the counts set to 0 just before and read just after:
+    one launch of B7's split instantiation (nb-aligned, so no matmul
+    route), relerr ≤ the b3 limit; then B7 at that shape against its b3 and
+    "highest" plain versions, and timed. Returns the launches."""
+    import tileqr_torch
+    from tileqr_torch.drivers.square_hr import _highest
+    from tileqr_torch.kernels import panel_apply as pa
+    from tileqr_torch.utils.verify import backward_error_f64
+
+    m, n = a.shape
+    b7 = counter_key("panel_apply", "b3")
+    cfg = tileqr_torch.QRConfig(nb=NB_TS, precision="b3")
+    qta, launches = run_counted(lambda: tileqr_torch.apply_q(f, a, trans=True, config=cfg),
+                                (b7,), {b7: 1}, "tsqr factor apply_q precision=b3")
+    relerr = backward_error_f64(a, qta, rf)
+    del qta
+    print(f"tsqr cholqr2 {m}x{n}: relerr with apply_q in b3 (B7, nb={f.nb}) = {relerr:.3e} "
+          f"[{card}]")
+    require(relerr <= TOL_MODE_RELERR["b3"], f"tsqr factor b3 apply_q relerr {relerr:.3e}")
+    y, t = f.panels[0]
+    nb = y.shape[1]
+    with _highest():
+        outs = []
+        for fn, prec in ((pa.panel_apply, "b3"), (pa.panel_apply_plain, "b3"),
+                         (pa.panel_apply_plain, "highest")):
+            outs.append(fn(y, t, a.clone(), trans=True, precision=prec))
+        compare_mode(rec, "panel_apply", "b3", f"tsqr factor ({m}, {n}) nb={nb}", *outs)
+        del outs
+        c = a.clone()
+        bound = rec.bound_of(2.0 * nb * nb * n, 4 * (m * nb + nb * nb + 2 * m * n),
+                             3 * 4.0 * m * nb * n)
+        rec.time(b7, lambda: pa.panel_apply(y, t, c, precision="b3"),
+                 lambda: pa.panel_apply_plain(y, t, c, precision="b3"), None, 3, 1, card,
+                 label=f"tsqr factor ({m}, {n}) nb={nb}", bound=bound)
+        del c
+    torch.cuda.empty_cache()
+    return launches[b7]
+
+
+def phase7(rec: KernelRecord, rng, card: str):
+    """The tall-skinny path at config 3; returns the batched GEQRT's
+    launches in its ``tsqr`` run and B7's in the b3 ``apply_q`` of the
+    tsqr factor."""
     import tileqr_torch
     from tileqr_torch.drivers import tsqr as dtsqr
     from tileqr_torch.drivers.square_hr import apply_q_hr
@@ -609,6 +767,7 @@ def phase7(rec: KernelRecord, rng, card: str) -> int:
                f"SHORTFALL against the 1e-6 target (regression bound {TOL_RESID})")
     print(f"tsqr cholqr2 {m}x{n}: relerr with the fp32 apply_q = {rel32:.3e}: {verdict} [{card}]")
     require(rel32 <= TOL_RESID, f"tsqr cholqr2 fp32 apply_q relerr {rel32:.3e} > {TOL_RESID}")
+    b7_launches = tsqr_factor_b3(a, f, rf, rec, card)
     del f, rf
     torch.cuda.empty_cache()
 
@@ -628,7 +787,7 @@ def phase7(rec: KernelRecord, rng, card: str) -> int:
         print(f"{label} {m}x{n}: {t:.3f} ms, {flops / t / 1e9:.3f} TFLOP/s [{card}]")
     del a, leaves, c16
     torch.cuda.empty_cache()
-    return launches["geqrt_batched"]
+    return launches["geqrt_batched"], b7_launches
 
 
 def batched_gates(a: torch.Tensor, q: torch.Tensor, r: torch.Tensor, what: str, card: str):
@@ -711,11 +870,209 @@ def phase8(rec: KernelRecord, rng, card: str) -> int:
     return launches["geqrt_batched"]
 
 
+def panel_pair(a: torch.Tensor, k: int):
+    """(Y, T) of panel k of A by the fp32 hr panel, as the driver makes them."""
+    from tileqr_torch.drivers import square_hr
+
+    s = k * NB
+    with square_hr._highest():
+        y, t, _ = square_hr.hr_panel(a[s:, s : s + NB])
+    return y, t
+
+
+def apply_kernels(a: torch.Tensor, rec: KernelRecord, card: str, mode: str) -> None:
+    """B6 on panels 0 and 48 (emulated modes) and B7 on orgqr's k = 0 and
+    k = 63 windows, against the plain versions of the same mode, with
+    bounds and times at panel 0 and the k = 0 window."""
+    from tileqr_torch.drivers.square_hr import _highest
+    from tileqr_torch.kernels import panel_apply as pa
+
+    n, p = a.shape[0], passes_of(mode)
+    pm = dict(precision=mode)
+
+    def bound(name, m, w):
+        mm, fold = 4.0 * m * NB * w, 2.0 * NB * NB * w
+        nbytes = 4 * (m * NB + NB * NB + 2 * m * w)
+        if p:
+            return rec.bound_of(fold, nbytes, p * mm)
+        return rec.bound_of(mm + fold, nbytes)
+
+    def chain_fn(y, t, win):
+        yb, tb, cb = y.bfloat16(), t.bfloat16(), win.bfloat16()
+        return lambda: cb - yb @ (tb.T @ (yb.T @ cb))
+
+    with _highest():
+        if mode != "highest":
+            b6 = counter_key("panel_apply_carry", mode)
+            for k in HR_PANELS_TIMED:
+                s = k * NB
+                y, t = panel_pair(a, k)
+                m, w = n - s, n - s - NB
+                outs = []
+                for fn, prec in ((pa.panel_apply_carry, mode), (pa.panel_apply_carry_plain, mode),
+                                 (pa.panel_apply_carry_plain, "highest")):
+                    c = a.clone()
+                    fn(y, t, c, k, NB, trans=True, precision=prec)
+                    outs.append(c[s:, s + NB :])
+                compare_mode(rec, "panel_apply_carry", mode, f"panel {k} window ({m}, {w})",
+                             *outs)
+                del outs
+                c = a.clone()
+                if k == 0:
+                    rec.bound[b6] = bound(b6, m, w)
+                    rec.time(b6, lambda: pa.panel_apply_carry(y, t, c, k, NB, **pm),
+                             lambda: pa.panel_apply_carry_plain(y, t, c, k, NB, **pm),
+                             None, 5, 2, card)
+                else:
+                    rec.time(b6, lambda: pa.panel_apply_carry(y, t, c, k, NB, **pm),
+                             lambda: pa.panel_apply_carry_plain(y, t, c, k, NB, **pm), None,
+                             10, 2, card, label=f"panel {k} ({m}, {w})", bound=bound(b6, m, w))
+                bf16_chain_ms(chain_fn(y, t, c[s:, s + NB :]), card, f"{b6} panel {k}")
+                del c
+
+        # B7 on orgqr's windows: k = 0 is (16384, 16384) (also apply_q's
+        # shape, trans), k = 63 is (256, 256)
+        b7 = counter_key("panel_apply", mode)
+        for k, trans_list in ((0, (False, True)), (63, (False,))):
+            s = k * NB
+            y, t = panel_pair(a, k)
+            m = n - s
+            for trans in trans_list:
+                outs = []
+                for fn, prec in ((pa.panel_apply, mode), (pa.panel_apply_plain, mode),
+                                 (pa.panel_apply_plain, "highest")):
+                    win = a.clone()[s:, s:]  # a strided window, as orgqr's
+                    fn(y, t, win, trans=trans, precision=prec)
+                    outs.append(win)
+                compare_mode(rec, "panel_apply", mode,
+                             f"window k={k} ({m}, {m}) trans={trans}", *outs)
+                del outs, win
+            c = a.clone()[s:, s:]
+            if k == 0:
+                rec.bound[b7] = bound(b7, m, m)
+                rec.time(b7, lambda: pa.panel_apply(y, t, c, trans=False, **pm),
+                         lambda: pa.panel_apply_plain(y, t, c, trans=False, **pm), None, 5, 2,
+                         card)
+            else:
+                rec.time(b7, lambda: pa.panel_apply(y, t, c, trans=False, **pm),
+                         lambda: pa.panel_apply_plain(y, t, c, trans=False, **pm), None, 20, 5,
+                         card, label=f"window k={k} ({m}, {m})", bound=bound(b7, m, m))
+            bf16_chain_ms(chain_fn(y, t, c), card, f"{b7} window k={k}")
+            del c
+    torch.cuda.empty_cache()
+
+
+def mode_path(a: torch.Tensor, path: str, mode: str, card: str) -> dict:
+    """qr on one path in one emulated mode, with the counts set to 0 just
+    before and read just after, and its gates; returns the launches."""
+    import tileqr_torch
+    from tileqr_torch.drivers.square_hr import apply_q_hr
+    from tileqr_torch.utils.verify import backward_error_f64, residuals_f64
+
+    n = a.shape[0]
+    cfg = tileqr_torch.QRConfig(square_method=path, precision=mode)
+    own = (("panel_factor", "panel_chain", f"couple_strip[{mode}]", f"larfb_strip[{mode}]")
+           if path == "hh" else
+           ("potrf_batched", "modified_lu", f"panel_apply_carry[{mode}]", f"panel_apply[{mode}]"))
+    (q, r), launches = run_counted(lambda: tileqr_torch.qr(a, config=cfg), own, {},
+                                   f"{path} qr {n}x{n} precision={mode}")
+    require(bool(torch.isfinite(q).all()) and bool(torch.isfinite(r).all()), "non-finite Q/R")
+    tol = TOL_MODE_RELERR[mode]
+    res = residuals_f64(a, q, r)
+    del q
+    f = tileqr_torch.qr_factor(a, cfg)
+    if path == "hr":
+        panels64 = [(y.double(), t.double()) for y, t in f.panels]
+        relerr = backward_error_f64(a, apply_q_hr(panels64, a.double(), f.nb, trans=True), r)
+        del panels64
+        how = "Q^T applied in float64"
+    else:
+        relerr = backward_error_f64(a, tileqr_torch.apply_q(f, a, trans=True), r)
+        how = "Q^T applied by the fp32 'highest' apply"
+    print(f"{path} qr {n}x{n} precision={mode}: relerr ({how}) {relerr:.3e}, explicit-Q "
+          f"residual {res['relerr']:.3e}, orth {res['orth']:.3e} [{card}]")
+    require(relerr <= tol and res["relerr"] <= tol, f"{path} {mode}: relerr/residual past {tol}")
+    if mode != "default":
+        require(res["orth"] <= TOL_MODE_ORTH, f"{path} {mode}: orth {res['orth']:.3e}")
+    if path == "hr":
+        h = float(f.health)
+        print(f"hr qr {n}x{n} precision={mode}: health {h:.3e}, hr_guard_tau {cfg.hr_guard_tau}")
+        require(h <= cfg.hr_guard_tau, f"hr {mode} health {h:.3e}")
+    f2 = tileqr_torch.qr_factor(a, cfg)
+    flat = ((lambda g: [g.packed, g.r_diag, g.t_geqrt] + [x for pp in g.panels for x in pp])
+            if path == "hh" else (lambda g: [g.r] + [x for pp in g.panels for x in pp]))
+    same = all(torch.equal(x, y) for x, y in zip(flat(f), flat(f2)))
+    print(f"{path} qr_factor precision={mode} rerun bitwise equal: {same}")
+    require(same, f"{path} {mode} qr_factor reruns differ")
+    del f, f2, r
+    torch.cuda.empty_cache()
+    return launches
+
+
+def time_modes(a: torch.Tensor, path: str, card: str, reps: int) -> None:
+    """qr_factor in every mode beside "highest" and cuSOLVER, in one call."""
+    import tileqr_torch
+
+    n = a.shape[0]
+    flops = 2.0 * n * n * (n - n / 3.0)
+    for mode in ("highest",) + EMULATED_MODES:
+        cfg = tileqr_torch.QRConfig(square_method=path, precision=mode)
+        tileqr_torch.qr_factor(a, cfg)
+        ms = cuda_ms(lambda: tileqr_torch.qr_factor(a, cfg), reps)
+        print(f"{path} qr_factor {n}x{n} precision={mode}: {ms:.3f} ms, "
+              f"{flops / ms / 1e9:.3f} TFLOP/s [{card}]")
+    torch.linalg.qr(a, mode="r")
+    ms = cuda_ms(lambda: torch.linalg.qr(a, mode="r"), reps)
+    print(f"{path} torch.linalg.qr(mode='r') {n}x{n} (cuSOLVER reference): {ms:.3f} ms, "
+          f"{flops / ms / 1e9:.3f} TFLOP/s [{card}]")
+
+
+def add_mode_launches(total: dict, launches: dict, mode: str) -> None:
+    """Add one run's launches of the mode's instantiations to the total."""
+    for k, v in launches.items():
+        if k.endswith(f"[{mode}]"):
+            total[k] = total.get(k, 0) + v
+
+
+def phase9(rec: KernelRecord, rng, card: str) -> dict:
+    """The emulated precisions; returns each mode kernel's launches in the
+    qr runs."""
+    from tileqr_torch.kernels import chain, panel
+
+    launches = {}
+    # K3/K4 and the hh path at 8192²
+    a = torch.from_numpy(rng.standard_normal((N, N), dtype=np.float32)).cuda()
+    mt = a.shape[0] // NB
+    n_head, br = CHUNK - 1, CHUNK * NB
+    n_chunks = (mt - 1 - n_head) // CHUNK
+    r_k, v_stack, tg, t2h = panel.panel_factor(a, 0, NB, IB, n_head)
+    _, v_chunks, t2t = chain.panel_chain(a, r_k, 0, NB, 1, n_chunks, br, IB)
+    for mode in EMULATED_MODES:
+        strip_kernels(a, rec, card, (v_stack, tg, t2h, v_chunks, t2t), mode)
+    del r_k, v_stack, tg, t2h, v_chunks, t2t
+    for mode in EMULATED_MODES:
+        add_mode_launches(launches, mode_path(a, "hh", mode, card), mode)
+    time_modes(a, "hh", card, 1)
+    del a
+    torch.cuda.empty_cache()
+
+    # B6/B7 and the hr path at 16384²
+    a = torch.from_numpy(rng.standard_normal((N_HR, N_HR), dtype=np.float32)).cuda()
+    for mode in ("highest",) + EMULATED_MODES:
+        apply_kernels(a, rec, card, mode)
+    for mode in EMULATED_MODES:
+        add_mode_launches(launches, mode_path(a, "hr", mode, card), mode)
+    time_modes(a, "hr", card, 2)
+    del a
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 1
-    import tileqr_torch  # noqa: F401  (fails outside a checkout of the repo)
+    import tileqr_torch
     from tileqr_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -751,15 +1108,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     time_path(a, hr, "hr", card, 2)
 
-    launches.update({k: hr_launches[k] for k in _build.HR_KERNELS})
+    launches.update({k: hr_launches[k] for k in _build.HR_KERNELS + _build.APPLY_KERNELS})
     del a
     torch.cuda.empty_cache()
 
     # the tall-skinny and batched paths at BASELINE configs 3 and 4
-    ts = phase7(rec, rng, card)
+    ts, ts_b7 = phase7(rec, rng, card)
     ba = phase8(rec, rng, card)
     print(f"geqrt_batched launches: {ts} in tsqr r, {ba} in qr_batched")
     launches["geqrt_batched"] = ts + ba
+
+    # the emulated precisions on both square paths
+    launches.update(phase9(rec, rng, card))
+    launches[counter_key("panel_apply", "b3")] += ts_b7
     print(json.dumps({"kernels": rec.line(launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -139,14 +139,21 @@ def test_caller_tensor_unchanged(rng):
 
 
 def test_unported_settings_raise():
-    """Precisions other than "highest" are not ported, on either square
-    path (the hr path itself is ported: ROADMAP.md queue A item 4)."""
+    """Every precision runs on both square paths (ROADMAP.md queue A item
+    7). What still raises: "b3"/"b4" where the reference hands the mode to
+    an XLA product that refuses it (here ``qr_batched``; every such entry is
+    held against tileqr in tests/test_torch_precision_api.py), and a
+    precision that is no mode."""
     a = np.eye(32)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        tileqr_torch.qr_factor(a, tileqr_torch.QRConfig(nb=32, square_method="hr",
-                                                        precision="b3"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        tileqr_torch.qr(a, config=tileqr_torch.QRConfig(nb=32, precision="b3"), device="cpu")
+    for method in ("hh", "hr"):
+        cfg = tileqr_torch.QRConfig(nb=32, square_method=method, precision="b3")
+        q, r = tileqr_torch.qr(a, config=cfg, device="cpu")
+        assert torch.allclose(q @ r, torch.eye(32), atol=1e-5)
+    with pytest.raises(ValueError, match="'b3'.*qr_batched"):
+        tileqr_torch.qr_batched(a[None], config=tileqr_torch.QRConfig(nb=32, precision="b3"),
+                                device="cpu")
+    with pytest.raises(ValueError, match="precision='bf16'"):
+        tileqr_torch.qr(a, config=tileqr_torch.QRConfig(nb=32, precision="bf16"), device="cpu")
 
 
 @pytest.mark.parametrize("entry", ["qr", "qr_factor", "lstsq"])

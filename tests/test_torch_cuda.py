@@ -1,5 +1,7 @@
 """tileqr_torch's CUDA kernels on the card, against their plain versions,
-both square paths (hh and hr), tsqr and qr_batched end to end.
+both square paths (hh and hr), tsqr and qr_batched end to end, and the
+split-product instantiations of K3, K4, B6 and B7 in each emulated
+precision mode.
 
 Every test here needs a CUDA device and carries the ``cuda_only`` marker;
 without a device the ``cuda`` fixture skips it. Run them on a machine with
@@ -9,7 +11,9 @@ an H100 (sm_90a) and nvcc:
 
 fp32 throughout (the kernels take nothing else); kernel against plain
 version: relative Frobenius difference <= 1e-5 (the summation orders
-differ, the algebra does not).
+differ, the algebra does not), in every precision mode against the plain
+version of the same mode; and each emulated kernel nearer its own mode's
+plain version than the "highest" one, which shows the split ran.
 """
 
 import numpy as np
@@ -174,7 +178,7 @@ def test_hr_qr_on_the_card(cuda):
     _build.reset_counts()
     q, r = tileqr_torch.qr(a, config=cfg)
     torch.cuda.synchronize()
-    assert all(_build.LAUNCHES[k] > 0 for k in _build.HR_KERNELS)
+    assert all(_build.LAUNCHES[k] > 0 for k in _build.HR_KERNELS + _build.APPLY_KERNELS)
     assert not any(_build.LAUNCHES[k] for k in _build.HH_KERNELS)
     assert not any(_build.PLAIN_CALLS.values())
     res = residuals_f64(a, q, r)
@@ -313,3 +317,221 @@ def test_tsqr_and_qr_batched_pin_ieee_fp32(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     assert all(torch.equal(x, y) for x, y in zip(on, off))
+
+
+MODES = ["b3", "b4", "default"]
+# "default" keeps no lo half: where the kernel's and the plain version's
+# fp32 sums of an intermediate (W, W2) differ in the last bit, its bf16
+# rounding can flip, 2^-9 relative in that entry, and the flips compound
+# over chained couples: the two agree to 3e-5..4e-4 (H100), against the
+# mode's own 2e-3..9e-3 from "highest"
+TOL_MODE = {"b3": TOL, "b4": TOL, "default": 1e-3}
+
+
+def nearer_own_mode(got, own, highest, mode):
+    """The kernel agrees with its mode's plain version and is nearer it
+    than the "highest" one."""
+    d_own, d_hi = rel(got, own), rel(got, highest)
+    assert d_own <= TOL_MODE[mode] and d_own < d_hi, (mode, d_own, d_hi)
+    return True
+
+
+@pytest.mark.parametrize("nb", [64, 256])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("trans,reverse,fused", [(True, False, True), (False, True, True),
+                                                 (True, False, False)])
+def test_couple_strip_modes_match_plain(cuda, nb, mode, trans, reverse, fused):
+    a, (_, v_stack, tg, _), (_, v_chunks, t2) = factors(cuda, nb)
+    larfb = dict(vkk=v_stack[0], tg=tg) if fused else {}
+    outs = []
+    for fn, prec in ((chain.couple_strip, mode), (chain.couple_strip, mode),
+                     (chain.couple_strip_plain, mode), (chain.couple_strip_plain, "highest")):
+        c = a.clone()
+        fn(v_chunks, t2, c, c[:nb, nb:], 0, 1, 2, 2 * nb, nb, 1, trans=trans, reverse=reverse,
+           precision=prec, **larfb)
+        outs.append(c)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])  # reruns are bitwise equal
+    assert nearer_own_mode(outs[0], outs[2], outs[3], mode)
+
+
+@pytest.mark.parametrize("nb", [64, 256])
+@pytest.mark.parametrize("mode", MODES)
+def test_larfb_strip_modes_match_plain(cuda, nb, mode):
+    a, (_, v_stack, tg, _), _ = factors(cuda, nb)
+    outs = []
+    for fn, prec in ((chain.larfb_strip, mode), (chain.larfb_strip_plain, mode),
+                     (chain.larfb_strip_plain, "highest")):
+        s = a[:nb, nb:].clone()
+        fn(v_stack[0], tg, s, nb, trans=True, precision=prec)
+        outs.append(s)
+    torch.cuda.synchronize()
+    assert nearer_own_mode(*outs, mode)
+
+
+@pytest.mark.parametrize("nb", [64, 256])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("trans", [True, False])
+def test_panel_apply_carry_modes_match_plain(cuda, nb, mode, trans):
+    carry, y, t = hr_inputs(cuda, nb)
+    outs = []
+    for fn, prec in ((panel_apply.panel_apply_carry, mode), (panel_apply.panel_apply_carry, mode),
+                     (panel_apply.panel_apply_carry_plain, mode),
+                     (panel_apply.panel_apply_carry_plain, "highest")):
+        c = carry.clone()
+        fn(y, t, c, 1, nb, trans=trans, precision=prec)
+        outs.append(c)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0][:nb], carry[:nb]) and torch.equal(outs[0][:, : 2 * nb],
+                                                                 carry[:, : 2 * nb])
+    assert nearer_own_mode(outs[0], outs[2], outs[3], mode)
+
+
+@pytest.mark.parametrize("nb", [64, 256])
+@pytest.mark.parametrize("mode", ["highest"] + MODES)
+@pytest.mark.parametrize("trans", [True, False])
+def test_panel_apply_matches_plain_on_a_window(cuda, nb, mode, trans):
+    """B7 on a strided window view (the orgqr window), in place."""
+    carry, y, t = hr_inputs(cuda, nb)
+    outs = []
+    for fn, prec in ((panel_apply.panel_apply, mode), (panel_apply.panel_apply, mode),
+                     (panel_apply.panel_apply_plain, mode),
+                     (panel_apply.panel_apply_plain, "highest")):
+        c = carry.clone()
+        win = c[nb:, 2 * nb:]
+        assert fn(y, t, win, trans=trans, precision=prec) is win
+        outs.append(c)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0][:nb], carry[:nb]) and torch.equal(outs[0][:, : 2 * nb],
+                                                                 carry[:, : 2 * nb])
+    if mode == "highest":
+        assert rel(outs[0], outs[2]) <= TOL
+    else:
+        assert nearer_own_mode(outs[0], outs[2], outs[3], mode)
+
+
+@pytest.mark.parametrize("method", ["hh", "hr"])
+@pytest.mark.parametrize("mode", MODES)
+def test_qr_modes_on_the_card(cuda, method, mode):
+    """qr at 2048² in each emulated mode: only that mode's instantiations of
+    the update kernels launch, no plain version runs, the error is the
+    mode's, and reruns are bitwise equal. A = G + 4·√n·I: the hr guard
+    trips on a gaussian A in "b4" and "default", whose update error nears
+    its small singular values."""
+    g = np.random.default_rng(11).standard_normal((2048, 2048), dtype=np.float32)
+    a = torch.from_numpy(g + np.float32(4 * np.sqrt(2048)) * np.eye(2048, dtype=np.float32)).to(cuda)
+    cfg = tileqr_torch.QRConfig(square_method=method, precision=mode)
+    _build.reset_counts()
+    q, r = tileqr_torch.qr(a, config=cfg)
+    torch.cuda.synchronize()
+    own = (["couple_strip"] if method == "hh" else ["panel_apply_carry", "panel_apply"])
+    assert all(_build.LAUNCHES[f"{k}[{mode}]"] > 0 for k in own)
+    ran = {k for k, v in _build.LAUNCHES.items() if v}
+    allowed = ({"panel_factor", "panel_chain"} if method == "hh" else
+               {"modified_lu", "potrf_batched"}) | {f"{k}[{mode}]" for k in _build.MODE_KERNELS}
+    assert ran <= allowed, ran
+    assert not any(_build.PLAIN_CALLS.values())
+    res = residuals_f64(a, q, r)
+    tol = 1e-1 if mode == "default" else 1e-4
+    assert res["relerr"] <= tol and (mode == "default" or res["orth"] <= 1e-2)
+    f = tileqr_torch.qr_factor(a, cfg)
+    assert backward_error_f64(a, tileqr_torch.apply_q(f, a, trans=True, config=cfg), r) <= tol
+    f2 = tileqr_torch.qr_factor(a, cfg)
+    flat = ((lambda f: [f.packed] + [x for p in f.panels for x in p]) if method == "hh" else  # noqa: E731
+            (lambda f: [f.r] + [x for p in f.panels for x in p]))
+    assert all(torch.equal(x, y) for x, y in zip(flat(f), flat(f2)))
+
+
+def test_high_is_b3_on_the_card(cuda):
+    g = np.random.default_rng(12).standard_normal((1024, 1024), dtype=np.float32)
+    a = torch.from_numpy(g + np.float32(4 * np.sqrt(1024)) * np.eye(1024, dtype=np.float32)).to(cuda)
+    for method in ("hh", "hr"):
+        b3 = tileqr_torch.qr(a, config=tileqr_torch.QRConfig(square_method=method,
+                                                             precision="b3"))
+        hi = tileqr_torch.qr(a, config=tileqr_torch.QRConfig(square_method=method,
+                                                             precision="high"))
+        assert all(torch.equal(x, y) for x, y in zip(b3, hi))
+
+
+@pytest.mark.parametrize("mode", ["highest", "b3"])
+@pytest.mark.parametrize("nb,cols", [(64, 2048), (64, 40), (512, 2048), (768, 1536), (40, 2040)])
+def test_hr_apply_routes_on_the_card(cuda, mode, nb, cols):
+    """The hr apply on the card: in b3 every nb-aligned target launches B7,
+    whatever nb (nb = 512 is what ``tsqr(..., "factor")`` makes for n = 512;
+    40 is no multiple of 32); in "highest" only targets past 1024 columns
+    with an nb the fp32 B7 takes; the rest run the reference's matmul
+    routes. Each result within its mode's error of the float64 product, and
+    no plain version ran."""
+    from tileqr_torch.drivers.square_hr import _apply_block_t
+
+    rng = np.random.default_rng(nb + cols)
+    m = nb * max(1, 4096 // nb)
+    y = rng.standard_normal((m, nb)) / np.sqrt(m)
+    y[:nb] = np.tril(y[:nb], -1) + np.eye(nb)
+    t = np.triu(rng.standard_normal((nb, nb))) / nb
+    c = rng.standard_normal((m, cols))
+    want = c - y @ (t.T @ (y.T @ c))
+    yc, tc = (torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (y, t))
+    cc = torch.from_numpy(c.astype(np.float32)).to(cuda)
+    _build.reset_counts()
+    assert _build.LAUNCHES["panel_apply[b3]"] == 0
+    assert _apply_block_t(yc, tc, cc, True, mode) is cc
+    torch.cuda.synchronize()
+    aligned = cols % nb == 0
+    b7 = aligned and (mode != "highest" or (cols > 1024 and panel_apply.kernel_takes(nb)))
+    key = "panel_apply" if mode == "highest" else f"panel_apply[{mode}]"
+    assert _build.LAUNCHES[key] == int(b7) and not any(_build.PLAIN_CALLS.values())
+    assert rel(cc.double(), torch.from_numpy(want).to(cuda)) <= (1e-5 if mode == "highest"
+                                                                  else 1e-4)
+
+
+@pytest.mark.parametrize("nb", [40, 512, 768])
+@pytest.mark.parametrize("mode", MODES)
+def test_split_panel_apply_takes_any_nb(cuda, nb, mode):
+    """B7's split instantiations at an nb the fp32 one does not take (and
+    a column count no multiple of 32 at nb = 40), against the plain version
+    of the same mode, nearer it than the "highest" one; bitwise reruns."""
+    rng = np.random.default_rng(nb)
+    m, n = 2 * max(nb, 1024 // nb * nb), 3 * nb
+    y = torch.from_numpy(rng.standard_normal((m, nb), dtype=np.float32)).to(cuda) / m ** 0.5
+    t = torch.from_numpy(np.triu(rng.standard_normal((nb, nb), dtype=np.float32))).to(cuda) / nb
+    c = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32)).to(cuda)
+    outs = []
+    for fn, prec in ((panel_apply.panel_apply, mode), (panel_apply.panel_apply, mode),
+                     (panel_apply.panel_apply_plain, mode),
+                     (panel_apply.panel_apply_plain, "highest")):
+        outs.append(fn(y, t, c.clone(), trans=True, precision=prec))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert nearer_own_mode(outs[0], outs[2], outs[3], mode)
+
+
+def test_panel_apply_raises_past_its_nb(cuda):
+    """On the card an nb no instantiation takes raises: 776 in b3, 512 in
+    "highest"; nothing falls back to the plain version."""
+    for nb, mode in ((776, "b3"), (512, "highest")):
+        y = torch.zeros((2 * nb, nb), device=cuda)
+        t = torch.zeros((nb, nb), device=cuda)
+        _build.reset_counts()
+        with pytest.raises(ValueError, match="nb"):
+            panel_apply.panel_apply(y, t, torch.zeros((2 * nb, nb), device=cuda), precision=mode)
+        assert not any(_build.PLAIN_CALLS.values())
+
+
+@pytest.mark.parametrize("passes", [0, 3])
+def test_panel_project_without_t_is_the_bare_sum(cuda, passes):
+    """``tq_panel_project`` with a null T returns Σᵢ Yᵢᵀ Cᵢ itself (the
+    entry B7's half ``panel_project`` takes), Kahan-summed over 2 row
+    blocks, in "highest" and in b3."""
+    nb, m, n = 64, 512, 96
+    rng = np.random.default_rng(passes)
+    y = torch.from_numpy(rng.standard_normal((m, nb), dtype=np.float32)).to(cuda)
+    c = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32)).to(cuda)
+    w = torch.empty((nb, n), device=cuda)
+    rc = _build.lib().tq_panel_project(y.data_ptr(), None, c.data_ptr(), c.stride(0), m, n,
+                                       nb, m // 2, w.data_ptr(), passes, _build.stream())
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert rel(w, y.double().T @ c.double()) <= (1e-6 if passes == 0 else 1e-5)

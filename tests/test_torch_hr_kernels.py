@@ -235,14 +235,17 @@ def _yt(rng, m, nb, dt):
     ("pairwise", 2048, 8, np.float64),
     ("plain", 512, 40, np.float64),
     ("plain-wide", 2048, 1056, np.float64),
-    ("splitk", 4096, 1056, np.float32),
+    ("splitk", 4096, 1064, np.float32),
+    ("B7", 4096, 1056, np.float32),
 ])
 @pytest.mark.parametrize("trans", [True, False])
 def test_apply_block_t_routes_match_jax(route, m, cols, dt, trans):
     """Each W route of _apply_block_t: pairwise (m ≥ 2048, ≤ 1024 columns),
-    one product, and split-K (m ≥ 4096, float32 only: the reference takes
-    it for float32 alone, so it is held at the float32 level, max error
-    ≤ 1e-6 of max|ref| as tests/test_square_hr.py does)."""
+    one product, split-K (m ≥ 4096, float32 only, a target that is not
+    nb-aligned) and, for an nb-aligned float32 target wider than 1024
+    columns, B7 with its Kahan sums in place of the reference's split-K.
+    The float32 routes are held at the float32 level, max error ≤ 1e-6 of
+    max|ref| as tests/test_square_hr.py does."""
     rng = np.random.default_rng(m + cols)
     y, tt = _yt(rng, m, 32, dt)
     c = rng.standard_normal((m, cols)).astype(dt)

@@ -15,6 +15,11 @@ CUDA device that raises, it does not run on the CPU. CPU runs (the plain
 kernel versions) happen only for CPU tensors or ``device="cpu"``.
 ``apply_q`` and ``orgqr`` follow the factors' device and take all three
 factor records: ``QRFactors``, ``HRFactors`` and ``TSQRFactors``.
+
+``QRConfig.precision`` reaches the update and apply products of every
+path (the table in ``core/config.py``); where the reference hands "b3" or
+"b4" to an XLA product that refuses it (``tsqr`` forming Q, ``qr_batched``,
+CholeskyQR2), the port raises ``ValueError`` too.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from tileqr_torch.drivers.tsqr import (
     tsqr_factor,
     tsqr_form_q,
 )
+from tileqr_torch.kernels.common import passes_of
 
 
 class QRFactors(NamedTuple):
@@ -115,7 +121,7 @@ def qr_factor(a, config: Optional[QRConfig] = None, device=None):
     """Factor A → QRFactors (hh) or HRFactors (hr), with no Q/R assembly."""
     _check_matrix(a, "qr_factor")
     cfg = _cfg(config)
-    cfg.check_ported()
+    passes_of(cfg.precision)
     a = _to_device(a, cfg.dtype, device)
     m, n = a.shape
     scale = 1.0
@@ -129,7 +135,7 @@ def qr_factor(a, config: Optional[QRConfig] = None, device=None):
     if cfg.square_method == "hr":
         stats = cfg.hr_guard != "off"
         ap, _ = pad_for_hr(a, cfg.nb)
-        r, panels, health = qr_hr(ap, cfg.nb, stats=stats)
+        r, panels, health = qr_hr(ap, cfg.nb, stats=stats, precision=cfg.precision)
         f = HRFactors(r, panels, cfg.nb, (m, n), scale, health)
         if not guard_trips(health, cfg, "qr_factor/hr") or cfg.hr_guard != "fallback":
             return f
@@ -138,17 +144,19 @@ def qr_factor(a, config: Optional[QRConfig] = None, device=None):
     ap, _ = pad_to_tiles(a, cfg.nb)
     # the driver works in place: never on the caller's storage
     ap = ap.clone(memory_format=torch.contiguous_format)
-    packed, r_diag, t_g, panels = qr_tiled(ap, cfg.nb, ib=cfg.ib, chunk=cfg.chunk)
+    packed, r_diag, t_g, panels = qr_tiled(ap, cfg.nb, ib=cfg.ib, chunk=cfg.chunk,
+                                           precision=cfg.precision)
     return QRFactors(packed, r_diag, t_g, panels, cfg.nb, cfg.chunk, (m, n), scale)
 
 
 def apply_q(f, c, trans: bool = False, config: Optional[QRConfig] = None) -> torch.Tensor:
     """C ← Q C (or Qᵀ C). c: (M, P) in the ORIGINAL row dimension (for
     ``TSQRFactors``, at most the factored rows)."""
-    _cfg(config).check_ported()
+    precision = _cfg(config).precision
+    passes_of(precision)
     if isinstance(f, TSQRFactors):
         c = torch.as_tensor(c, dtype=f.r.dtype, device=f.r.device)
-        return tsqr_apply_q(f, c, trans=trans)
+        return tsqr_apply_q(f, c, trans=trans, precision=precision)
     if isinstance(f, HRFactors):
         mp = f.panels[0][0].shape[0]
         c = torch.as_tensor(c, dtype=f.r.dtype, device=f.r.device)
@@ -157,7 +165,7 @@ def apply_q(f, c, trans: bool = False, config: Optional[QRConfig] = None) -> tor
             raise ValueError(f"c rows {mc} != M {f.shape[0]}")
         cp = c.new_zeros((mp, p))
         cp[:mc] = c
-        return apply_q_hr(f.panels, cp, f.nb, trans=trans)[:mc]
+        return apply_q_hr(f.panels, cp, f.nb, trans=trans, precision=precision)[:mc]
     mp = f.packed.shape[0]
     c = torch.as_tensor(c, dtype=f.packed.dtype, device=f.packed.device)
     mc, p = c.shape
@@ -166,7 +174,8 @@ def apply_q(f, c, trans: bool = False, config: Optional[QRConfig] = None) -> tor
     pp = round_up(max(p, 1), f.nb)
     cp = c.new_zeros((mp, pp))
     cp[:mc, :p] = c
-    out = apply_q_tiled(f.panels, f.t_geqrt, cp, f.nb, chunk=f.chunk, trans=trans)
+    out = apply_q_tiled(f.panels, f.t_geqrt, cp, f.nb, chunk=f.chunk, trans=trans,
+                        precision=precision)
     return out[:mc, :p]
 
 
@@ -176,21 +185,22 @@ def orgqr(f, ncols: Optional[int] = None,
     with the xORGQR growing window (panel k skips columns left of it).
     ``TSQRFactors`` give the reduced Q of the factored (padded) matrix,
     ``f.shape``, and only that: ncols other than its n raises."""
-    _cfg(config).check_ported()
+    precision = _cfg(config).precision
+    passes_of(precision)
     m, n = f.shape
     if isinstance(f, TSQRFactors):
         if ncols not in (None, n):
             raise ValueError(f"the TSQR tree forms the reduced Q only: ncols={ncols} != n={n}")
-        return tsqr_form_q(f)
+        return tsqr_form_q(f, precision)
     k = min(m, n) if ncols is None else ncols
     if isinstance(f, HRFactors):
         mp = f.panels[0][0].shape[0]
-        return orgqr_hr(f.panels, mp, f.nb, max(k, 1))[:m, :k]
+        return orgqr_hr(f.panels, mp, f.nb, max(k, 1), precision)[:m, :k]
     mp = f.packed.shape[0]
     pp = round_up(max(k, 1), f.nb)
     eye_p = torch.eye(mp, pp, dtype=f.packed.dtype, device=f.packed.device)
     out = apply_q_tiled(f.panels, f.t_geqrt, eye_p, f.nb, chunk=f.chunk,
-                        trans=False, triangular=True)
+                        trans=False, triangular=True, precision=precision)
     return out[:m, :k]
 
 
@@ -279,7 +289,7 @@ def tsqr(a, mode: str = "r", config: Optional[QRConfig] = None, strategy: str = 
     if mode not in ("r", "reduced", "factor"):
         raise ValueError(f"unknown mode {mode!r}")
     cfg = _cfg(config)
-    cfg.check_ported()
+    passes_of(cfg.precision)
     a = _to_device(a, cfg.dtype, device)
     m, n = a.shape
     if m < n:
@@ -298,7 +308,7 @@ def tsqr(a, mode: str = "r", config: Optional[QRConfig] = None, strategy: str = 
                     cfg.hr_guard == "fallback":
                 return tsqr(a, "factor", cfg, "tree")
             return HRFactors(out[2], ((out[0], out[1]),), nbp, (m, n), 1.0, health)
-        out = cholqr2_batched(a[None], mode=mode, stats=stats)
+        out = cholqr2_batched(a[None], mode=mode, stats=stats, precision=cfg.precision)
         health = out[-1] if stats else None
         if guard_trips(health, cfg, "tsqr(strategy='cholqr2')") and cfg.hr_guard == "fallback":
             return tsqr(a, mode, cfg, "tree")
@@ -323,7 +333,7 @@ def tsqr(a, mode: str = "r", config: Optional[QRConfig] = None, strategy: str = 
     r = f.r[:n, :n]
     if mode == "r":
         return r
-    return tsqr_form_q(f)[:m, :n], r
+    return tsqr_form_q(f, cfg.precision)[:m, :n], r
 
 
 def qr_batched(a, mode: str = "reduced", config: Optional[QRConfig] = None, device=None):
@@ -340,7 +350,7 @@ def qr_batched(a, mode: str = "reduced", config: Optional[QRConfig] = None, devi
     if mode not in ("reduced", "r"):
         raise ValueError(f"unknown mode {mode!r}")
     cfg = _cfg(config)
-    cfg.check_ported()
+    passes_of(cfg.precision)
     if cfg.batched_method not in ("hh", "cholqr2"):
         raise ValueError(f"unknown batched_method {cfg.batched_method!r} (hh/cholqr2)")
     a = _to_device(a, cfg.dtype, device)
@@ -352,14 +362,14 @@ def qr_batched(a, mode: str = "reduced", config: Optional[QRConfig] = None, devi
         # column padding would make the gram singular: rows only
         stats = cfg.hr_guard != "off"
         out = cholqr2_batched(torch.nn.functional.pad(a, (0, 0, 0, mp - m)), mode=mode,
-                              stats=stats)
+                              stats=stats, precision=cfg.precision)
         health = out[-1] if stats else None
         if not (guard_trips(health, cfg, "qr_batched/cholqr2") and cfg.hr_guard == "fallback"):
             if mode == "r":
                 return out[0] if stats else out
             return out[0][:, :m, :], out[1]
     ap = torch.nn.functional.pad(a, (0, np_ - n, 0, mp - m))
-    out = _qr_batched(ap, mode=mode, ib=cfg.batched_ib)
+    out = _qr_batched(ap, mode=mode, ib=cfg.batched_ib, precision=cfg.precision)
     if mode == "r":
         return out[:, :n, :n]
     q, r = out

@@ -41,9 +41,29 @@ class QRConfig:
         the largest divisor of the row-tile count.
       dtype: compute dtype; float32 on the GPU (float64 runs only on the
         CPU plain versions).
-      precision: "highest" maps to IEEE fp32 FMA (never TF32). Other values
-        are valid config values and raise NotImplementedError at factor
-        time until ROADMAP.md queue A item 7 lands.
+      precision: the product of the update and apply kernels (K3/K4, B6,
+        B7) and of the hr applies, mapped onto the H100 as follows
+        (``kernels/common.py``, ``csrc/bx_mma.cuh``):
+
+          "highest"       IEEE fp32 FMA on CUDA cores, never TF32.
+          "b3" / "b4"     each fp32 operand split into bf16 hi + lo (round
+                          to nearest), 3 (hh + (hl + lh)) or 4 (+ ll) bf16
+                          tensor-core products, fp32 accumulation
+                          (tileqr's _dot_bx).
+          "default"       one bf16 product Ah·Bh, fp32 accumulation: the
+                          TPU's DEFAULT on fp32 operands.
+          "high"          the b3 algebra (XLA's HIGH on fp32 is bf16_3x).
+          float64, any    the exact product, as tileqr's dot/dot_t.
+
+        The panel kernels (K1, K2, B8, B9, the batched GEQRT) and the hr
+        panel stay fp32 in every mode, as in tileqr. The hr apply sends
+        every nb-aligned target in an emulated mode to B7; its plain-torch
+        products on the other targets take tileqr's truncating split
+        (``split_bf16_trunc``) in b3/b4, where tileqr's XLA-level ones do,
+        and round to nearest in "high"/"default" (XLA's HIGH/DEFAULT). Where
+        tileqr hands the mode to a plain XLA product (``tsqr`` forming Q,
+        ``qr_batched``, CholeskyQR2), "b3" and "b4" raise ValueError as
+        they do there, and "high"/"default" run fp32.
       interpret, donate: accepted and ignored.
       driver: accepted for parity; every value runs the one driver.
       prescale: divide A by an exact power of 2 ≥ max|A| before factoring
@@ -88,13 +108,4 @@ class QRConfig:
         if self.hr_guard not in ("fallback", "warn", "off"):
             raise ValueError(
                 f"hr_guard={self.hr_guard!r} must be fallback|warn|off"
-            )
-
-    def check_ported(self) -> None:
-        """Raise NotImplementedError for valid settings whose path is not
-        ported yet, naming the ROADMAP.md item that brings it."""
-        if self.precision != "highest":
-            raise NotImplementedError(
-                f"precision={self.precision!r} is not ported yet "
-                "(ROADMAP.md queue A item 7); only 'highest' runs"
             )

@@ -20,8 +20,21 @@
 // reads V2 and T2 from global memory (L2-resident: every slab rereads
 // them) and updates its C_bot columns in place. Bound: fp32 FMA issue and
 // the L2 traffic of rereading V2 per slab; the arithmetic is IEEE fp32 FMA
-// on CUDA cores ("highest", never TF32). Tensor-core (wgmma, 3xTF32 or
-// split) versions are later work.
+// on CUDA cores ("highest", never TF32).
+//
+// K3 and K4 take the precision as a template parameter P, the passes of the
+// bf16 split product (0 = "highest"). P = 0 is the fp32 FMA code above.
+// P = 1, 3, 4 ("default", "b3"/"high", "b4") compute each of the three
+// products of ssrfb_body/larfb_body (V^T X, op(T) W, V W2) with
+// bx::gemm32 (bx_mma.cuh), the split tensor-core product, as tileqr's
+// update kernels do with _dot_bx; the C_top add and the subtractions stay
+// fp32. The slab and the two W slabs stay in shared memory; the split
+// halves of the staged V/T and X/W tiles take the place of the fp32 staging
+// tile (bx::SMEM_BYTES, 26 KiB). Bound at P > 0: the bf16 tensor-core rate
+// (989 TFLOP/s dense) times P passes, or the same bytes as at P = 0; this
+// first version stages through shared memory with mma.sync and reaches
+// neither (PERF.md).
+#include "bx_mma.cuh"
 #include "geqrt.cuh"
 
 namespace {
@@ -74,7 +87,8 @@ struct Slab {
   float* top;  // (nb x SLAB_COLS) strip slab
   float* w;    // (nb x SLAB_COLS)
   float* w2;   // (nb x SLAB_COLS)
-  float* xs;   // (STAGE_ROWS x SLAB_COLS) staging
+  float* xs;   // (STAGE_ROWS x SLAB_COLS) staging (P = 0)
+  bx::Smem bx; // the split product's staging (P > 0), at the same offset
   int nb, ncol;
 };
 
@@ -166,22 +180,83 @@ __device__ void slab_sub(const Slab& S, const float* V, int rows, bool unit, flo
   __syncthreads();
 }
 
+// The same three products by the P-pass split product (P > 0).
+template <int P>
+__device__ void slab_proj_bx(const Slab& S, const float* V, int rows, bool unit,
+                             const float* X, long long ldx, bool with_top) {
+  const int nb = S.nb, ncol = S.ncol;
+  bx::gemm32<P, false>(
+      S.bx, nb, rows, [&](int i, int k) { return v_elem(V, nb, k, i, unit); },
+      [&](int k, int c) { return c < ncol ? X[(long long)k * ldx + c] : 0.f; },
+      [&](int i, int c, float v) {
+        const int o = i * SLAB_COLS + c;
+        S.w[o] = with_top ? S.top[o] + v : v;
+      });
+}
+
+template <int P>
+__device__ void slab_tmul_bx(const Slab& S, const float* T, bool trans) {
+  const int nb = S.nb;
+  bx::gemm32<P, false>(
+      S.bx, nb, nb,
+      [&](int i, int k) { return trans ? T[(long long)k * nb + i] : T[(long long)i * nb + k]; },
+      [&](int k, int c) { return S.w[k * SLAB_COLS + c]; },
+      [&](int i, int c, float v) { S.w2[i * SLAB_COLS + c] = v; });
+}
+
+template <int P>
+__device__ void slab_sub_bx(const Slab& S, const float* V, int rows, bool unit, float* X,
+                            long long ldx) {
+  const int nb = S.nb, ncol = S.ncol;
+  bx::gemm32<P, true>(
+      S.bx, rows, nb, [&](int i, int k) { return v_elem(V, nb, i, k, unit); },
+      [&](int k, int c) { return S.w2[k * SLAB_COLS + c]; },
+      [&](int i, int c, float v) {
+        if (c < ncol) {
+          float* x = X + (long long)i * ldx + c;
+          *x = *x - v;
+        }
+      });
+}
+
+template <int P>
+__device__ void slab_proj_p(const Slab& S, const float* V, int rows, bool unit, const float* X,
+                            long long ldx, bool with_top) {
+  if constexpr (P == 0) slab_proj(S, V, rows, unit, X, ldx, with_top);
+  else slab_proj_bx<P>(S, V, rows, unit, X, ldx, with_top);
+}
+
+template <int P>
+__device__ void slab_tmul_p(const Slab& S, const float* T, bool trans) {
+  if constexpr (P == 0) slab_tmul(S, T, trans);
+  else slab_tmul_bx<P>(S, T, trans);
+}
+
+template <int P>
+__device__ void slab_sub_p(const Slab& S, const float* V, int rows, bool unit, float* X,
+                           long long ldx) {
+  if constexpr (P == 0) slab_sub(S, V, rows, unit, X, ldx);
+  else slab_sub_bx<P>(S, V, rows, unit, X, ldx);
+}
+
 // slab <- (I - V T V^T)^{T?} slab, V = unit_lower(vkk): larfb_body.
+template <int P>
 __device__ void slab_larfb(const Slab& S, const float* vkk, const float* tg, bool trans) {
-  slab_proj(S, vkk, S.nb, true, S.top, SLAB_COLS, false);
-  slab_tmul(S, tg, trans);
-  slab_sub(S, vkk, S.nb, true, S.top, SLAB_COLS);
+  slab_proj_p<P>(S, vkk, S.nb, true, S.top, SLAB_COLS, false);
+  slab_tmul_p<P>(S, tg, trans);
+  slab_sub_p<P>(S, vkk, S.nb, true, S.top, SLAB_COLS);
 }
 
 // (slab, C_bot) <- couple reflector applied: ssrfb_body.
+template <int P>
 __device__ void slab_ssrfb(const Slab& S, const float* v2, const float* t2, float* cbot,
                            long long ldc, int rows, bool trans) {
-  slab_proj(S, v2, rows, false, cbot, ldc, true);
-  slab_tmul(S, t2, trans);
+  slab_proj_p<P>(S, v2, rows, false, cbot, ldc, true);
+  slab_tmul_p<P>(S, t2, trans);
   for (int idx = threadIdx.x; idx < S.nb * SLAB_COLS; idx += SLAB_THREADS)
     S.top[idx] = S.top[idx] - S.w2[idx];
   __syncthreads();
-  slab_sub(S, v2, rows, false, cbot, ldc);
+  slab_sub_p<P>(S, v2, rows, false, cbot, ldc);
 }
 
 __device__ Slab slab_load(float* sm, const float* strip, long long lds, int width, int nb) {
@@ -191,6 +266,7 @@ __device__ Slab slab_load(float* sm, const float* strip, long long lds, int widt
   S.w = sm + nb * SLAB_COLS;
   S.w2 = S.w + nb * SLAB_COLS;
   S.xs = S.w2 + nb * SLAB_COLS;
+  S.bx = bx::carve(S.xs);
   const int j0 = blockIdx.x * SLAB_COLS;
   S.ncol = min(SLAB_COLS, width - j0);
   for (int idx = threadIdx.x; idx < nb * SLAB_COLS; idx += SLAB_THREADS) {
@@ -209,38 +285,71 @@ __device__ void slab_store(const Slab& S, float* strip, long long lds) {
   }
 }
 
+template <int P>
 __global__ void __launch_bounds__(SLAB_THREADS)
 couple_strip_kernel(const float* v_stack, const float* t2_stack, float* c, long long ldc,
                     float* strip, long long lds, int width, int stack_base,
                     int base_block, int n_chunks, int block_rows, int nb, int col_start,
                     int trans, int reverse, const float* vkk, const float* tg) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(128) float sm[];
   const Slab S = slab_load(sm, strip, lds, width, nb);
   const bool fuse = vkk != nullptr;
-  if (fuse && !reverse) slab_larfb(S, vkk, tg, trans);
+  if (fuse && !reverse) slab_larfb<P>(S, vkk, tg, trans);
   const long long col0 = (long long)col_start * nb + (long long)blockIdx.x * SLAB_COLS;
   for (int ii = 0; ii < n_chunks; ++ii) {
     const int q = reverse ? n_chunks - 1 - ii : ii;
     const float* v2 = v_stack + (long long)(stack_base + q) * block_rows * nb;
     const float* t2 = t2_stack + (long long)(stack_base + q) * nb * nb;
     float* cbot = c + (long long)(base_block + q) * block_rows * ldc + col0;
-    slab_ssrfb(S, v2, t2, cbot, ldc, block_rows, trans);
+    slab_ssrfb<P>(S, v2, t2, cbot, ldc, block_rows, trans);
   }
-  if (fuse && reverse) slab_larfb(S, vkk, tg, trans);
+  if (fuse && reverse) slab_larfb<P>(S, vkk, tg, trans);
   slab_store(S, strip, lds);
 }
 
+template <int P>
 __global__ void __launch_bounds__(SLAB_THREADS)
 larfb_strip_kernel(const float* vkk, const float* tg, float* strip, long long lds,
                    int width, int nb, int trans) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(128) float sm[];
   const Slab S = slab_load(sm, strip, lds, width, nb);
-  slab_larfb(S, vkk, tg, trans);
+  slab_larfb<P>(S, vkk, tg, trans);
   slab_store(S, strip, lds);
 }
 
-size_t slab_smem(int nb) {
-  return sizeof(float) * (3 * (size_t)nb * SLAB_COLS + STAGE_ROWS * SLAB_COLS);
+size_t slab_smem(int nb, int passes) {
+  const size_t slabs = sizeof(float) * 3 * (size_t)nb * SLAB_COLS;
+  return slabs + (passes == 0 ? sizeof(float) * STAGE_ROWS * SLAB_COLS : bx::SMEM_BYTES);
+}
+
+template <int P>
+int launch_couple_strip(const float* v_stack, const float* t2_stack, float* c, long long ldc,
+                        float* strip, long long lds, int width, int stack_base,
+                        int base_block, int n_chunks, int block_rows, int nb, int col_start,
+                        int trans, int reverse, const float* vkk, const float* tg,
+                        cudaStream_t stream) {
+  const size_t smem = slab_smem(nb, P);
+  cudaError_t e = cudaFuncSetAttribute(
+      couple_strip_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (width + SLAB_COLS - 1) / SLAB_COLS;
+  couple_strip_kernel<P><<<blocks, SLAB_THREADS, smem, stream>>>(
+      v_stack, t2_stack, c, ldc, strip, lds, width, stack_base, base_block, n_chunks,
+      block_rows, nb, col_start, trans, reverse, vkk, tg);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch_larfb_strip(const float* vkk, const float* tg, float* strip, long long lds,
+                       int width, int nb, int trans, cudaStream_t stream) {
+  const size_t smem = slab_smem(nb, P);
+  cudaError_t e = cudaFuncSetAttribute(
+      larfb_strip_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (width + SLAB_COLS - 1) / SLAB_COLS;
+  larfb_strip_kernel<P><<<blocks, SLAB_THREADS, smem, stream>>>(vkk, tg, strip, lds, width,
+                                                               nb, trans);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -259,31 +368,36 @@ extern "C" int tq_panel_chain(const float* a, long long lda, const float* r_in, 
   return (int)cudaGetLastError();
 }
 
+// passes: 0 ("highest"), 1 ("default"), 3 ("b3"/"high") or 4 ("b4")
 extern "C" int tq_couple_strip(const float* v_stack, const float* t2_stack, float* c,
                                long long ldc, float* strip, long long lds, int width,
                                int stack_base, int base_block, int n_chunks,
                                int block_rows, int nb, int col_start, int trans,
-                               int reverse, const float* vkk, const float* tg,
-                               void* stream) {
-  const size_t smem = slab_smem(nb);
-  cudaError_t e = cudaFuncSetAttribute(
-      couple_strip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = (width + SLAB_COLS - 1) / SLAB_COLS;
-  couple_strip_kernel<<<blocks, SLAB_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      v_stack, t2_stack, c, ldc, strip, lds, width, stack_base, base_block, n_chunks,
-      block_rows, nb, col_start, trans, reverse, vkk, tg);
-  return (int)cudaGetLastError();
+                               int reverse, const float* vkk, const float* tg, int passes,
+                               void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+#define TQ_COUPLE(P)                                                                    \
+  launch_couple_strip<P>(v_stack, t2_stack, c, ldc, strip, lds, width, stack_base,      \
+                         base_block, n_chunks, block_rows, nb, col_start, trans, reverse, \
+                         vkk, tg, stream)
+  switch (passes) {
+    case 0: return TQ_COUPLE(0);
+    case 1: return TQ_COUPLE(1);
+    case 3: return TQ_COUPLE(3);
+    case 4: return TQ_COUPLE(4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TQ_COUPLE
 }
 
 extern "C" int tq_larfb_strip(const float* vkk, const float* tg, float* strip, long long lds,
-                              int width, int nb, int trans, void* stream) {
-  const size_t smem = slab_smem(nb);
-  cudaError_t e = cudaFuncSetAttribute(
-      larfb_strip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = (width + SLAB_COLS - 1) / SLAB_COLS;
-  larfb_strip_kernel<<<blocks, SLAB_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      vkk, tg, strip, lds, width, nb, trans);
-  return (int)cudaGetLastError();
+                              int width, int nb, int trans, int passes, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  switch (passes) {
+    case 0: return launch_larfb_strip<0>(vkk, tg, strip, lds, width, nb, trans, stream);
+    case 1: return launch_larfb_strip<1>(vkk, tg, strip, lds, width, nb, trans, stream);
+    case 3: return launch_larfb_strip<3>(vkk, tg, strip, lds, width, nb, trans, stream);
+    case 4: return launch_larfb_strip<4>(vkk, tg, strip, lds, width, nb, trans, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -27,8 +27,29 @@
 // IEEE fp32 on CUDA cores ("highest", never TF32), and the library is built
 // without fast math, so the Kahan (t - acc) - y is kept as written. Few
 // blocks on the narrow late panels (n = 256 at k = 62 gives 8 slabs) are
-// accepted. Tensor cores (3xTF32 or a bf16 split with wgmma) are later work.
-#include <cuda_runtime.h>
+// accepted.
+//
+// The same two phases are B7, tileqr/kernels/panel_apply.py:panel_apply
+// (its pallas_calls at :112 and :133): C <- (I - Y T Y^T)^{T?} C on any
+// strided (m x n) view, in place through its leading dimension, with row
+// blocks of mr = _block(m, nb, 1024) rows. So the phases are two C entries:
+// tq_panel_project (W = op(T) sum_i Y_i^T C_i, or the bare sum with no T,
+// as panel_project) and tq_panel_sub (C -= Y W, as panel_sub); B6 and B7
+// call both. Each takes `passes`, the precision: 0 ("highest") is the code
+// above. 1, 3, 4 ("default", "b3"/"high", "b4") compute Y_i^T C_i and Y W
+// with the split tensor-core product (bx_mma.cuh): phase 1 keeps one W
+// slab and its Kahan compensation in shared memory (2 x 32 KiB at
+// nb = 256), takes each row block's emulated partial through the same
+// Kahan add, and folds op(T) in with fp32 FMA, as tileqr pins that small
+// product "highest" (panel_apply.py:73-79); phase 2 updates 128 x 32 C
+// tiles. The split instantiations take any nb up to BX_MAX_NB and any n
+// (a column slab past n reads zeros and writes nothing), so B7 takes every
+// nb-aligned target tileqr's panel_apply takes, up to the W slab and its
+// compensation filling shared memory (2 x 96 KiB at nb = 768). Their bound
+// is P passes of 4 m nb n flops at the dense bf16 tensor-core rate (989
+// TFLOP/s), about a third of the fp32 one at P = 3, or C's bytes; this
+// first version reaches neither (PERF.md).
+#include "bx_mma.cuh"
 
 namespace {
 
@@ -97,6 +118,13 @@ project_kernel(const float* __restrict__ y, const float* __restrict__ tm,
       }
   }
 
+  if (tm == nullptr) {  // panel_project: the bare sum
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+      *reinterpret_cast<float4*>(w + (long long)(ty * RPT + r) * n + col0 + tx * 4) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    return;
+  }
   // fold op(T) in: W_slab = tm (NB x NB) acc (NB x NC)
 #pragma unroll
   for (int r = 0; r < RPT; ++r)
@@ -191,6 +219,74 @@ apply_kernel(const float* __restrict__ y, const float* __restrict__ w, float* c,
   }
 }
 
+// Phase 1 at P passes of the split product: block = one 32-column slab of
+// W, walking the row blocks in order with Kahan compensation in shared
+// memory; then op(T) folded in with fp32 FMA (or the bare sum when tm is
+// null). RAGGED (n not a multiple of 32) guards the columns past n; it is
+// a template flag so that the common case keeps its staging loops free of
+// the test (compiled into every launch, it made B6 in "default" 40% slower
+// at 16384^2: PERF.md).
+template <int P, bool RAGGED>
+__global__ void __launch_bounds__(bx::BX_THREADS)
+project_bx_kernel(const float* __restrict__ y, const float* __restrict__ tm,
+                  const float* __restrict__ c, long long ldc, int m, int n, int nb, int mr,
+                  float* __restrict__ w) {
+  extern __shared__ __align__(128) float smb[];
+  float* acc = smb;                 // nb x NC
+  float* comp = acc + nb * bx::NC;  // nb x NC
+  const bx::Smem S = bx::carve(comp + nb * bx::NC);
+  const int tid = threadIdx.x;
+  const int col0 = blockIdx.x * bx::NC;
+  for (int idx = tid; idx < nb * bx::NC; idx += bx::BX_THREADS) acc[idx] = comp[idx] = 0.f;
+  for (int rb = 0; rb < m; rb += mr) {
+    bx::gemm32<P, false>(
+        S, nb, mr, [&](int i, int k) { return y[(long long)(rb + k) * nb + i]; },
+        [&](int k, int cc) {
+          return !RAGGED || col0 + cc < n ? c[(long long)(rb + k) * ldc + col0 + cc] : 0.f;
+        },
+        [&](int i, int cc, float v) {  // Kahan: acc += v (tileqr's _kahan_add)
+          const int o = i * bx::NC + cc;
+          const float yk = v - comp[o];
+          const float t = acc[o] + yk;
+          comp[o] = (t - acc[o]) - yk;
+          acc[o] = t;
+        });
+  }
+  for (int idx = tid; idx < nb * bx::NC; idx += bx::BX_THREADS) {
+    const int i = idx / bx::NC, cc = idx % bx::NC;
+    if (RAGGED && col0 + cc >= n) continue;
+    float v = acc[idx];
+    if (tm != nullptr) {
+      v = 0.f;
+      for (int k = 0; k < nb; ++k) v = fmaf(tm[(long long)i * nb + k], acc[k * bx::NC + cc], v);
+    }
+    w[(long long)i * n + col0 + cc] = v;
+  }
+}
+
+// Phase 2 at P passes: block (x, y) updates C rows 128x .. +128, columns
+// 32y .. +32 (those below n when RAGGED): C -= Y W.
+template <int P, bool RAGGED>
+__global__ void __launch_bounds__(bx::BX_THREADS)
+sub_bx_kernel(const float* __restrict__ y, const float* __restrict__ w, float* c,
+              long long ldc, int m, int n, int nb) {
+  extern __shared__ __align__(128) float smb[];
+  const bx::Smem S = bx::carve(smb);
+  const long long r0 = (long long)blockIdx.x * bx::MT;
+  const int col0 = blockIdx.y * bx::NC;
+  const int rows = min((long long)bx::MT, m - r0);
+  bx::gemm32<P, true>(
+      S, rows, nb, [&](int i, int k) { return y[(r0 + i) * nb + k]; },
+      [&](int k, int cc) {
+        return !RAGGED || col0 + cc < n ? w[(long long)k * n + col0 + cc] : 0.f;
+      },
+      [&](int i, int cc, float v) {
+        if (RAGGED && col0 + cc >= n) return;
+        float* x = c + (r0 + i) * ldc + col0 + cc;
+        *x = *x - v;
+      });
+}
+
 template <int RPT>
 int launch_project(const float* y, const float* tm, const float* c, long long ldc, int m,
                    int n, int mr, float* w, cudaStream_t stream) {
@@ -203,27 +299,88 @@ int launch_project(const float* y, const float* tm, const float* c, long long ld
   return (int)cudaGetLastError();
 }
 
+// the widest panel the split instantiations take: W's slab and its
+// compensation, 2 x nb x 32 floats, with gemm32's staging in 227 KiB
+constexpr int BX_MAX_NB = 768;
+
+template <int P, bool RAGGED>
+int launch_project_bx(const float* y, const float* tm, const float* c, long long ldc, int m,
+                      int n, int nb, int mr, float* w, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 2 * (size_t)nb * bx::NC + bx::SMEM_BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      project_bx_kernel<P, RAGGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int slabs = (n + bx::NC - 1) / bx::NC;
+  project_bx_kernel<P, RAGGED><<<slabs, bx::BX_THREADS, smem, stream>>>(y, tm, c, ldc, m, n, nb,
+                                                                        mr, w);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch_project_bx(const float* y, const float* tm, const float* c, long long ldc, int m,
+                      int n, int nb, int mr, float* w, cudaStream_t stream) {
+  if (nb > BX_MAX_NB) return (int)cudaErrorInvalidValue;
+  if (n % bx::NC) return launch_project_bx<P, true>(y, tm, c, ldc, m, n, nb, mr, w, stream);
+  return launch_project_bx<P, false>(y, tm, c, ldc, m, n, nb, mr, w, stream);
+}
+
+template <int P>
+int launch_sub_bx(const float* y, const float* w, float* c, long long ldc, int m, int n,
+                  int nb, cudaStream_t stream) {
+  const dim3 grid((m + bx::MT - 1) / bx::MT, (n + bx::NC - 1) / bx::NC);
+  if (n % bx::NC)
+    sub_bx_kernel<P, true><<<grid, bx::BX_THREADS, bx::SMEM_BYTES, stream>>>(y, w, c, ldc, m, n,
+                                                                            nb);
+  else
+    sub_bx_kernel<P, false><<<grid, bx::BX_THREADS, bx::SMEM_BYTES, stream>>>(y, w, c, ldc, m, n,
+                                                                             nb);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// nb a multiple of 32, <= 256; m a multiple of mr, mr of 16; n of 32.
-extern "C" int tq_panel_apply_carry(const float* y, const float* tm, float* c,
-                                    long long ldc, int m, int n, int nb, int mr, float* w,
-                                    void* stream_) {
+// Phase 1: w (nb x n) = op(T) sum_i Y_i^T C_i over row blocks of mr rows
+// (tm = op(T), contiguous), or the bare sum when tm is null. C is (m x n)
+// with row stride ldc; m a multiple of mr. passes: 0 ("highest"; nb a
+// multiple of 32, <= 256, mr of 16, n of 32), 1 ("default"), 3
+// ("b3"/"high"), 4 ("b4") (any nb <= BX_MAX_NB, any n).
+extern "C" int tq_panel_project(const float* y, const float* tm, const float* c,
+                                long long ldc, int m, int n, int nb, int mr, float* w,
+                                int passes, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  int rc;
-  switch (nb / 32) {
-    case 1: rc = launch_project<1>(y, tm, c, ldc, m, n, mr, w, stream); break;
-    case 2: rc = launch_project<2>(y, tm, c, ldc, m, n, mr, w, stream); break;
-    case 3: rc = launch_project<3>(y, tm, c, ldc, m, n, mr, w, stream); break;
-    case 4: rc = launch_project<4>(y, tm, c, ldc, m, n, mr, w, stream); break;
-    case 5: rc = launch_project<5>(y, tm, c, ldc, m, n, mr, w, stream); break;
-    case 6: rc = launch_project<6>(y, tm, c, ldc, m, n, mr, w, stream); break;
-    case 7: rc = launch_project<7>(y, tm, c, ldc, m, n, mr, w, stream); break;
-    case 8: rc = launch_project<8>(y, tm, c, ldc, m, n, mr, w, stream); break;
+  switch (passes) {
+    case 0: break;
+    case 1: return launch_project_bx<1>(y, tm, c, ldc, m, n, nb, mr, w, stream);
+    case 3: return launch_project_bx<3>(y, tm, c, ldc, m, n, nb, mr, w, stream);
+    case 4: return launch_project_bx<4>(y, tm, c, ldc, m, n, nb, mr, w, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-  if (rc != 0) return rc;
-  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
-  apply_kernel<<<grid, PA_THREADS, 0, stream>>>(y, w, c, ldc, m, n, nb);
-  return (int)cudaGetLastError();
+  switch (nb / 32) {
+    case 1: return launch_project<1>(y, tm, c, ldc, m, n, mr, w, stream);
+    case 2: return launch_project<2>(y, tm, c, ldc, m, n, mr, w, stream);
+    case 3: return launch_project<3>(y, tm, c, ldc, m, n, mr, w, stream);
+    case 4: return launch_project<4>(y, tm, c, ldc, m, n, mr, w, stream);
+    case 5: return launch_project<5>(y, tm, c, ldc, m, n, mr, w, stream);
+    case 6: return launch_project<6>(y, tm, c, ldc, m, n, mr, w, stream);
+    case 7: return launch_project<7>(y, tm, c, ldc, m, n, mr, w, stream);
+    case 8: return launch_project<8>(y, tm, c, ldc, m, n, mr, w, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Phase 2: C (m x n, row stride ldc) -= Y (m x nb) W (nb x n), in place.
+extern "C" int tq_panel_sub(const float* y, const float* w, float* c, long long ldc, int m,
+                            int n, int nb, int passes, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  switch (passes) {
+    case 0: {
+      const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
+      apply_kernel<<<grid, PA_THREADS, 0, stream>>>(y, w, c, ldc, m, n, nb);
+      return (int)cudaGetLastError();
+    }
+    case 1: return launch_sub_bx<1>(y, w, c, ldc, m, n, nb, stream);
+    case 3: return launch_sub_bx<3>(y, w, c, ldc, m, n, nb, stream);
+    case 4: return launch_sub_bx<4>(y, w, c, ldc, m, n, nb, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -19,6 +19,7 @@ import warnings
 
 import torch
 
+from tileqr_torch.kernels.common import refuse_xla_site
 from tileqr_torch.kernels.potrf import potrf_batched
 
 # quadratic iterations of the second CholeskyQR round (the reference's default)
@@ -147,14 +148,18 @@ def _correction(e: torch.Tensor) -> torch.Tensor:
     return eye - u @ w
 
 
-def cholqr2_batched(a: torch.Tensor, mode: str = "reduced", stats: bool = False):
+def cholqr2_batched(a: torch.Tensor, mode: str = "reduced", stats: bool = False,
+                    precision: str = "highest"):
     """Batched CholeskyQR2 of a (B, m, n), m >= n: (Q (B, m, n), R (B, n, n))
     or R alone (mode "r"); gram → POTRF (B9) → Q₁ = A·R₁⁻¹ → the matmul-only
-    second round → R = triu(QᵀA). Needs cond(A) ≲ 1e3 in fp32.
+    second round → R = triu(QᵀA). Needs cond(A) ≲ 1e3 in fp32. fp32 in
+    every precision mode; "b3"/"b4" raise, as the reference's XLA products
+    do.
 
     stats=True appends the round-1 orthogonality defect max ‖Q₁ᵀQ₁ − I‖_max
     over the batch (NaN if E has a NaN), the breakdown detector that
     ``guard_trips`` reads."""
+    refuse_xla_site(precision, "cholqr2_batched")
     m, n = a.shape[1:]
     eye = torch.eye(n, dtype=a.dtype, device=a.device)
     with _highest():

@@ -7,7 +7,9 @@ JAX package's drivers: ``square.py`` (trace-unrolled) and ``square_dyn.py``
 
 Both ``qr_tiled`` and ``apply_q_tiled`` update their matrix IN PLACE: the
 row strip of panel k is a view of it, and the couple kernels write their
-bottom row blocks straight into it.
+bottom row blocks straight into it. ``precision`` reaches the update
+kernels K3/K4; the panel kernels K1/K2 are fp32 in every mode, as in
+``tileqr``.
 
 Factor layout (as the JAX static driver's):
   r_diag[k]: final diagonal R tile. t_geqrt[k]: compact-WY T of the GEQRT.
@@ -44,8 +46,10 @@ def _segments(k: int, mt: int, c: int) -> Tuple[int, int, int]:
     return n_head, align // c, n_chunks
 
 
-def qr_tiled(a: torch.Tensor, nb: int, ib: int = 128, chunk: int = 4):
-    """Factor A (M, N; multiples of nb) in place.
+def qr_tiled(a: torch.Tensor, nb: int, ib: int = 128, chunk: int = 4,
+             precision: str = "highest"):
+    """Factor A (M, N; multiples of nb) in place, the trailing updates in
+    the precision mode.
 
     Returns (a, r_diag, t_geqrt, panels) in the module-docstring layout.
     """
@@ -71,15 +75,15 @@ def qr_tiled(a: torch.Tensor, nb: int, ib: int = 128, chunk: int = 4):
             strip = a[k * nb : (k + 1) * nb, (k + 1) * nb :]
             if n_head > 0:
                 couple_strip(v_stack, t2h, a, strip, 1, k + 1, n_head, nb, nb, k + 1,
-                             trans=True, vkk=v_stack[0], tg=tg_k)
+                             trans=True, vkk=v_stack[0], tg=tg_k, precision=precision)
                 if nc > 0:
                     couple_strip(v_chunks, t2t, a, strip, 0, base, nc, c * nb, nb,
-                                 k + 1, trans=True)
+                                 k + 1, trans=True, precision=precision)
             elif nc > 0:
                 couple_strip(v_chunks, t2t, a, strip, 0, base, nc, c * nb, nb, k + 1,
-                             trans=True, vkk=v_stack[0], tg=tg_k)
+                             trans=True, vkk=v_stack[0], tg=tg_k, precision=precision)
             else:
-                larfb_strip(v_stack[0], tg_k, strip, nb, trans=True)
+                larfb_strip(v_stack[0], tg_k, strip, nb, trans=True, precision=precision)
     return a, torch.stack(r_diag), torch.stack(t_geqrt), tuple(panels)
 
 
@@ -92,9 +96,11 @@ def assemble_r(packed: torch.Tensor, r_diag: torch.Tensor, nb: int) -> torch.Ten
 
 
 def apply_q_tiled(panels: Tuple, t_geqrt: torch.Tensor, c_mat: torch.Tensor, nb: int,
-                  chunk: int = 4, trans: bool = True, triangular: bool = False):
-    """C ← Qᵀ C (trans) or Q C, in place, replaying the tiled reflectors.
-    c_mat: (M, P), P a multiple of nb. ``chunk`` must match the factor's.
+                  chunk: int = 4, trans: bool = True, triangular: bool = False,
+                  precision: str = "highest"):
+    """C ← Qᵀ C (trans) or Q C, in place, replaying the tiled reflectors in
+    the precision mode. c_mat: (M, P), P a multiple of nb. ``chunk`` must
+    match the factor's.
 
     triangular (trans=False only): the xORGQR growing window for C with
     eye-like column structure (column tile j zero below row tile j): in
@@ -117,27 +123,28 @@ def apply_q_tiled(panels: Tuple, t_geqrt: torch.Tensor, c_mat: torch.Tensor, nb:
         tg = t_geqrt[k]
         cs = k if triangular else 0
         strip = c_mat[k * nb : (k + 1) * nb, cs * nb :]
+        mode = dict(precision=precision)
         if trans:
             if n_head > 0:
                 couple_strip(v_stack, t2h, c_mat, strip, 1, k + 1, n_head, nb, nb, 0,
-                             trans=True, vkk=v_stack[0], tg=tg)
+                             trans=True, vkk=v_stack[0], tg=tg, **mode)
                 if nc > 0:
                     couple_strip(v_chunks, t2t, c_mat, strip, 0, base, nc, c * nb, nb, 0,
-                                 trans=True)
+                                 trans=True, **mode)
             elif nc > 0:
                 couple_strip(v_chunks, t2t, c_mat, strip, 0, base, nc, c * nb, nb, 0,
-                             trans=True, vkk=v_stack[0], tg=tg)
+                             trans=True, vkk=v_stack[0], tg=tg, **mode)
             else:
-                larfb_strip(v_stack[0], tg, strip, nb, trans=True)
+                larfb_strip(v_stack[0], tg, strip, nb, trans=True, **mode)
         else:
             if nc > 0:
                 couple_strip(v_chunks, t2t, c_mat, strip, 0, base, nc, c * nb, nb, cs,
                              trans=False, reverse=True,
                              vkk=None if n_head > 0 else v_stack[0],
-                             tg=None if n_head > 0 else tg)
+                             tg=None if n_head > 0 else tg, **mode)
             if n_head > 0:
                 couple_strip(v_stack, t2h, c_mat, strip, 1, k + 1, n_head, nb, nb, cs,
-                             trans=False, reverse=True, vkk=v_stack[0], tg=tg)
+                             trans=False, reverse=True, vkk=v_stack[0], tg=tg, **mode)
             if n_head == 0 and nc == 0:
-                larfb_strip(v_stack[0], tg, strip, nb, trans=False)
+                larfb_strip(v_stack[0], tg, strip, nb, trans=False, **mode)
     return c_mat

@@ -14,7 +14,10 @@ Applying Q replays the leaves, then the levels, as compact-WY products
 dimension). The JAX package left these products to XLA; here they are
 ``torch.matmul`` with TF32 off (``cholqr._highest``, the pin of the hr
 driver), except that W = VᵀC, a contraction over a leaf's or a stack's
-rows, is summed in float64 (``_larfb``).
+rows, is summed in float64 (``_larfb``). In another precision mode the
+apply runs ``larfb_body`` in the mode's product, as the reference's does;
+forming Q raises in "b3"/"b4" where the reference's XLA products do
+(``common.refuse_xla_site``).
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from tileqr_torch.drivers.cholqr import _highest
-from tileqr_torch.kernels.common import unit_lower
+from tileqr_torch.kernels.common import passes_of, refuse_xla_site, unit_lower
 from tileqr_torch.kernels.geqrt import geqrt_batched
+from tileqr_torch.kernels.larfb import larfb_body
 
 
 class TSQRFactors(NamedTuple):
@@ -118,13 +122,18 @@ def tsqr_factor(a: torch.Tensor, nb: int, ib: int = 128, leaf_rows: Optional[int
     return TSQRFactors(packed, ts, tuple(levels), rs[0], lr, (m, n), tuple(plan))
 
 
-def _larfb(packed: torch.Tensor, t: torch.Tensor, c: torch.Tensor, trans: bool) -> torch.Tensor:
-    """C ← (I − V T Vᵀ)^{T if trans} C for a stack, V = unit_lower(packed),
-    with W = VᵀC summed in float64 and rounded once to C's dtype. That sum
-    runs over 2048 rows at 1048576×512 (up to 131072 in a leaf), and in
-    fp32 it alone put the fp32 ``apply_q`` relerr ‖QᵀA − R‖F/‖A‖F at
-    2.1e-6 on an H100, against 6.3e-7 this way (PERF.md). The H100's
-    float64 matmul rate is its fp32 rate, so it costs the conversions only."""
+def _larfb(packed: torch.Tensor, t: torch.Tensor, c: torch.Tensor, trans: bool,
+           precision: str = "highest") -> torch.Tensor:
+    """C ← (I − V T Vᵀ)^{T if trans} C for a stack, V = unit_lower(packed).
+    In "highest", W = VᵀC is summed in float64 and rounded once to C's
+    dtype. That sum runs over 2048 rows at 1048576×512 (up to 131072 in a
+    leaf), and in fp32 it alone put the fp32 ``apply_q`` relerr
+    ‖QᵀA − R‖F/‖A‖F at 2.1e-6 on an H100, against 6.3e-7 this way
+    (PERF.md). The H100's float64 matmul rate is its fp32 rate, so it costs
+    the conversions only. Other modes: ``larfb_body`` in the mode's
+    product (round-to-nearest split, as the reference's)."""
+    if passes_of(precision):
+        return larfb_body(packed, t, c, trans, precision)
     v = unit_lower(packed)
     w = (v.transpose(-2, -1).double() @ c.double()).to(c.dtype)
     w = (t.transpose(-2, -1) if trans else t) @ w
@@ -132,19 +141,21 @@ def _larfb(packed: torch.Tensor, t: torch.Tensor, c: torch.Tensor, trans: bool) 
 
 
 def _level_apply(tops: torch.Tensor, level, pk: torch.Tensor, tl: torch.Tensor,
-                 trans: bool) -> None:
+                 trans: bool, precision: str = "highest") -> None:
     """One tree level's block reflectors on the stacked top blocks, in place."""
     ncomb, a_l, flat, _ = level
     n, pcols = tops.shape[1:]
     gather = torch.tensor(flat, device=tops.device)
     stack = tops[gather].reshape(ncomb, a_l * n, pcols)
-    tops[gather] = _larfb(pk, tl, stack, trans).reshape(ncomb * a_l, n, pcols)
+    tops[gather] = _larfb(pk, tl, stack, trans, precision).reshape(ncomb * a_l, n, pcols)
 
 
-def tsqr_apply_q(f: TSQRFactors, c: torch.Tensor, trans: bool = True) -> torch.Tensor:
-    """Qᵀ C (trans) or Q C for the TSQR Q. c: (Mc, P) with Mc <= f.shape[0],
-    in the caller's row count: the rows the factorization padded are zero
-    rows of the factored input, on which Q and Qᵀ act as the identity."""
+def tsqr_apply_q(f: TSQRFactors, c: torch.Tensor, trans: bool = True,
+                 precision: str = "highest") -> torch.Tensor:
+    """Qᵀ C (trans) or Q C for the TSQR Q, in the precision mode. c: (Mc, P)
+    with Mc <= f.shape[0], in the caller's row count: the rows the
+    factorization padded are zero rows of the factored input, on which Q
+    and Qᵀ act as the identity."""
     m, n = f.shape
     lr = f.leaf_rows
     p = m // lr
@@ -156,20 +167,22 @@ def tsqr_apply_q(f: TSQRFactors, c: torch.Tensor, trans: bool = True) -> torch.T
     leaves = f.packed_leaves.reshape(p, lr, n)
     with _highest():
         if trans:
-            cb = _larfb(leaves, f.t_leaves, cb, True)
+            cb = _larfb(leaves, f.t_leaves, cb, True, precision)
             for level, (pk, tl, _cnt, _a) in zip(f.plan, f.levels):
-                _level_apply(cb[:, :n, :], level, pk, tl, True)
+                _level_apply(cb[:, :n, :], level, pk, tl, True, precision)
         else:
             for level, (pk, tl, _cnt, _a) in zip(f.plan[::-1], f.levels[::-1]):
-                _level_apply(cb[:, :n, :], level, pk, tl, False)
-            cb = _larfb(leaves, f.t_leaves, cb, False)
+                _level_apply(cb[:, :n, :], level, pk, tl, False, precision)
+            cb = _larfb(leaves, f.t_leaves, cb, False, precision)
     return cb.reshape(m, pcols)[:mc]
 
 
-def tsqr_form_q(f: TSQRFactors) -> torch.Tensor:
+def tsqr_form_q(f: TSQRFactors, precision: str = "highest") -> torch.Tensor:
     """Reduced Q (M, n) without an M×n identity: the levels act on (p, n, n)
     top blocks seeded with I_n at the root only, and the leaf apply uses
-    C = [top; 0]: Q_leaf C = C − V T (V₁ᵀ top)."""
+    C = [top; 0]: Q_leaf C = C − V T (V₁ᵀ top). fp32 products in every
+    mode; "b3"/"b4" raise, as the reference's leaf products do."""
+    refuse_xla_site(precision, "tsqr_form_q (the tree's reduced Q)")
     m, n = f.shape
     lr = f.leaf_rows
     p = m // lr

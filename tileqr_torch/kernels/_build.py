@@ -11,7 +11,11 @@ needs its float ops kept as written.
 
 The launch and call counts let a run show which path it took: each CUDA
 wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel, and
-each plain version adds one to ``PLAIN_CALLS[name]``.
+each plain version adds one to ``PLAIN_CALLS[name]``. The kernels whose
+products follow ``QRConfig.precision`` count each instantiation apart:
+``name`` for "highest", ``name[b3]``, ``name[b4]`` and ``name[default]``
+for the split products ("high" runs the b3 instantiation), so a run shows
+which mode it took (``common.counter_key``).
 """
 
 from __future__ import annotations
@@ -31,7 +35,13 @@ import torch
 HH_KERNELS = ("panel_factor", "panel_chain", "couple_strip", "larfb_strip")
 HR_KERNELS = ("modified_lu", "potrf_batched", "panel_apply_carry")
 TS_KERNELS = ("geqrt_batched",)
-KERNELS = HH_KERNELS + HR_KERNELS + TS_KERNELS
+# B7, the value-level whole-panel apply of the hr apply_q/orgqr
+APPLY_KERNELS = ("panel_apply",)
+# the kernels with a split-product instantiation per emulated mode
+MODE_KERNELS = ("couple_strip", "larfb_strip", "panel_apply_carry", "panel_apply")
+EMULATED_MODES = ("b3", "b4", "default")
+KERNELS = (HH_KERNELS + HR_KERNELS + TS_KERNELS + APPLY_KERNELS
+           + tuple(f"{k}[{m}]" for k in MODE_KERNELS for m in EMULATED_MODES))
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
 
@@ -51,20 +61,23 @@ SIGNATURES = {
     # r_out, v_chunks, t2, work, stream
     "tq_panel_chain": (_P, _L, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     # v_stack, t2_stack, c, ldc, strip, lds, width, stack_base, base_block,
-    # n_chunks, block_rows, nb, col_start, trans, reverse, vkk, tg, stream
+    # n_chunks, block_rows, nb, col_start, trans, reverse, vkk, tg, passes,
+    # stream
     "tq_couple_strip": (
-        _P, _P, _P, _L, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+        _P, _P, _P, _L, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P,
     ),
-    # vkk, tg, strip, lds, width, nb, trans, stream
-    "tq_larfb_strip": (_P, _P, _P, _L, _I, _I, _I, _P),
+    # vkk, tg, strip, lds, width, nb, trans, passes, stream
+    "tq_larfb_strip": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
     # panel_factor / panel_chain workspace size in floats: nb, rows, ib
     "tq_geqrt_work_floats": (_I, _I, _I),
     # lu (in place), n, d, stream
     "tq_modified_lu": (_P, _I, _P, _P),
     # r (in place), batch, n, bp, stream
     "tq_potrf_batched": (_P, _I, _I, _I, _P),
-    # y, tm, c, ldc, m, n, nb, mr, w, stream
-    "tq_panel_apply_carry": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _P),
+    # y, tm (or NULL), c, ldc, m, n, nb, mr, w, passes, stream
+    "tq_panel_project": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _I, _P),
+    # y, w, c, ldc, m, n, nb, passes, stream
+    "tq_panel_sub": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
     # geqrt_batched blocks to launch (or -cudaError): batch, m, n, resident
     "tq_geqrt_batched_grid": (_L, _I, _I, _I),
     # geqrt_batched workspace floats per block: m, n, ib, resident

@@ -13,7 +13,10 @@ Counterparts of ``tileqr/kernels/chain.py``:
 On a CUDA tensor each wrapper launches its CUDA kernel (``csrc/chain.cu``);
 on a CPU tensor it runs the plain version beside it. K3 and K4 update C and
 the strip IN PLACE (the JAX kernels alias C to their output): the strip may
-be a view of C's row strip, which the couple rows never touch.
+be a view of C's row strip, which the couple rows never touch. K3 and K4
+take ``precision`` (``kernels/common.py``): their three products run in the
+mode's product, the kernel's instantiation for it on the card; K2 is fp32
+in every mode, as in ``tileqr``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from tileqr_torch.kernels import _build
+from tileqr_torch.kernels.common import counter_key, passes_of
 from tileqr_torch.kernels.geqrt import geqrt_in_place
 from tileqr_torch.kernels.larfb import larfb_body
 from tileqr_torch.kernels.ssrfb import ssrfb_body
@@ -103,24 +107,25 @@ def _check_strip(v_stack, t2_stack, c, strip, stack_base, base_block, n_chunks,
 
 def couple_strip_plain(v_stack, t2_stack, c, strip, stack_base: int, base_block: int,
                        n_chunks: int, block_rows: int, nb: int, col_start: int,
-                       trans: bool = True, reverse: bool = False, vkk=None, tg=None):
+                       trans: bool = True, reverse: bool = False, vkk=None, tg=None,
+                       precision: str = "highest"):
     """Plain torch K3 (in place on C and the strip)."""
-    _build.PLAIN_CALLS["couple_strip"] += 1
+    _build.PLAIN_CALLS[counter_key("couple_strip", precision)] += 1
     _check_strip(v_stack, t2_stack, c, strip, stack_base, base_block, n_chunks,
                  block_rows, nb, col_start, vkk, tg)
     c0 = col_start * nb
     s = strip
     if vkk is not None and not reverse:
-        s = larfb_body(vkk, tg, s, trans)
+        s = larfb_body(vkk, tg, s, trans, precision)
     order = range(n_chunks - 1, -1, -1) if reverse else range(n_chunks)
     for ii in order:
         r0 = (base_block + ii) * block_rows
         bot = c[r0 : r0 + block_rows, c0:]
         s, new_bot = ssrfb_body(v_stack[stack_base + ii], t2_stack[stack_base + ii],
-                                s, bot, trans)
+                                s, bot, trans, precision)
         bot.copy_(new_bot)
     if vkk is not None and reverse:
-        s = larfb_body(vkk, tg, s, trans)
+        s = larfb_body(vkk, tg, s, trans, precision)
     if s is not strip:
         strip.copy_(s)
     return c, strip
@@ -130,7 +135,8 @@ def couple_strip(v_stack, t2_stack, c, strip, stack_base: int, base_block: int,
                  n_chunks: int, block_rows: int, nb: int, col_start: int,
                  trans: bool = True, reverse: bool = False,
                  vkk: Optional[torch.Tensor] = None,
-                 tg: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                 tg: Optional[torch.Tensor] = None,
+                 precision: str = "highest") -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply ``n_chunks`` couples to (strip, C), in place.
 
     v_stack: (B, block_rows, nb) reflector chunks; t2_stack: (B, nb, nb);
@@ -138,12 +144,14 @@ def couple_strip(v_stack, t2_stack, c, strip, stack_base: int, base_block: int,
     base_block + ii (in units of block_rows), columns col_start·nb onward.
     strip: (nb, P − col_start·nb). reverse: couples in descending order.
     vkk/tg: the diagonal-tile LARFB, fused before the first couple (forward)
-    or after the last (reverse). Returns (c, strip).
+    or after the last (reverse). precision: the mode of the three products.
+    Returns (c, strip).
     """
+    passes = passes_of(precision)
     if not _build.is_cuda(v_stack, t2_stack, c, strip, vkk, tg):
         return couple_strip_plain(v_stack, t2_stack, c, strip, stack_base, base_block,
                                   n_chunks, block_rows, nb, col_start, trans, reverse,
-                                  vkk, tg)
+                                  vkk, tg, precision)
     _build.require_fp32(v_stack, t2_stack, c, strip, vkk, tg)
     _build.require_contiguous(v_stack=v_stack, t2_stack=t2_stack, vkk=vkk, tg=tg)
     _build.require_row_major(c=c, strip=strip)
@@ -155,27 +163,30 @@ def couple_strip(v_stack, t2_stack, c, strip, stack_base: int, base_block: int,
         v_stack.data_ptr(), t2_stack.data_ptr(), c.data_ptr(), c.stride(0),
         strip.data_ptr(), strip.stride(0), strip.shape[1], stack_base, base_block,
         n_chunks, block_rows, nb, col_start, int(trans), int(reverse),
-        _build.ptr(vkk), _build.ptr(tg), _build.stream(),
+        _build.ptr(vkk), _build.ptr(tg), passes, _build.stream(),
     )
     _build.check(rc, "couple_strip")
-    _build.LAUNCHES["couple_strip"] += 1
+    _build.LAUNCHES[counter_key("couple_strip", precision)] += 1
     return c, strip
 
 
-def larfb_strip_plain(vkk, tg, strip, nb: int, trans: bool = True):
+def larfb_strip_plain(vkk, tg, strip, nb: int, trans: bool = True,
+                      precision: str = "highest"):
     """Plain torch K4 (in place on the strip)."""
-    _build.PLAIN_CALLS["larfb_strip"] += 1
-    strip.copy_(larfb_body(vkk, tg, strip, trans))
+    _build.PLAIN_CALLS[counter_key("larfb_strip", precision)] += 1
+    strip.copy_(larfb_body(vkk, tg, strip, trans, precision))
     return strip
 
 
-def larfb_strip(vkk, tg, strip, nb: int, trans: bool = True) -> torch.Tensor:
+def larfb_strip(vkk, tg, strip, nb: int, trans: bool = True,
+                precision: str = "highest") -> torch.Tensor:
     """Apply the diagonal-tile GEQRT reflector block (vkk: packed (nb, nb),
-    tg: its T) to the row strip, in place."""
+    tg: its T) to the row strip, in place, in the precision mode."""
     if strip.dim() != 2 or strip.shape[0] != nb or tuple(vkk.shape) != (nb, nb):
         raise ValueError("larfb_strip: strip must be (nb, w) and vkk (nb, nb)")
+    passes = passes_of(precision)
     if not _build.is_cuda(vkk, tg, strip):
-        return larfb_strip_plain(vkk, tg, strip, nb, trans)
+        return larfb_strip_plain(vkk, tg, strip, nb, trans, precision)
     _build.require_fp32(vkk, tg, strip)
     _build.require_contiguous(vkk=vkk, tg=tg)
     _build.require_row_major(strip=strip)
@@ -183,8 +194,8 @@ def larfb_strip(vkk, tg, strip, nb: int, trans: bool = True) -> torch.Tensor:
         return strip
     rc = _build.lib().tq_larfb_strip(
         vkk.data_ptr(), tg.data_ptr(), strip.data_ptr(), strip.stride(0),
-        strip.shape[1], nb, int(trans), _build.stream(),
+        strip.shape[1], nb, int(trans), passes, _build.stream(),
     )
     _build.check(rc, "larfb_strip")
-    _build.LAUNCHES["larfb_strip"] += 1
+    _build.LAUNCHES[counter_key("larfb_strip", precision)] += 1
     return strip

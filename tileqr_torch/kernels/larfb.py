@@ -12,9 +12,10 @@ from tileqr_torch.kernels.common import dot, dot_t, unit_lower
 
 
 def larfb_body(packed: torch.Tensor, t: torch.Tensor, c: torch.Tensor,
-               trans: bool) -> torch.Tensor:
-    """C ← (I − V T Vᵀ)^{T if trans} C with V = unit_lower(packed)."""
+               trans: bool, precision: str = "highest") -> torch.Tensor:
+    """C ← (I − V T Vᵀ)^{T if trans} C with V = unit_lower(packed); the
+    three products in the precision mode's product."""
     v = unit_lower(packed)
-    w = dot_t(v, c)
-    w = dot_t(t, w) if trans else dot(t, w)
-    return c - dot(v, w)
+    w = dot_t(v, c, precision)
+    w = dot_t(t, w, precision) if trans else dot(t, w, precision)
+    return c - dot(v, w, precision)

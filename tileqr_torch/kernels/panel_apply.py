@@ -1,22 +1,31 @@
-"""In-place windowed whole-panel apply (B6), the hr driver's trailing update.
+"""The whole-panel block-reflector apply: B6, the hr driver's in-place
+trailing update, and B7, the value-level apply of the hr ``apply_q`` and
+``orgqr``.
 
-Counterpart of ``tileqr/kernels/panel_apply.py:panel_apply_carry``:
+Counterparts of ``tileqr/kernels/panel_apply.py``:
 
-    carry[s:, s+nb:] ← (I − Y·T·Yᵀ)^{T?} · carry[s:, s+nb:],   s = k·nb,
+- ``panel_apply_carry`` (B6): carry[s:, s+nb:] ← (I − Y·T·Yᵀ)^{T?} ·
+  carry[s:, s+nb:], s = k·nb, everything outside the window untouched;
+- ``panel_apply`` (B7): C ← (I − Y·T·Yᵀ)^{T?} · C for an (m, n) C, m and n
+  multiples of nb; here C may be any view with unit column stride (a
+  window of a larger matrix), updated in place through its leading
+  dimension.
 
-with everything outside the window left untouched. Two phases, a barrier
-between them (every row block of Y contributes to W before any C block is
-updated):
+Both run two phases, a barrier between them (every row block of Y
+contributes to W before any C block is updated):
 
-  phase 1: W = op(T) · Σᵢ Yᵢᵀ Cᵢ over row blocks of ``mr = _block(m, nb,
-           512)`` rows, in order, with Kahan-compensated fp32 accumulation
-           across the blocks (``_kahan_add``);
+  phase 1: W = op(T) · Σᵢ Yᵢᵀ Cᵢ over row blocks of ``mr`` rows, in
+           order, with Kahan-compensated fp32 accumulation across the
+           blocks (``_kahan_add``); mr = ``_block(m, nb, 512)`` for B6 and
+           ``_block(m, nb, 1024)`` for B7, the reference's targets;
   phase 2: C ← C − Y · W.
 
-On a CUDA tensor the wrapper launches ``tq_panel_apply_carry``
-(``csrc/panel_apply.cu``), which works on the window in place through
-(pointer, leading dimension); on a CPU tensor it runs the plain version,
-the same blocks in torch.
+``precision`` (``kernels/common.py``) sets the product of Yᵢᵀ Cᵢ and of
+Y·W; the small op(T) product stays the fp32 one in every mode, as the
+reference pins it "highest". On a CUDA tensor the wrappers launch
+``tq_panel_project`` and ``tq_panel_sub`` (``csrc/panel_apply.cu``), the
+instantiation of the mode; on a CPU tensor they run the plain version, the
+same blocks in torch.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from tileqr_torch.kernels import _build
+from tileqr_torch.kernels.common import counter_key, dot, dot_t, passes_of
 
 
 def _block(extent: int, unit: int, target: int) -> int:
@@ -52,46 +62,118 @@ def _window(y, t, carry, k: int, nb: int):
     return carry[s:, s + nb :], m, n
 
 
-def panel_apply_carry_plain(y, t, carry, k: int, nb: int, trans: bool = True):
-    """Plain torch B6 (in place on carry)."""
-    _build.PLAIN_CALLS["panel_apply_carry"] += 1
-    c, m, n = _window(y, t, carry, k, nb)
-    if n <= 0:
-        return carry
-    mr = _block(m, nb, 512)
-    acc = c.new_zeros((nb, n))
-    comp = c.new_zeros((nb, n))
+# the widest panel the split instantiations take (``BX_MAX_NB`` in
+# csrc/panel_apply.cu: W's slab and its compensation fill shared memory)
+BX_MAX_NB = 768
+
+
+def kernel_takes(nb: int, precision: str = "highest") -> bool:
+    """Whether the mode's CUDA instantiation takes panels nb wide: the fp32
+    one holds W in 32-column register tiles of nb ≤ 256 rows, the split
+    ones any nb up to ``BX_MAX_NB`` (and any n)."""
+    if passes_of(precision):
+        return nb <= BX_MAX_NB
+    return nb % 32 == 0 and nb <= 256
+
+
+def _check_value(y, t, c):
+    """(m, n, nb) of a B7 call, after checking the shapes."""
+    if c.dim() != 2 or y.dim() != 2 or tuple(t.shape) != (y.shape[1], y.shape[1]):
+        raise ValueError("panel_apply: y must be (m, nb), t (nb, nb), c 2-D")
+    m, nb = y.shape
+    n = c.shape[1]
+    if c.shape[0] != m or m % nb or n % nb:
+        raise ValueError(f"panel_apply: c {tuple(c.shape)} must have y's {m} rows, and "
+                         f"both extents multiples of nb={nb}")
+    return m, n, nb
+
+
+def _apply_plain(y, t, c, mr: int, trans: bool, precision: str) -> None:
+    """The two phases in torch, in place on the (m, n) view c."""
+    m = y.shape[0]
+    acc = c.new_zeros((y.shape[1], c.shape[1]))
+    comp = c.new_zeros(acc.shape)
     for r0 in range(0, m, mr):
-        val = y[r0 : r0 + mr].T @ c[r0 : r0 + mr]
+        val = dot_t(y[r0 : r0 + mr], c[r0 : r0 + mr], precision)
         yk = val - comp
         tk = acc + yk
         comp = (tk - acc) - yk
         acc = tk
     tm = t.T if trans else t
-    c -= y @ (tm @ acc)
+    c -= dot(y, tm @ acc, precision)
+
+
+def _apply_kernel(y, t, c, mr: int, trans: bool, precision: str) -> None:
+    """Launch both phases on the (m, n) view c, in place."""
+    _build.require_fp32(y, t, c)
+    _build.require_contiguous(y=y)
+    _build.require_row_major(c=c)
+    m, nb = y.shape
+    n = c.shape[1]
+    if not kernel_takes(nb, precision):
+        raise ValueError(
+            f"the panel apply kernels take nb a multiple of 32, <= 256 in 'highest' and nb "
+            f"<= {BX_MAX_NB} in the split modes; got nb={nb} in {precision!r}")
+    passes = passes_of(precision)
+    tm = (t.T if trans else t).contiguous()
+    w = torch.empty((nb, n), dtype=c.dtype, device=c.device)
+    lib = _build.lib()
+    rc = lib.tq_panel_project(y.data_ptr(), tm.data_ptr(), c.data_ptr(), c.stride(0), m, n,
+                              nb, mr, w.data_ptr(), passes, _build.stream())
+    _build.check(rc, "panel_project")
+    rc = lib.tq_panel_sub(y.data_ptr(), w.data_ptr(), c.data_ptr(), c.stride(0), m, n, nb,
+                          passes, _build.stream())
+    _build.check(rc, "panel_sub")
+
+
+def panel_apply_carry_plain(y, t, carry, k: int, nb: int, trans: bool = True,
+                            precision: str = "highest"):
+    """Plain torch B6 (in place on carry)."""
+    _build.PLAIN_CALLS[counter_key("panel_apply_carry", precision)] += 1
+    c, m, n = _window(y, t, carry, k, nb)
+    if n > 0:
+        _apply_plain(y, t, c, _block(m, nb, 512), trans, precision)
     return carry
 
 
 def panel_apply_carry(y: torch.Tensor, t: torch.Tensor, carry: torch.Tensor, k: int,
-                      nb: int, trans: bool = True) -> torch.Tensor:
+                      nb: int, trans: bool = True, precision: str = "highest") -> torch.Tensor:
     """Apply panel k's block reflector (Y (m, nb), T (nb, nb)) to the
-    window carry[k·nb:, (k+1)·nb:] in place; returns carry."""
+    window carry[k·nb:, (k+1)·nb:] in place, in the precision mode;
+    returns carry."""
+    passes_of(precision)
     if not _build.is_cuda(y, t, carry):
-        return panel_apply_carry_plain(y, t, carry, k, nb, trans)
-    _build.require_fp32(y, t, carry)
-    _build.require_contiguous(y=y)
+        return panel_apply_carry_plain(y, t, carry, k, nb, trans, precision)
     _build.require_row_major(carry=carry)
-    if nb % 32 or nb > 256:
-        raise ValueError(f"panel_apply_carry kernel takes nb a multiple of 32, <= 256; got {nb}")
     c, m, n = _window(y, t, carry, k, nb)
     if n <= 0:
         return carry
-    tm = (t.T if trans else t).contiguous()
-    w = torch.empty((nb, n), dtype=c.dtype, device=c.device)
-    rc = _build.lib().tq_panel_apply_carry(
-        y.data_ptr(), tm.data_ptr(), c.data_ptr(), carry.stride(0), m, n, nb,
-        _block(m, nb, 512), w.data_ptr(), _build.stream(),
-    )
-    _build.check(rc, "panel_apply_carry")
-    _build.LAUNCHES["panel_apply_carry"] += 1
+    _apply_kernel(y, t, c, _block(m, nb, 512), trans, precision)
+    _build.LAUNCHES[counter_key("panel_apply_carry", precision)] += 1
     return carry
+
+
+def panel_apply_plain(y, t, c, trans: bool = True, precision: str = "b3"):
+    """Plain torch B7 (in place on c)."""
+    _build.PLAIN_CALLS[counter_key("panel_apply", precision)] += 1
+    m, n, nb = _check_value(y, t, c)
+    if n > 0:
+        _apply_plain(y, t, c, _block(m, nb, 1024), trans, precision)
+    return c
+
+
+def panel_apply(y: torch.Tensor, t: torch.Tensor, c: torch.Tensor, trans: bool = True,
+                precision: str = "b3") -> torch.Tensor:
+    """C ← (I − Y·T·Yᵀ)ᵀ C (trans) or (I − Y·T·Yᵀ) C, in place on the
+    (m, n) view c (unit column stride), in the precision mode; returns c.
+    y: (m, nb) whole-panel reflectors, t: (nb, nb); m and n multiples of
+    nb."""
+    passes_of(precision)
+    if not _build.is_cuda(y, t, c):
+        return panel_apply_plain(y, t, c, trans, precision)
+    m, n, nb = _check_value(y, t, c)
+    if n == 0:
+        return c
+    _apply_kernel(y, t, c, _block(m, nb, 1024), trans, precision)
+    _build.LAUNCHES[counter_key("panel_apply", precision)] += 1
+    return c

@@ -1,6 +1,7 @@
 """Device time per CUDA kernel of one factorization, by torch.profiler.
 
     python -m tileqr_torch.utils.profile --n 16384 --method hr [--qr] [--health]
+    python -m tileqr_torch.utils.profile --method hh --n 8192 --precision b3
     python -m tileqr_torch.utils.profile --method tsqr [--n 512] [--qr]
     python -m tileqr_torch.utils.profile --method batched [--n 128]
 
@@ -9,7 +10,10 @@ warm on a gaussian fp32 (n, n) A made from ``--seed``, then once more under
 ``torch.profiler``; ``--method tsqr`` profiles ``tsqr(a, "r")`` (with
 ``--qr``: "reduced") on a (1048576, n) A with ``QRConfig(nb=n)``, and
 ``--method batched`` ``qr_batched`` (Q and R) on a (4096, n, n) stack:
-BASELINE's configs 3 and 4 at the default n.
+BASELINE's configs 3 and 4 at the default n. ``--precision`` sets
+``QRConfig.precision`` (default "highest"); the square paths' update and
+apply kernels then run that mode's instantiation (a template argument of
+1, 3 or 4 bf16 passes in the kernel's name).
 It prints the device time of every CUDA kernel name
 (launches, total ms, share of the device total), the same summed over
 groups (this package's kernels by name, cuBLAS GEMMs as "torch.matmul",
@@ -38,8 +42,10 @@ OWN = {
     "larfb_strip_kernel": "larfb_strip",
     "modlu_kernel": "modified_lu",
     "potrf_kernel": "potrf_batched",
-    "project_kernel": "panel_apply_carry (phase 1)",
-    "apply_kernel": "panel_apply_carry (phase 2)",
+    "project_kernel": "panel apply B6/B7 (phase 1)",
+    "apply_kernel": "panel apply B6/B7 (phase 2)",
+    "project_bx_kernel": "panel apply B6/B7 (phase 1, split product)",
+    "sub_bx_kernel": "panel apply B6/B7 (phase 2, split product)",
     "geqrt_batched_kernel": "geqrt_batched",
 }
 
@@ -82,6 +88,8 @@ def main(argv=None) -> int:
     ap.add_argument("--method", choices=("hh", "hr", "tsqr", "batched"), default="hr")
     ap.add_argument("--qr", action="store_true", help="profile qr (factor + R + Q)")
     ap.add_argument("--health", action="store_true", help="hr: print each panel's defect")
+    ap.add_argument("--precision", default="highest",
+                    choices=("highest", "b3", "b4", "high", "default"))
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -102,9 +110,10 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     a = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
     if args.method == "tsqr":
-        cfg = tileqr_torch.QRConfig(nb=n)
+        cfg = tileqr_torch.QRConfig(nb=n, precision=args.precision)
     else:
-        cfg = tileqr_torch.QRConfig(square_method="hr" if args.method == "hr" else "hh")
+        cfg = tileqr_torch.QRConfig(square_method="hr" if args.method == "hr" else "hh",
+                                    precision=args.precision)
 
     def call():
         if args.method == "tsqr":
@@ -128,6 +137,7 @@ def main(argv=None) -> int:
     total = sum(ms for _, ms in kt.values())
     what = {"tsqr": "tsqr reduced" if args.qr else "tsqr r", "batched": "qr_batched"}.get(
         args.method, f"{args.method} {'qr' if args.qr else 'qr_factor'}")
+    what += f" precision={args.precision}"
     print(f"{what} {'x'.join(map(str, shape))}: wall {wall_ms:.3f} ms under the profiler, "
           f"device total {total:.3f} ms, idle share {max(0.0, 1 - total / wall_ms):.4f} [{card}]")
     groups = defaultdict(lambda: [0, 0.0])
