@@ -85,20 +85,47 @@ use (one nvcc per source, in parallel), then:
    plain version, which must be larger (the split ran); each timed beside
    that plain version and three bf16 ``torch.matmul`` calls of the same
    shapes (one pass; no single PyTorch call computes the split product, so
-   the library column is empty); then ``qr`` at 8192² on the hh path and
+   the library column is empty; B7 in "highest" is timed beside
+   ``torch.ormqr`` with tau = diag(T), checked once against it); then ``qr`` at 8192² on the hh path and
    at 16384² on the hr path in each mode, with the counts set to 0 just
    before and read just after (only that mode's K3/K4 or B6/B7 and the fp32
    panel kernels launch, no plain version runs), checked: relerr
    ‖QᵀA − R‖F/‖A‖F (Qᵀ in float64 for hr, the fp32 "highest" apply for hh)
    and the explicit-Q residual ≤ 1e-4 in b3/b4 (1e-1 in "default"), orth
    ≤ 1e-2 in b3/b4, hr health ≤ tau, bitwise reruns; and ``qr_factor``
-   timed in each mode beside "highest" and cuSOLVER.
+   timed in each mode beside "highest" and cuSOLVER;
+10. the sharded path at BASELINE config 5's mesh and tile (4×2, nb = 256),
+   cut to a 16384² gaussian A: first, on this process, the TTQRT kernel
+   (B15) on two R tiles of that A against its plain version and against
+   the TSQRT kernel (equal up to the sign of zero), the single-tile entries
+   tsqrt, larfb and ssrfb (K2, K4, K3; ssrfb at the strip tree's width),
+   the panel head (B13: K1 on a rank's panel column) and ``couple_apply``
+   (B14: K3 with nb-row couples, at tileqr's static driver's shape for this
+   mesh), each against its plain version and timed beside it and the
+   PyTorch call that computes the same function (``torch.geqrf`` or
+   ``torch.ormqr`` with tau = diag(T)); tsqrt, larfb and ``couple_apply``,
+   which no path runs, are recorded as shapes of K2, K4 and K3, whose rows
+   name their TPU kernels too; then 8 spawned ranks on the one
+   card (``tileqr_torch.dist.launch``, gloo: NCCL refuses two ranks on one
+   device) run ``qr_sharded(mode="factor")``, ``assemble_r_sharded`` and
+   ``apply_q_sharded(f, A)`` with the counts set to 0 just before and read
+   just after on every rank: each rank's factor launches equal the
+   geometry's plan, no plain version runs; relerr ‖QᵀA − R‖F/‖A‖F
+   ≤ 1e-6 (float64 norms), Q = ``apply_q_sharded(f, I, trans=False)``:
+   explicit-Q residual ≤ ``TOL_SH_RESID`` = 4e-6 (the reason is beside it)
+   and ‖QᵀQ − I‖F ≤ 1e-3; R against the single-card hh ``qr``'s R with
+   row signs matched (printed), the factor's rerun bitwise on
+   every rank, its wall time by CUDA events on rank 0 between barriers (8
+   ranks time-sharing one card, not a multi-GPU figure), and the bytes per
+   panel through each collective with the host-staged share.
 
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over their
-type's peak, computed from this run's shapes: fp32 at 67 TFLOP/s, and the
+type's peak, computed from this run's shapes, a triangular factor counting
+its triangle only: fp32 at 67 TFLOP/s, and the
 split products' bf16 passes (3, 4 or 1 per product) at the dense bf16
-tensor-core rate of 989 TFLOP/s. Any failure raises
+tensor-core rate of 989 TFLOP/s. Every kernel of the ``kernels`` line
+must have launched in its path's counted run. Any failure raises
 (non-zero exit). With no CUDA device it exits non-zero and prints no
 result. The last line is the device record.
 """
@@ -138,12 +165,30 @@ TOL_MODE_ORTH = 1e-2
 
 M_TS, N_TS, NB_TS = 1048576, 512, 512  # BASELINE config 3 (tall-skinny)
 B_BA, N_BA = 4096, 128  # BASELINE config 4 (batched)
+# BASELINE config 5's mesh and tile, cut from 32768² to 16384²: its
+# replicated outputs would be 4 GiB per rank, ~110 GiB over 8 ranks on one card
+N_SH, MESH_SH = 16384, (4, 2)
+# its explicit-Q residual: the hh limit of 3e-6 was set at 8192², where
+# cuSOLVER measures 1.21e-6; at 16384² cuSOLVER measures 1.73e-6 (1.43x,
+# which puts the same margin at 4.3e-6), and the mesh rows add the tree's
+# leaf strips, which take every local couple's update of their panels: in
+# fp32 on the CPU tileqr's own sharded driver grows as the port does, 1x1
+# → 2x1 → 4x2 (tests/test_torch_sharded_growth.py; on the card
+# utils/sharded_errors.py; PERF.md §6)
+TOL_SH_RESID = 4e-6
 
+# B15's single-tile tsqrt and larfb and B14's couple_apply are K2, K4 and K3
+# at one shape that no path runs (tileqr's unit-test entries; B14 is the
+# static driver's sweep, which the port's driver runs as K3 at chunk 1):
+# they stand in those kernels' rows, checked and timed as labelled shapes
 KERNEL_INFO = {
     "panel_factor": ("tileqr_torch/csrc/panel.cu", "tileqr/kernels/panel.py:90"),
-    "panel_chain": ("tileqr_torch/csrc/chain.cu", "tileqr/kernels/chain.py:83"),
-    "couple_strip": ("tileqr_torch/csrc/chain.cu", "tileqr/kernels/chain.py:212"),
-    "larfb_strip": ("tileqr_torch/csrc/chain.cu", "tileqr/kernels/chain.py:267"),
+    "panel_chain": ("tileqr_torch/csrc/chain.cu",
+                    "tileqr/kernels/chain.py:83, tileqr/kernels/tsqrt.py:46"),
+    "couple_strip": ("tileqr_torch/csrc/chain.cu",
+                     "tileqr/kernels/chain.py:212, tileqr/kernels/update.py:115"),
+    "larfb_strip": ("tileqr_torch/csrc/chain.cu",
+                    "tileqr/kernels/chain.py:267, tileqr/kernels/larfb.py:44"),
     "modified_lu": ("tileqr_torch/csrc/modlu.cu", "tileqr/kernels/modlu.py:93"),
     "potrf_batched": ("tileqr_torch/csrc/potrf.cu", "tileqr/drivers/cholqr.py:203"),
     "panel_apply_carry": ("tileqr_torch/csrc/panel_apply.cu",
@@ -152,6 +197,10 @@ KERNEL_INFO = {
                       "tileqr/drivers/tsqr.py:217, tileqr/drivers/batched.py:167, "
                       "tileqr/drivers/batched.py:41, tileqr/kernels/geqrt.py:225"),
     "panel_apply": ("tileqr_torch/csrc/panel_apply.cu", "tileqr/kernels/panel_apply.py:112"),
+    "ttqrt": ("tileqr_torch/csrc/ttqrt.cu", "tileqr/kernels/ttqrt.py:68"),
+    # TPU kernels that the sharded path runs as K1/K3 with counters of their own
+    "panel_head": ("tileqr_torch/csrc/panel.cu", "tileqr/drivers/sharded_dyn.py:172"),
+    "ssrfb": ("tileqr_torch/csrc/chain.cu", "tileqr/kernels/ssrfb.py:44"),
 }
 # the split-product instantiations (the in-kernel _dot_bx of tileqr/kernels/common.py:95)
 KERNEL_INFO.update({
@@ -372,12 +421,15 @@ def strip_kernels(a: torch.Tensor, rec: KernelRecord, card: str, fac, mode: str,
         compare_mode(rec, "larfb_strip", mode, f"trans={trans}", outs[0], outs[1], outs[2])
 
     # bounds: the products' flops (bf16 passes in an emulated mode), the
-    # adds in fp32, each input read once and each output written once
+    # adds in fp32, each input read once and each output written once; a
+    # triangular factor (T, T2, K4's unit-lower V) counts its triangle only,
+    # so a product with it costs NB²·width where a dense one costs 2·NB²·width
     p = passes_of(mode)
-    k3_mm, k3_add = n_chunks * 2.0 * (2 * br * NB + NB * NB) * width, n_chunks * NB * width
-    k4_mm = 6.0 * NB * NB * width
-    k3_bytes = 4 * (2 * NB * width + 2 * n_chunks * br * width + n_chunks * (br + NB) * NB)
-    k4_bytes = 4 * (2 * NB * width + 2 * NB * NB)
+    k3_mm, k3_add = n_chunks * (4.0 * br * NB + NB * NB) * width, n_chunks * NB * width
+    k4_mm = 3.0 * NB * NB * width
+    k3_bytes = 4 * (2 * NB * width + 2 * n_chunks * br * width
+                    + n_chunks * (br * NB + NB * NB / 2))
+    k4_bytes = 4 * (2 * NB * width + NB * NB)
     if p:
         rec.set_bound(k3, k3_add, k3_bytes, p * k3_mm)
         rec.set_bound(k4, 0.0, k4_bytes, p * k4_mm)
@@ -949,10 +1001,23 @@ def apply_kernels(a: torch.Tensor, rec: KernelRecord, card: str, mode: str) -> N
                 del outs, win
             c = a.clone()[s:, s:]
             if k == 0:
+                # B7's library call ("highest"): ormqr with tau = diag(T)
+                # applies the same Q, as for B6 in phase 4
+                lib = None
+                if mode == "highest":
+                    tau, win_c = torch.diagonal(t).contiguous(), c.contiguous()
+                    lib_rel = rel(torch.ormqr(y, tau, win_c, left=True, transpose=False),
+                                  pa.panel_apply_plain(y, t, win_c.clone(), trans=False))
+                    print(f"library panel_apply k=0: torch.ormqr(Y, diag(T)) vs plain: "
+                          f"rel_fro={lib_rel:.3e}")
+                    require(lib_rel <= TOL_KERNEL,
+                            f"ormqr differs from panel_apply: {lib_rel:.3e}")
+                    lib = lambda: torch.ormqr(y, tau, win_c, left=True, transpose=False)  # noqa: E731
                 rec.bound[b7] = bound(b7, m, m)
                 rec.time(b7, lambda: pa.panel_apply(y, t, c, trans=False, **pm),
-                         lambda: pa.panel_apply_plain(y, t, c, trans=False, **pm), None, 5, 2,
+                         lambda: pa.panel_apply_plain(y, t, c, trans=False, **pm), lib, 5, 2,
                          card)
+                del lib
             else:
                 rec.time(b7, lambda: pa.panel_apply(y, t, c, trans=False, **pm),
                          lambda: pa.panel_apply_plain(y, t, c, trans=False, **pm), None, 20, 5,
@@ -1068,6 +1133,252 @@ def phase9(rec: KernelRecord, rng, card: str) -> dict:
     return launches
 
 
+def sharded_kernels(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
+    """TTQRT, the single-tile entries, B13 and B14 at the sharded path's
+    shapes, against their plain versions, with bounds and times."""
+    from tileqr_torch.kernels import chain, larfb, panel, ssrfb, tsqrt, ttqrt, update
+
+    nb = NB
+    # two R tiles of the run's A, as K1 leaves them on two ranks of a column
+    r1 = panel.panel_factor(a[:nb, :nb].contiguous(), 0, nb, IB, 0)[0]
+    r2 = panel.panel_factor(a[nb : 2 * nb, :nb].contiguous(), 0, nb, IB, 0)[0]
+    got, want, full = ttqrt.ttqrt(r1, r2), ttqrt.ttqrt_plain(r1, r2), tsqrt.tsqrt(r1, r2)
+    rec.compare("ttqrt", f"two R tiles ({nb}, {nb})", got, want)
+    diff = max(max_abs(g, f) for g, f in zip(got, full))
+    same = all(torch.equal(g, f) for g, f in zip(got, full))
+    print(f"kernel ttqrt against the TSQRT kernel on the same couple: bitwise equal {same}, "
+          f"max abs difference {diff:.3e}")
+    require(same or max(rel(g, f) for g, f in zip(got, full)) <= 1e-6,
+            "ttqrt differs from the TSQRT kernel by more than 1e-6")
+    couple = torch.cat([r1, r2]).contiguous()
+    rec.set_bound("ttqrt", 2.0 * nb ** 3 / 3.0, 4 * 5 * nb * nb)
+    rec.time("ttqrt", lambda: ttqrt.ttqrt(r1, r2), lambda: ttqrt.ttqrt_plain(r1, r2),
+             lambda: torch.geqrf(couple), 20, 3, card)
+
+    # tsqrt (K2, one nb-row couple) on [R1; a tile of A]
+    b = a[2 * nb : 3 * nb, :nb].contiguous()
+    got = tsqrt.tsqrt(r1, b)
+    want = chain.panel_chain_plain(b, r1, 0, nb, 0, 1, nb, 128)
+    rec.compare("panel_chain", f"tsqrt [R; B] ({2 * nb}, {nb})", got,
+                [want[0], want[1][0], want[2][0]])
+    rb = torch.cat([r1, b])
+    rec.time("panel_chain", lambda: tsqrt.tsqrt(r1, b), lambda: chain.panel_chain_plain(
+        b, r1, 0, nb, 0, 1, nb, 128), lambda: torch.geqrf(rb), 20, 3, card,
+        label="tsqrt", bound=rec.bound_of(2.0 * nb ** 3, 4 * 5 * nb * nb))
+
+    # larfb (K4) on one (nb, nb) tile with tile (0, 0)'s reflectors
+    pk, tg = panel.panel_factor(a, 0, nb, IB, 0)[1:3]
+    pk = pk[0]
+    c1 = a[:nb, nb : 2 * nb].contiguous()
+    for trans in (True, False):
+        rec.compare("larfb_strip", f"larfb tile trans={trans}", [larfb.larfb(pk, tg, c1, trans)],
+                    [larfb.larfb_body(pk, tg, c1, trans)])
+    tile_qr = torch.geqrf(a[:nb, :nb].contiguous())
+    rec.time("larfb_strip", lambda: larfb.larfb(pk, tg, c1),
+             lambda: larfb.larfb_body(pk, tg, c1, True),
+             lambda: torch.ormqr(tile_qr[0], tile_qr[1], c1, transpose=True), 20, 3, card,
+             label="larfb", bound=rec.bound_of(3.0 * nb ** 3, 4 * 3 * nb * nb))
+
+    # ssrfb (K3, one couple) with a TTQRT pair at the strip tree's width on
+    # mesh column 0 at panel 0 (the local width less one tile column)
+    _, tv2, tt2 = ttqrt.ttqrt(r1, r2)
+    w = (N_SH // NB // MESH_SH[1] + 2 - 1) * nb
+    top = a[:nb, :w].contiguous()
+    bot = a[nb : 2 * nb, :w].contiguous()
+    for trans in (True, False):
+        rec.compare("ssrfb", f"strip ({nb}, {w}) trans={trans}",
+                    ssrfb.ssrfb(tv2, tt2, top, bot, trans),
+                    ssrfb.ssrfb_body(tv2, tt2, top, bot, trans))
+    # the library call: ormqr with the couple's reflectors [I; V2] (the top
+    # square zero below its diagonal) and tau = diag(T2), larft's T
+    ya = torch.cat([torch.zeros((nb, nb), device=a.device), tv2])
+    tau = torch.diagonal(tt2).contiguous()
+    stacked = torch.cat([top, bot])
+    lib = torch.ormqr(ya, tau, stacked, transpose=True)
+    lib_rel = rel(lib, torch.cat(ssrfb.ssrfb_body(tv2, tt2, top, bot, True)))
+    print(f"library ssrfb: torch.ormqr([0; V2], diag(T2)) vs plain: rel_fro={lib_rel:.3e}")
+    require(lib_rel <= TOL_KERNEL, f"ormqr differs from ssrfb: {lib_rel:.3e}")
+    # V2 (TTQRT's) and T2 upper triangular: each product nb²·w, plus the
+    # three adds
+    rec.set_bound("ssrfb", 3.0 * nb * nb * w + 3.0 * nb * w, 4 * (nb * nb + 4 * nb * w))
+    rec.time("ssrfb", lambda: ssrfb.ssrfb(tv2, tt2, top, bot),
+             lambda: ssrfb.ssrfb_body(tv2, tt2, top, bot, True),
+             lambda: torch.ormqr(ya, tau, stacked, transpose=True), 10, 3, card)
+
+    # B13: K1 on rank (0, 0)'s panel column at k = 0 (5120 rows: 16 tiles
+    # and 4 dummies), GEQRT + 3 head couples into the flat buffers
+    lm = (N_SH // NB // MESH_SH[0] + 4) * nb
+    pcol = torch.zeros((lm, nb), device=a.device)
+    pcol[: N_SH // MESH_SH[0]] = a[: N_SH // MESH_SH[0], :nb]
+    n_head = CHUNK - 1
+    bufs = [torch.zeros((8, nb, nb), device=a.device) for _ in range(2)]
+    cpu_bufs = [torch.zeros((8, nb, nb)) for _ in range(2)]
+    got = panel.panel_head(pcol, 0, n_head, bufs[0], bufs[1], 2, nb, IB)
+    want = panel.panel_head(pcol.cpu(), 0, n_head, cpu_bufs[0], cpu_bufs[1], 2, nb, IB)
+    rec.compare("panel_head", f"rank (0, 0) k=0 n_head={n_head}", list(got) + bufs,
+                [x.to(a.device) for x in list(want) + cpu_bufs])
+    head_rows = (1 + n_head) * nb
+    rec.set_bound("panel_head", geqrf_flops(head_rows, nb),
+                  4 * (head_rows * nb + nb * nb * (2 + 2 * (1 + n_head))))
+    head_blk = pcol[:head_rows].contiguous()
+    rec.time("panel_head", lambda: panel.panel_head(pcol, 0, n_head, bufs[0], bufs[1], 2, nb, IB),
+             lambda: panel.panel_factor_plain(pcol, 0, nb, IB, n_head),
+             lambda: torch.geqrf(head_blk), 5, 1, card)
+
+    # B14 at tileqr's static driver's shape for this mesh: rank (0, 0)'s
+    # panel 0 window, 17 tile rows (16 + a dummy) × 33 tile columns
+    rows, wc = (N_SH // NB // MESH_SH[0] + 1) * nb, (N_SH // NB // MESH_SH[1] + 1) * nb
+    col = a[:rows, :nb].contiguous()
+    _, v_stack, tgc, t2s = panel.panel_factor(col, 0, nb, IB)
+    packed = v_stack.reshape(rows, nb)
+    c0 = a[:rows, nb : nb + wc].contiguous()
+    for trans, rev in ((True, False), (False, True)):
+        outs = []
+        for fn in (update.couple_apply, update.couple_apply_plain):
+            c = c0.clone()
+            _, strip = fn(packed, tgc, t2s, c, 0, 0, nb, trans=trans, reverse=rev)
+            outs.append(torch.cat([strip, c[nb:]]))
+        rec.compare("couple_strip", f"couple_apply ({rows}, {wc}) trans={trans} reverse={rev}",
+                    [outs[0]], [outs[1]])
+        del outs
+    col_qr = torch.geqrf(col)
+    n_inner = rows // nb - 1
+    c = c0.clone()
+    rec.time("couple_strip", lambda: update.couple_apply(packed, tgc, t2s, c, 0, 0, nb),
+             lambda: update.couple_apply_plain(packed, tgc, t2s, c, 0, 0, nb),
+             lambda: torch.ormqr(col_qr[0], col_qr[1], c0, transpose=True), 5, 1, card,
+             label="couple_apply", bound=rec.bound_of(
+                 (3.0 + 5.0 * n_inner) * nb * nb * wc,  # LARFB, then dense V2 and T2's triangle
+                 4 * (rows * nb + (1 + n_inner) * nb * nb / 2 + 2 * rows * wc)))
+    del c, c0, col, packed
+    torch.cuda.empty_cache()
+
+
+def sharded_rank(mesh, n: int, seed: int, cfg) -> dict:
+    """Rank side of phase 10 (run on every rank of the world): the main
+    path counted, the factor rerun and timed, Q formed; rank 0 checks and
+    holds R against the single-card hh R."""
+    import torch.distributed as dist
+
+    import tileqr_torch
+    from tileqr_torch.drivers.sharded import planned_launches
+    from tileqr_torch.kernels import _build
+    from tileqr_torch.utils.verify import backward_error_f64, residuals_f64
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    a = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (n, n), dtype=np.float32)).to(dev)
+
+    def factor():
+        return tileqr_torch.qr_sharded(a, mesh, cfg, mode="factor")
+
+    # the main path, counted on every rank: factor, R, Qᵀ·A
+    torch.cuda.synchronize()
+    dist.barrier()
+    _build.reset_counts()
+    mesh.reset_counts()
+    f = factor()
+    torch.cuda.synchronize()
+    info = dict(launches_factor=dict(_build.LAUNCHES), moved=dict(mesh.moved),
+                staged=mesh.staged, planned=planned_launches(f.grid, f.chunk, mesh.r))
+    r = tileqr_torch.assemble_r_sharded(f, mesh)
+    qta = tileqr_torch.apply_q_sharded(f, a, mesh, config=cfg)
+    torch.cuda.synchronize()
+    info.update(launches=dict(_build.LAUNCHES), plain=dict(_build.PLAIN_CALLS))
+
+    # the factor again, timed on rank 0 between barriers, and bitwise
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    dist.barrier()
+    t0 = time.perf_counter()
+    start.record()
+    f2 = factor()
+    end.record()
+    torch.cuda.synchronize()
+    info["host_s"] = time.perf_counter() - t0
+    info["ms"] = start.elapsed_time(end)
+    dist.barrier()
+    info["same"] = all(torch.equal(x, y) for x, y in zip(f[:9], f2[:9]))
+    del f2
+    eye = torch.eye(n, device=dev)
+    q = tileqr_torch.apply_q_sharded(f, eye, mesh, trans=False, config=cfg)
+    del eye, f
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, info)
+    if mesh.rank != 0:
+        return None
+    out = dict(ranks=ranks, relerr=backward_error_f64(a, qta, r), mesh_shape=mesh.shape)
+    del qta
+    torch.cuda.empty_cache()
+    res = residuals_f64(a, q, r)
+    out.update(resid=res["relerr"], orth=res["orth"])
+    del q
+    torch.cuda.empty_cache()
+    out["r_vs_hh"] = sign_fixed_rel(r, tileqr_torch.qr(a, mode="r"))
+    return out
+
+
+def phase10(rec: KernelRecord, rng, card: str) -> dict:
+    """The sharded path; returns the new kernels' launches summed over the
+    ranks of its counted run."""
+    import tileqr_torch
+    from tileqr_torch.dist import launch
+    from tileqr_torch.kernels import _build
+
+    a = torch.from_numpy(rng.standard_normal((N_SH, N_SH), dtype=np.float32)).cuda()
+    sharded_kernels(a, rec, card)
+    del a
+    torch.cuda.empty_cache()
+
+    pr, pc = MESH_SH
+    backend, why = launch.backend_for("cuda", pr * pc)
+    print(f"sharded {pr}x{pc} world on {torch.cuda.device_count()} card(s): backend {backend} "
+          f"({why}) [{card}]")
+    seed = int(rng.integers(2 ** 31))
+    t0 = time.perf_counter()
+    out = launch.run_world(sharded_rank, pr, pc, device="cuda", timeout=900, kwargs=dict(
+        n=N_SH, seed=seed, cfg=tileqr_torch.QRConfig(mesh_shape=MESH_SH)))
+    print(f"sharded world: {time.perf_counter() - t0:.1f} s from spawn to rank 0's result")
+    ranks = out["ranks"]
+    k_max = N_SH // NB
+    own = ("panel_chain", "couple_strip", "larfb_strip", "ttqrt", "panel_head", "ssrfb")
+    for i, d in enumerate(ranks):
+        lf = d["launches_factor"]
+        print(f"sharded rank {i} factor launches {json.dumps({k: lf[k] for k in own})}, "
+              f"planned {json.dumps(d['planned'])}")
+        require(all(lf[k] == d["planned"][k] for k in own), f"rank {i}: launches off the plan")
+        require(not any(v for k, v in lf.items() if k not in own),
+                f"rank {i}: the factor launched other kernels")
+        require(not any(d["plain"].values()), f"rank {i}: a plain version ran: {d['plain']}")
+        require(d["same"], f"rank {i}: the factor's rerun is not bitwise equal")
+    launches = {k: sum(d["launches"][k] for d in ranks) for k in _build.LAUNCHES}
+    require(all(launches[k] >= 1 for k in ("panel_chain", "couple_strip", "ttqrt",
+                                            "panel_head", "ssrfb")),
+            f"a kernel of the sharded path never launched: {launches}")
+    print(f"sharded path launches over the {pr * pc} ranks (factor + assemble_r + QᵀA): "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    print("sharded factor rerun bitwise equal on every rank: True")
+    r0 = ranks[0]
+    for name, nbytes in r0["moved"].items():
+        print(f"sharded rank 0 {name}: {nbytes / k_max / 2 ** 20:.3f} MiB per panel")
+    total = sum(sum(d["moved"].values()) for d in ranks)
+    staged = sum(d["staged"] for d in ranks)
+    print(f"sharded factor, all ranks: {total / k_max / 2 ** 20:.3f} MiB per panel through the "
+          f"collectives, {staged / k_max / 2 ** 20:.3f} MiB per panel staged through the host by "
+          f"the mesh ({staged / max(total, 1):.3f} of it; gloo stages its own CUDA broadcasts too)")
+    flops = 2.0 * N_SH * N_SH * (N_SH - N_SH / 3.0)
+    print(f"sharded qr_sharded factor {N_SH}x{N_SH} on {pr}x{pc} ranks time-sharing ONE card "
+          f"(not a multi-GPU figure): {r0['ms']:.3f} ms by CUDA events on rank 0, host "
+          f"{r0['host_s']:.3f} s, {flops / r0['ms'] / 1e9:.3f} TFLOP/s [{card}]")
+    print(f"sharded {N_SH}x{N_SH}: relerr ||Q^T A - R||F/||A||F = {out['relerr']:.3e}, "
+          f"explicit-Q residual {out['resid']:.3e}, orth {out['orth']:.3e}; R against the "
+          f"single-card hh R (row signs matched) rel_fro={out['r_vs_hh']:.3e} [{card}]")
+    require(out["relerr"] <= TOL_RELERR, f"sharded relerr {out['relerr']:.3e} > {TOL_RELERR}")
+    require(out["resid"] <= TOL_SH_RESID and out["orth"] <= TOL_ORTH,
+            f"sharded explicit-Q residual {out['resid']:.3e} / orth {out['orth']:.3e}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -1121,6 +1432,12 @@ def main() -> int:
     # the emulated precisions on both square paths
     launches.update(phase9(rec, rng, card))
     launches[counter_key("panel_apply", "b3")] += ts_b7
+
+    # the sharded path: its new kernels' launches over the world's ranks
+    sh = phase10(rec, rng, card)
+    launches.update({k: sh[k] for k in _build.SHARDED_KERNELS + _build.SITE_KERNELS})
+    idle = [k for k in KERNEL_INFO if not launches[k]]
+    require(not idle, f"kernels of the line that no path launched: {idle}")
     print(json.dumps({"kernels": rec.line(launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -535,3 +535,124 @@ def test_panel_project_without_t_is_the_bare_sum(cuda, passes):
     assert rc == 0
     torch.cuda.synchronize()
     assert rel(w, y.double().T @ c.double()) <= (1e-6 if passes == 0 else 1e-5)
+
+
+# ---- the sharded path: TTQRT, the single-tile entries, B13, B14, a world ----
+
+def tri_pair(cuda, nb, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(np.triu(rng.standard_normal((nb, nb), dtype=np.float32)))
+                 .to(cuda) for _ in range(2))
+
+
+@pytest.mark.parametrize("nb", [64, 256])
+def test_ttqrt_matches_plain_and_tsqrt_kernel(cuda, nb):
+    """TTQRT against its plain version (1e-5) and against the TSQRT kernel
+    (K2 with one couple) on the same couple: equal up to the sign of zero,
+    since the rows past the live window only add exact zeros."""
+    from tileqr_torch.kernels import tsqrt, ttqrt
+
+    r1, r2 = tri_pair(cuda, nb, nb)
+    _build.reset_counts()
+    got = ttqrt.ttqrt(r1, r2)
+    want = ttqrt.ttqrt_plain(r1, r2)
+    full = tsqrt.tsqrt(r1, r2)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ttqrt"] == 1 and _build.LAUNCHES["panel_chain"] == 1
+    for g, w, f in zip(got, want, full):
+        assert rel(g, w) <= TOL
+        assert torch.equal(g, f)
+    assert torch.equal(torch.tril(got[1], -1), torch.zeros_like(got[1]))
+
+
+@pytest.mark.parametrize("trans", [True, False])
+def test_single_tile_entries_match_plain(cuda, trans):
+    """tsqrt (K2), larfb (K4), ssrfb and ttmqr (K3 with one couple) at
+    nb = 256 against their plain versions."""
+    from tileqr_torch.kernels import larfb, ssrfb, tsqrt, ttqrt
+
+    nb = 256
+    rng = np.random.default_rng(5)
+    r, _ = tri_pair(cuda, nb, 5)
+    b, c_top, c_bot = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(cuda)
+                       for s in ((nb, nb), (nb, 3 * nb), (nb, 3 * nb)))
+    got, want = tsqrt.tsqrt(r, b), tsqrt.tsqrt(r.cpu(), b.cpu())
+    for g, w in zip(got, want):
+        assert rel(g.cpu(), w) <= TOL
+    _, v2, t2 = got
+    pk, tg = geqrt.geqrt(b)
+    _build.reset_counts()
+    outs = [larfb.larfb(pk, tg, c_top, trans=trans)]
+    outs += list(ssrfb.ssrfb(v2, t2, c_top, c_bot, trans=trans))
+    tt_r1, tt_r2 = tri_pair(cuda, nb, 6)
+    _, tv2, tt2 = ttqrt.ttqrt(tt_r1, tt_r2)
+    outs += list(ttqrt.ttmqr(tv2, tt2, c_top, c_bot, trans=trans))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["larfb_strip"] == 1 and _build.LAUNCHES["ssrfb"] == 2
+    assert _build.LAUNCHES["couple_strip"] == 0
+    assert not any(_build.PLAIN_CALLS.values())
+    plain = [larfb.larfb_body(pk, tg, c_top, trans)]
+    plain += list(ssrfb.ssrfb_body(v2, t2, c_top, c_bot, trans))
+    plain += list(ssrfb.ssrfb_body(tv2, tt2, c_top, c_bot, trans))
+    for g, w in zip(outs, plain):
+        assert rel(g, w) <= TOL
+
+
+@pytest.mark.parametrize("trans,reverse", [(True, False), (False, True)])
+def test_couple_apply_and_panel_head_match_plain(cuda, trans, reverse):
+    """B14 (K3 with block_rows = nb) and B13 (K1 on a row view into flat
+    buffers) at nb = 256 against their plain versions."""
+    from tileqr_torch.kernels import update
+
+    nb = 256
+    a = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (4 * nb, 3 * nb), dtype=np.float32)).to(cuda)
+    _, v_stack, tg, t2s = panel.panel_factor_plain(a, 0, nb, nb // 2)
+    packed = v_stack.reshape(4 * nb, nb)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        c = a.to(dev).clone()
+        _, strip = update.couple_apply(packed.to(dev), tg.to(dev), t2s.to(dev), c, 0, 1, nb,
+                                       trans=trans, reverse=reverse)
+        outs.append((c[nb:, nb:].cpu(), strip.cpu()))
+    torch.cuda.synchronize()
+    for g, w in zip(*outs):
+        assert rel(g, w) <= TOL
+    heads = []
+    for dev in (cuda, torch.device("cpu")):
+        vh = torch.zeros((6, nb, nb), device=dev)
+        th = torch.zeros((6, nb, nb), device=dev)
+        r, t = panel.panel_head(a[:, :nb].to(dev).contiguous(), 1, 2, vh, th, 2, nb, nb // 2)
+        heads.append([x.cpu() for x in (r, t, vh, th)])
+    torch.cuda.synchronize()
+    for g, w in zip(*heads):
+        assert rel(g, w) <= TOL
+
+
+@pytest.mark.parametrize("driver", ["auto", "dynamic"])
+def test_sharded_2x2_world_on_one_card(cuda, driver):
+    """A 2×2 gloo world of spawned ranks sharing the card at 2048², nb = 256
+    (8 panels: "auto" → chunk 1, "dynamic" → chunk 4): ‖QᵀA − R‖F/‖A‖F
+    ≤ 1e-6, Q(QᵀA) = A, reruns bitwise, rank 0's launches as planned, and
+    R against the single-card hh ``qr``'s R with row signs matched."""
+    from tileqr_torch.dist import launch
+
+    n = 2048
+    a = np.random.default_rng(8).standard_normal((n, n)).astype(np.float32)
+    cfg = tileqr_torch.QRConfig(mesh_shape=(2, 2), driver=driver)
+    out = launch.run_world(launch.sharded_case, 2, 2, timeout=600,
+                           kwargs=dict(a=a, config=cfg, device="cuda"))
+    assert out["chunk"] == (1 if driver == "auto" else 4)
+    # rank 0's factor: one count per launch, as the geometry plans them
+    plan = {k: v for k, v in out["planned"].items() if v}
+    assert {k: v for k, v in out["launches"].items() if v} == plan
+    assert not any(out["plain"].values())
+    r = out["r"].astype(np.float64)
+    a64 = a.astype(np.float64)
+    assert np.linalg.norm(out["qta"] - r) / np.linalg.norm(a64) <= 1e-6
+    assert np.linalg.norm(out["qqtc"] - a64) / np.linalg.norm(a64) <= 1e-5
+    assert np.array_equal(out["r"], out["r2"])
+    r_hh = tileqr_torch.qr(torch.from_numpy(a).to(cuda), mode="r").double().cpu().numpy()
+    s = np.sign(np.diag(r)) * np.sign(np.diag(r_hh))
+    s[s == 0] = 1
+    assert np.linalg.norm(r * s[:, None] - r_hh) / np.linalg.norm(r_hh) <= 1e-5

@@ -13,7 +13,12 @@ Two square paths, as in ``tileqr.qr``:
 
 Beside them, ``tsqr`` (tall-skinny: a tree of leaves and combines, chain or
 CholeskyQR2) and ``qr_batched`` (stacks of small matrices), whose
-Householder routes run one batched GEQRT kernel (``kernels/geqrt.py``).
+Householder routes run one batched GEQRT kernel (``kernels/geqrt.py``); and
+``qr_sharded`` (2D block-cyclic over a pr × pc process grid on
+``torch.distributed``, ``dist/mesh.py``; the Householder sharded driver
+``drivers/sharded.py`` with the TTQRT tree-combine kernel,
+``kernels/ttqrt.py``), whose factors ``assemble_r_sharded`` and
+``apply_q_sharded`` consume. ``dist/launch.py`` spawns such a world.
 
 CUDA sources are in ``csrc/``. CUDA tensors run the CUDA kernels; CPU
 tensors run each kernel's plain torch version. Non-tensor inputs go to the
@@ -23,8 +28,9 @@ Public API
 ----------
 - :func:`qr`, :func:`qr_factor`, :func:`apply_q`, :func:`orgqr`,
   :func:`lstsq`, :func:`tsqr`, :func:`qr_batched`
+- :func:`qr_sharded`, :func:`assemble_r_sharded`, :func:`apply_q_sharded`
 - :class:`QRConfig`, :class:`QRFactors`, :class:`HRFactors`,
-  :class:`TSQRFactors`
+  :class:`TSQRFactors`, :class:`ShardedFactors`
 - :func:`qr_check` — float64 acceptance metrics of a computed QR.
 """
 
@@ -32,13 +38,17 @@ from tileqr_torch.core.config import QRConfig
 from tileqr_torch.api import (
     HRFactors,
     QRFactors,
+    ShardedFactors,
     TSQRFactors,
     apply_q,
+    apply_q_sharded,
+    assemble_r_sharded,
     lstsq,
     orgqr,
     qr,
     qr_batched,
     qr_factor,
+    qr_sharded,
     tsqr,
 )
 from tileqr_torch.utils.verify import qr_check
@@ -47,13 +57,17 @@ __all__ = [
     "HRFactors",
     "QRConfig",
     "QRFactors",
+    "ShardedFactors",
     "TSQRFactors",
     "apply_q",
+    "apply_q_sharded",
+    "assemble_r_sharded",
     "lstsq",
     "orgqr",
     "qr",
     "qr_batched",
     "qr_check",
     "qr_factor",
+    "qr_sharded",
     "tsqr",
 ]

@@ -1,7 +1,9 @@
 """Public API of the port, as ``tileqr/api.py``: qr, qr_factor, apply_q,
 orgqr and lstsq on the tiled-Householder ("hh") and the CholeskyQR2 +
 reconstruction ("hr") square paths; tsqr, the tall-skinny QR (tree, chain
-or CholeskyQR2); qr_batched, the QR of a stack of small matrices.
+or CholeskyQR2); qr_batched, the QR of a stack of small matrices; and
+qr_sharded, assemble_r_sharded and apply_q_sharded, the 2D block-cyclic QR
+over a process grid (``tileqr/drivers/sharded.py``'s entries).
 
 All entries accept arbitrary (M, N); inputs are zero-padded to tile
 multiples (exact for QR: padded rows/columns give tau = 0 reflectors and
@@ -32,7 +34,10 @@ import torch
 from tileqr_torch.core.config import QRConfig
 from tileqr_torch.core.layout import pad_to_tiles, pow2_at_least, round_up
 from tileqr_torch.drivers.batched import qr_batched as _qr_batched
+from tileqr_torch.dist.mesh import Mesh, rank_device
+from tileqr_torch.drivers import sharded as _sh
 from tileqr_torch.drivers.cholqr import _highest, cholqr2_batched, guard_trips
+from tileqr_torch.drivers.sharded import ShardedFactors
 from tileqr_torch.drivers.square import apply_q_tiled, assemble_r, qr_tiled
 from tileqr_torch.drivers.square_hr import apply_q_hr, hr_panel, orgqr_hr, pad_for_hr, qr_hr
 from tileqr_torch.drivers.tsqr import (
@@ -374,3 +379,60 @@ def qr_batched(a, mode: str = "reduced", config: Optional[QRConfig] = None, devi
         return out[:, :n, :n]
     q, r = out
     return q[:, :m, :n], r[:, :n, :n]
+
+
+def qr_sharded(a, mesh: Optional[Mesh] = None, config: Optional[QRConfig] = None,
+               mode: str = "r", device=None):
+    """2D block-cyclic sharded QR (tileqr's BASELINE config 5), called by
+    every rank of the mesh with the same global A (M, N).
+
+    mode "r" → R (M, N) on every rank; "factor" → this rank's
+    ``ShardedFactors``, for ``assemble_r_sharded`` and ``apply_q_sharded``.
+    mesh: a ``tileqr_torch.dist.mesh.Mesh``; None builds one of
+    ``config.mesh_shape`` over the default process group. The couple height
+    follows tileqr's driver rule (``QRConfig.driver``): 1 where tileqr takes
+    its static driver, ``config.chunk`` (clamped to the local tile rows)
+    where it takes the dynamic one. ``square_method="hr"`` (tileqr's
+    CholeskyQR2 sharded driver) is not ported yet and raises.
+    """
+    shape = tuple(a.shape) if hasattr(a, "shape") else tuple(np.shape(a))
+    if len(shape) != 2 or 0 in shape:
+        raise ValueError(
+            f"qr_sharded expects a 2-D matrix with no zero-size dimension, got shape {shape}"
+        )
+    if mode not in ("r", "factor"):
+        raise ValueError(f"unknown mode {mode!r}")
+    cfg = _cfg(config)
+    passes_of(cfg.precision)
+    if cfg.square_method == "hr":
+        raise NotImplementedError(
+            "qr_sharded with square_method='hr' (tileqr/drivers/sharded_hr.py) is the "
+            "next slice of the port (ROADMAP.md queue A item 8); use square_method='hh'"
+        )
+    if mesh is None:
+        mesh = Mesh(*cfg.mesh_shape)
+    a = _to_device(a, cfg.dtype, device if isinstance(a, torch.Tensor) else rank_device(device))
+    chunk = 1 if cfg.resolve_driver(*shape) == "static" else cfg.chunk
+    f = _sh.qr_sharded_factor(a, mesh, cfg.nb, cfg.ib, chunk, cfg.precision)
+    return f if mode == "factor" else _sh.assemble_r_sharded(f, mesh)
+
+
+def _mesh_of(f: ShardedFactors, mesh: Optional[Mesh]) -> Mesh:
+    return mesh if mesh is not None else Mesh(*f.grid[2:])
+
+
+def assemble_r_sharded(f: ShardedFactors, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """R (M, N) from the sharded factors, on every rank (a collective).
+    mesh: the factor's; None builds one of the factor's shape."""
+    return _sh.assemble_r_sharded(f, _mesh_of(f, mesh))
+
+
+def apply_q_sharded(f: ShardedFactors, c, mesh: Optional[Mesh] = None, trans: bool = True,
+                    config: Optional[QRConfig] = None) -> torch.Tensor:
+    """C ← Qᵀ·C (trans, the default, as tileqr's) or Q·C with the sharded
+    factors, on every rank (a collective): C (M, P), the same on every
+    rank, goes to the factors' device."""
+    precision = _cfg(config).precision
+    passes_of(precision)
+    c = torch.as_tensor(c, dtype=f.local.dtype, device=f.local.device)
+    return _sh.apply_q_sharded(f, c, _mesh_of(f, mesh), trans=trans, precision=precision)

@@ -4,17 +4,21 @@ Mirrors ``tileqr/core/config.py``: the same fields, defaults and
 validation, so a configuration means the same thing in both packages.
 ``dtype`` is a ``torch.dtype``. ``interpret`` and ``donate`` are accepted
 and ignored (they steer Pallas interpretation and XLA buffer donation,
-which have no counterpart here). ``driver`` is accepted for parity: the
-port has one driver, which takes integer offsets at launch time, so
-"auto", "static" and "dynamic" all run it.
+which have no counterpart here). The port has one driver per path, which
+takes integer offsets at launch time. ``driver`` selects nothing on the
+square paths; on the sharded path ``resolve_driver`` picks the couple
+height, because tileqr's two sharded drivers differ in algebra (see
+``driver`` below).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import ClassVar, Optional, Tuple
 
 import torch
+
+from tileqr_torch.core.layout import round_up
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,8 +37,9 @@ class QRConfig:
       batched_ib: inner block width of ``qr_batched``'s GEQRT (hh route).
       batched_method: ``qr_batched``'s route, "hh" (batched GEQRT) or
         "cholqr2" (CholeskyQR2, guarded like hr).
-      mesh_shape: kept for parity with ``tileqr.QRConfig``; the sharded
-        paths that read it are not ported yet (ROADMAP.md queue A).
+      mesh_shape: (pr, pc), the process grid ``qr_sharded`` builds when
+        it is given no mesh: pr·pc ranks of the default process group
+        (``tileqr_torch.dist``); (1, 1) runs in-process with no group.
       square_method: "hh" (tiled Householder) or "hr" (CholeskyQR2 panels
         with Householder reconstruction, ``drivers/square_hr.py``).
       chunk: sub-diagonal couple height in tiles; reduced by the driver to
@@ -65,7 +70,13 @@ class QRConfig:
         ``qr_batched``, CholeskyQR2), "b3" and "b4" raise ValueError as
         they do there, and "high"/"default" run fp32.
       interpret, donate: accepted and ignored.
-      driver: accepted for parity; every value runs the one driver.
+      driver: "auto", "static" or "dynamic". The square paths ignore it
+        (one driver each). ``qr_sharded`` follows tileqr's rule
+        (``resolve_driver``): where tileqr takes its static sharded driver
+        ("static", or "auto" with at most AUTO_STATIC_MAX_PANELS panels)
+        the port's driver eliminates tile by tile (chunk 1, the static
+        driver's algebra); otherwise in couples of ``chunk`` tiles, as
+        tileqr's dynamic driver. The two give different, equally valid R.
       prescale: divide A by an exact power of 2 ≥ max|A| before factoring
         and fold the scale back into R (lifts the fp32 column-norm overflow
         limit of the unscaled Householder column loop).
@@ -86,6 +97,9 @@ class QRConfig:
     driver: str = "auto"
     prescale: bool = False
     donate: bool = False
+
+    # "auto" takes tileqr's static sharded driver up to this many panels
+    AUTO_STATIC_MAX_PANELS: ClassVar[int] = 32
 
     def __post_init__(self):
         if self.nb % 8 != 0:
@@ -109,3 +123,11 @@ class QRConfig:
             raise ValueError(
                 f"hr_guard={self.hr_guard!r} must be fallback|warn|off"
             )
+
+    def resolve_driver(self, m: int, n: int) -> str:
+        """tileqr's driver for an (m, n) problem ("auto" → the panel-count
+        rule)."""
+        if self.driver != "auto":
+            return self.driver
+        k_max = min(round_up(m, self.nb), round_up(n, self.nb)) // self.nb
+        return "static" if k_max <= self.AUTO_STATIC_MAX_PANELS else "dynamic"

@@ -8,18 +8,24 @@ static driver's ``QRFactors`` (``packed``, ``r_diag``, ``t_geqrt``,
 (``packed_leaves``, ``t_leaves``, ``levels`` as (pk, tl, count, arity),
 ``r``, ``leaf_rows``, ``shape``, ``plan``) between numpy arrays and the
 port's torch tensors, so that either package can consume factors the
-other made. Neither direction imports
+other made; and the dynamic sharded driver's ``ShardedDynFactors``, whose
+per-device buffers carry leading (pr, pc) axes, to and from the port's
+per-rank ``ShardedFactors``. Neither direction imports
 jax: the JAX side is reached through ``numpy.asarray`` on its arrays.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from tileqr_torch.api import HRFactors, QRFactors, TSQRFactors
+from tileqr_torch.api import HRFactors, QRFactors, ShardedFactors, TSQRFactors
+
+# ShardedFactors' per-rank buffers: (pr, pc, ...)-stacked in ShardedDynFactors
+_SHARDED_BUFFERS = ("local", "v_heads", "tg_all", "t2_heads", "v_chunks", "t2_chunks",
+                    "tree_v2", "tree_t2")
 
 
 def _scalar_from(x, t):
@@ -124,3 +130,44 @@ def tsqr_factors_to_numpy(f: TSQRFactors) -> Dict[str, Any]:
         tuple((n(pk), n(tl), int(c), int(a)) for pk, tl, c, a in f.levels),
         n(f.r), f.leaf_rows, tuple(f.shape), _plan(f.plan),
     )))
+
+
+def sharded_factors_from_numpy(f: Any, coords: Tuple[int, int], device=None,
+                               dtype=None) -> ShardedFactors:
+    """tileqr's ``ShardedDynFactors`` (a mapping or NamedTuple, arrays as
+    numpy or anything ``numpy.asarray`` takes) → rank ``coords`` = (r, c)'s
+    ``ShardedFactors`` on ``device``: its slice of every sharded buffer and
+    the replicated ``r_diag``."""
+    d = f._asdict() if hasattr(f, "_asdict") else dict(f)
+    r, c = coords
+
+    def t(x):
+        return torch.as_tensor(np.array(x), device=device, dtype=dtype)
+
+    bufs = {k: t(np.asarray(d[k])[r, c]) for k in _SHARDED_BUFFERS}
+    return ShardedFactors(
+        r_diag=t(d["r_diag"]), nb=int(d["nb"]), chunk=int(d["chunk"]),
+        shape=tuple(int(s) for s in d["shape"]), grid=tuple(int(g) for g in d["grid"]),
+        coords=(int(r), int(c)), **bufs,
+    )
+
+
+def sharded_factors_to_numpy(fs: Sequence[ShardedFactors]) -> Dict[str, Any]:
+    """Every rank's ``ShardedFactors``, in rank order → a dict of numpy
+    arrays under the ``ShardedDynFactors`` field names, the per-rank
+    buffers stacked on leading (pr, pc) axes
+    (``tileqr.drivers.sharded_dyn.ShardedDynFactors(**d)`` rebuilds the JAX
+    record)."""
+    f0 = fs[0]
+    pr, pc = f0.grid[2:]
+    if [tuple(f.coords) for f in fs] != [(r, c) for r in range(pr) for c in range(pc)]:
+        raise ValueError("sharded_factors_to_numpy takes every rank's factors in rank order")
+
+    def n(x):
+        return x.detach().cpu().numpy()
+
+    out = {k: np.stack([n(getattr(f, k)) for f in fs]).reshape(
+        (pr, pc) + tuple(getattr(f0, k).shape)) for k in _SHARDED_BUFFERS}
+    out.update(r_diag=n(f0.r_diag), nb=f0.nb, chunk=f0.chunk, shape=tuple(f0.shape),
+               grid=tuple(f0.grid))
+    return out

@@ -11,7 +11,9 @@ needs its float ops kept as written.
 
 The launch and call counts let a run show which path it took: each CUDA
 wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel, and
-each plain version adds one to ``PLAIN_CALLS[name]``. The kernels whose
+each plain version adds one to ``PLAIN_CALLS[name]``: one count per call.
+K1 and K3 take the name to count under (``counter``) where they stand for
+another TPU kernel (``SITE_KERNELS``). The kernels whose
 products follow ``QRConfig.precision`` count each instantiation apart:
 ``name`` for "highest", ``name[b3]``, ``name[b4]`` and ``name[default]``
 for the split products ("high" runs the b3 instantiation), so a run shows
@@ -37,11 +39,19 @@ HR_KERNELS = ("modified_lu", "potrf_batched", "panel_apply_carry")
 TS_KERNELS = ("geqrt_batched",)
 # B7, the value-level whole-panel apply of the hr apply_q/orgqr
 APPLY_KERNELS = ("panel_apply",)
+# B15's TTQRT, the combine of the sharded tree
+SHARDED_KERNELS = ("ttqrt",)
+# TPU kernels that the sharded path runs on another's CUDA kernel, each
+# launch counted under the TPU kernel's name instead of the CUDA kernel's:
+# B13 panel_head is K1 on a rank's panel column, B15 ssrfb (the strip
+# tree's TTMQR) is K3 with one couple, keyed by mode as K3 is
+SITE_KERNELS = ("panel_head", "ssrfb")
 # the kernels with a split-product instantiation per emulated mode
 MODE_KERNELS = ("couple_strip", "larfb_strip", "panel_apply_carry", "panel_apply")
 EMULATED_MODES = ("b3", "b4", "default")
-KERNELS = (HH_KERNELS + HR_KERNELS + TS_KERNELS + APPLY_KERNELS
-           + tuple(f"{k}[{m}]" for k in MODE_KERNELS for m in EMULATED_MODES))
+KERNELS = (HH_KERNELS + HR_KERNELS + TS_KERNELS + APPLY_KERNELS + SHARDED_KERNELS
+           + SITE_KERNELS
+           + tuple(f"{k}[{m}]" for k in MODE_KERNELS + ("ssrfb",) for m in EMULATED_MODES))
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
 
@@ -84,6 +94,8 @@ SIGNATURES = {
     "tq_geqrt_batched_work_floats": (_I, _I, _I, _I),
     # a, packed, t, work, batch, m, n, kcols, ib, resident, grid, stream
     "tq_geqrt_batched": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
+    # r1, r2, nb, ib, r_out, v2, t2, work, stream
+    "tq_ttqrt": (_P, _P, _I, _I, _P, _P, _P, _P, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

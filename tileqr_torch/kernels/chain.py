@@ -108,9 +108,9 @@ def _check_strip(v_stack, t2_stack, c, strip, stack_base, base_block, n_chunks,
 def couple_strip_plain(v_stack, t2_stack, c, strip, stack_base: int, base_block: int,
                        n_chunks: int, block_rows: int, nb: int, col_start: int,
                        trans: bool = True, reverse: bool = False, vkk=None, tg=None,
-                       precision: str = "highest"):
+                       precision: str = "highest", counter: str = "couple_strip"):
     """Plain torch K3 (in place on C and the strip)."""
-    _build.PLAIN_CALLS[counter_key("couple_strip", precision)] += 1
+    _build.PLAIN_CALLS[counter_key(counter, precision)] += 1
     _check_strip(v_stack, t2_stack, c, strip, stack_base, base_block, n_chunks,
                  block_rows, nb, col_start, vkk, tg)
     c0 = col_start * nb
@@ -135,8 +135,8 @@ def couple_strip(v_stack, t2_stack, c, strip, stack_base: int, base_block: int,
                  n_chunks: int, block_rows: int, nb: int, col_start: int,
                  trans: bool = True, reverse: bool = False,
                  vkk: Optional[torch.Tensor] = None,
-                 tg: Optional[torch.Tensor] = None,
-                 precision: str = "highest") -> Tuple[torch.Tensor, torch.Tensor]:
+                 tg: Optional[torch.Tensor] = None, precision: str = "highest",
+                 counter: str = "couple_strip") -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply ``n_chunks`` couples to (strip, C), in place.
 
     v_stack: (B, block_rows, nb) reflector chunks; t2_stack: (B, nb, nb);
@@ -145,13 +145,14 @@ def couple_strip(v_stack, t2_stack, c, strip, stack_base: int, base_block: int,
     strip: (nb, P − col_start·nb). reverse: couples in descending order.
     vkk/tg: the diagonal-tile LARFB, fused before the first couple (forward)
     or after the last (reverse). precision: the mode of the three products.
-    Returns (c, strip).
+    counter: the name the call counts under, keyed by mode. Returns
+    (c, strip).
     """
     passes = passes_of(precision)
     if not _build.is_cuda(v_stack, t2_stack, c, strip, vkk, tg):
         return couple_strip_plain(v_stack, t2_stack, c, strip, stack_base, base_block,
                                   n_chunks, block_rows, nb, col_start, trans, reverse,
-                                  vkk, tg, precision)
+                                  vkk, tg, precision, counter)
     _build.require_fp32(v_stack, t2_stack, c, strip, vkk, tg)
     _build.require_contiguous(v_stack=v_stack, t2_stack=t2_stack, vkk=vkk, tg=tg)
     _build.require_row_major(c=c, strip=strip)
@@ -166,7 +167,7 @@ def couple_strip(v_stack, t2_stack, c, strip, stack_base: int, base_block: int,
         _build.ptr(vkk), _build.ptr(tg), passes, _build.stream(),
     )
     _build.check(rc, "couple_strip")
-    _build.LAUNCHES[counter_key("couple_strip", precision)] += 1
+    _build.LAUNCHES[counter_key(counter, precision)] += 1
     return c, strip
 
 

@@ -57,26 +57,34 @@ def _t(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(-2, -1)
 
 
-def geqrt_in_place(at: torch.Tensor, tt: torch.Tensor, kcols: int, ib: int) -> None:
+def geqrt_in_place(at: torch.Tensor, tt: torch.Tensor, kcols: int, ib: int,
+                   tri_bottom: bool = False) -> None:
     """Factor the tile held transposed in ``at`` (..., n, m) in place, every
     matrix of the leading dimensions at once.
 
     On exit ``at`` holds packedᵀ (R on and above the diagonal of A, the v's
     below) and ``tt`` (..., n, n, zeroed on entry) holds Tᵀ.
+
+    tri_bottom: the tile is the TTQRT couple [R1; R2] with R2 (rows
+    n..2n-1) upper triangular, so once the column block ending at column e
+    is reached only its first n + e rows can be non-zero (tileqr's
+    ``lane_extent``): every step of that block runs on those rows only, as
+    ``csrc/geqrt.cuh`` does. Default: all m rows.
     """
     n, m = at.shape[-2:]
     dt, dev = at.dtype, at.device
     one = torch.ones((), dtype=dt, device=dev)
     zero = torch.zeros((), dtype=dt, device=dev)
-    lane_r = torch.arange(m, device=dev)
     lane_t = torch.arange(n, device=dev)
 
     for s in range(0, kcols, ib):
         ibk = min(ib, kcols - s)
+        wl = min(m, n + s + ibk) if tri_bottom else m
+        lane_r = torch.arange(wl, device=dev)
         sub_b = torch.arange(ibk, device=dev)[:, None]
         for jj in range(ibk):
             j = s + jj
-            x = at[..., j, :].clone()  # (..., m)
+            x = at[..., j, :wl].clone()  # (..., wl)
             alpha = x[..., j : j + 1]
             tailsq = torch.where(lane_r > j, x * x, zero).sum(dim=-1, keepdim=True)
             sgn = torch.where(alpha >= 0, one, -one)
@@ -87,19 +95,19 @@ def geqrt_in_place(at: torch.Tensor, tt: torch.Tensor, kcols: int, ib: int) -> N
             scale = torch.where(has_tail, 1 / (alpha - beta), zero)
             v = torch.where(lane_r == j, one, torch.where(lane_r > j, x * scale, zero))
 
-            blk = at[..., s : s + ibk, :]
+            blk = at[..., s : s + ibk, :wl]
             w = (blk * v[..., None, :]).sum(dim=-1, keepdim=True)
             packed_j = torch.where(
                 lane_r == j, beta, torch.where(lane_r > j, x * scale, x)
             )
-            at[..., s : s + ibk, :] = torch.where(
+            at[..., s : s + ibk, :wl] = torch.where(
                 sub_b == jj,
                 packed_j[..., None, :],
                 blk - torch.where(sub_b > jj, tau[..., None] * w, zero) * v[..., None, :],
             )
             tt[..., j, :] = torch.where(lane_t == j, tau, zero)
 
-        vt_b = _recon_vt(at[..., s : s + ibk, :], s, lane_r)  # (..., ibk, m) = V_bᵀ
+        vt_b = _recon_vt(at[..., s : s + ibk, :wl], s, lane_r)  # (..., ibk, wl) = V_bᵀ
 
         # block T by doubling, computed transposed (ttb = T_bᵀ)
         g = vt_b @ _t(vt_b)
@@ -117,14 +125,14 @@ def geqrt_in_place(at: torch.Tensor, tt: torch.Tensor, kcols: int, ib: int) -> N
 
         # A_rest ← A_rest − V_b T_bᵀ V_bᵀ A_rest
         if s + ibk < n:
-            at_rest = at[..., s + ibk :, :]
+            at_rest = at[..., s + ibk :, :wl]
             w1 = at_rest @ _t(vt_b)
             w2 = w1 @ _t(ttb)
-            at[..., s + ibk :, :] = at_rest - w2 @ vt_b
+            at[..., s + ibk :, :wl] = at_rest - w2 @ vt_b
 
         # off-diagonal T[0:s, block] = −T1 (V1ᵀ V_b) T_b, stored transposed
         if s > 0:
-            vt_prev = _recon_vt(at[..., 0:s, :], 0, lane_r)
+            vt_prev = _recon_vt(at[..., 0:s, :wl], 0, lane_r)
             zt = vt_b @ _t(vt_prev)
             m2 = zt @ tt[..., 0:s, 0:s]
             tt[..., s : s + ibk, 0:s] = -(ttb @ m2)

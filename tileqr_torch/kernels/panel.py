@@ -29,9 +29,9 @@ def _steps(a: torch.Tensor, k: int, nb: int, n_couples: Optional[int]) -> int:
 
 
 def panel_factor_plain(a: torch.Tensor, k: int, nb: int, ib: int = 128,
-                       n_couples: Optional[int] = None):
+                       n_couples: Optional[int] = None, counter: str = "panel_factor"):
     """Plain torch K1, the same algebra step by step."""
-    _build.PLAIN_CALLS["panel_factor"] += 1
+    _build.PLAIN_CALLS[counter] += 1
     steps = _steps(a, k, nb, n_couples)
     kw = dict(dtype=a.dtype, device=a.device)
     v_stack = torch.empty((steps, nb, nb), **kw)
@@ -60,16 +60,17 @@ def panel_factor_plain(a: torch.Tensor, k: int, nb: int, ib: int = 128,
 
 
 def panel_factor(a: torch.Tensor, k: int, nb: int, ib: int = 128,
-                 n_couples: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+                 n_couples: Optional[int] = None,
+                 counter: str = "panel_factor") -> Tuple[torch.Tensor, ...]:
     """Factor panel column k of A: GEQRT on tile (k, k) plus TSQRT over the
     next ``n_couples`` sub-diagonal tiles (default: the whole column).
 
     Returns (r_kk, v_stack, t_geqrt, t2_stack): v_stack (1+n_couples, nb, nb)
     holds the packed GEQRT tile at slot 0 and the dense V2 tiles after it;
-    t2_stack slot 0 is zero.
+    t2_stack slot 0 is zero. ``counter``: the name the call counts under.
     """
     if not _build.is_cuda(a):
-        return panel_factor_plain(a, k, nb, ib, n_couples)
+        return panel_factor_plain(a, k, nb, ib, n_couples, counter)
     _build.require_fp32(a)
     _build.require_row_major(a=a)
     steps = _steps(a, k, nb, n_couples)
@@ -86,5 +87,22 @@ def panel_factor(a: torch.Tensor, k: int, nb: int, ib: int = 128,
         work.data_ptr(), _build.stream(),
     )
     _build.check(rc, "panel_factor")
-    _build.LAUNCHES["panel_factor"] += 1
+    _build.LAUNCHES[counter] += 1
     return r, v_stack, t_geqrt, t2_stack
+
+
+def panel_head(pcol: torch.Tensor, row_off_blk: int, n_head: int, v_heads: torch.Tensor,
+               t2_heads: torch.Tensor, head_base: int, nb: int,
+               ib: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sharded driver's panel head (B13,
+    ``tileqr/drivers/sharded_dyn.py:_panel_head_sh``): K1 on tile rows
+    [row_off_blk, row_off_blk + 1 + n_head) of the panel-column stack pcol
+    (rows, nb), with its GEQRT tile and head V2s written into the flat
+    buffer v_heads, and its T2s (zero at the GEQRT slot) into t2_heads, at
+    slots [head_base, head_base + 1 + n_head). Returns (r, t_geqrt)."""
+    view = pcol[row_off_blk * nb : (row_off_blk + 1 + n_head) * nb]
+    r, v_stack, t_geqrt, t2_stack = panel_factor(view, 0, nb, ib, n_couples=n_head,
+                                                 counter="panel_head")
+    v_heads[head_base : head_base + 1 + n_head] = v_stack
+    t2_heads[head_base : head_base + 1 + n_head] = t2_stack
+    return r, t_geqrt
