@@ -117,7 +117,31 @@ use (one nvcc per source, in parallel), then:
    row signs matched (printed), the factor's rerun bitwise on
    every rank, its wall time by CUDA events on rank 0 between barriers (8
    ranks time-sharing one card, not a multi-GPU figure), and the bytes per
-   panel through each collective with the host-staged share.
+   panel through each collective with the host-staged share;
+11. the hr sharded path (square_method="hr": CholeskyQR2 panels over the
+   mesh rows, ``drivers/sharded_hr.py``) at the same mesh, tile and cut
+   size: first, on this process, B7's halves ``panel_project`` (B7a) and
+   ``panel_sub`` (B7b) at rank (0, 0)'s segment-0 local shape (Y 4096×256,
+   C 4096×8192, Kahan row blocks of 512) in "highest", "b3", "b4" and
+   "default", each against its plain version of the same mode, timed
+   beside it and beside the fp32 ``torch.matmul`` (TF32 off) that computes
+   the same function (Yᵀ·C; C − Y·W by ``torch.addmm``), labelled "fp32";
+   then, in the same world of 8 ranks as phase 10 (one spawn), in
+   "highest" and in "b3": ``qr_sharded(mode="factor")``,
+   ``assemble_r_sharded``, ``apply_q_sharded(f, A)`` and Q =
+   ``apply_q_sharded(f, I, trans=False)``, the counts set to 0 just before
+   each and read just after: every rank's factor launches equal
+   ``drivers/sharded_hr.planned_launches_hr`` (B9 and B8 on every panel,
+   and in b3 the halves; "highest" takes tileqr's plain torch routes),
+   each apply's the halves' plan, R launches nothing, no plain version
+   runs; health ≤ hr_guard_tau with no guard warning;
+   relerr ‖QᵀA − R‖F/‖A‖F ≤ 1e-6, explicit-Q residual ≤ 3e-6 and
+   ‖QᵀQ − I‖F ≤ 1e-3 in "highest" (1e-4, 1e-4, 1e-2 in b3); the factor's
+   rerun bitwise equal on every rank and r_diag, t_all and health bitwise
+   equal across the ranks; printed: R against the single-card hr R of the
+   same mode with row signs matched, the factor's wall time by CUDA events
+   on rank 0 between barriers, and the bytes per panel through each
+   collective with the host-staged share.
 
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over their
@@ -141,7 +165,7 @@ import warnings
 import numpy as np
 import torch
 
-from tileqr_torch.kernels._build import EMULATED_MODES, MODE_KERNELS
+from tileqr_torch.kernels._build import EMULATED_MODES, MODE_KERNELS, SHARDED_HR_KERNELS
 from tileqr_torch.kernels.common import counter_key, passes_of
 
 NB, IB, CHUNK = 256, 128, 4
@@ -176,6 +200,11 @@ N_SH, MESH_SH = 16384, (4, 2)
 # → 2x1 → 4x2 (tests/test_torch_sharded_growth.py; on the card
 # utils/sharded_errors.py; PERF.md §6)
 TOL_SH_RESID = 4e-6
+# the hr sharded path (phase 11): its modes and their (relerr, explicit-Q
+# residual, orth) limits
+SH_HR_MODES = ("highest", "b3")
+TOL_SH_HR = {"highest": (TOL_RELERR, TOL_RESID, TOL_ORTH),
+             "b3": (TOL_MODE_RELERR["b3"], TOL_MODE_RELERR["b3"], TOL_MODE_ORTH)}
 
 # B15's single-tile tsqrt and larfb and B14's couple_apply are K2, K4 and K3
 # at one shape that no path runs (tileqr's unit-test entries; B14 is the
@@ -205,7 +234,15 @@ KERNEL_INFO = {
 # the split-product instantiations (the in-kernel _dot_bx of tileqr/kernels/common.py:95)
 KERNEL_INFO.update({
     f"{k}[{m}]": (f"{KERNEL_INFO[k][0]} + tileqr_torch/csrc/bx_mma.cuh", KERNEL_INFO[k][1])
-    for k in MODE_KERNELS for m in EMULATED_MODES
+    for k in MODE_KERNELS if k not in SHARDED_HR_KERNELS for m in EMULATED_MODES
+})
+# B7's halves, which the hr sharded path launches with its sum over the mesh
+# rows between them in its emulated modes (b3 here; "highest" takes tileqr's
+# plain routes, so the fp32 instantiation is checked and timed but not listed)
+KERNEL_INFO.update({
+    f"{k}[{m}]": ("tileqr_torch/csrc/panel_apply.cu + tileqr_torch/csrc/bx_mma.cuh",
+                  f"tileqr/kernels/panel_apply.py:{line}")
+    for k, line in zip(SHARDED_HR_KERNELS, (307, 349)) for m in SH_HR_MODES if m != "highest"
 })
 
 
@@ -255,7 +292,7 @@ class KernelRecord:
     def compare(self, name: str, label: str, got, want, tol: float = TOL_KERNEL) -> None:
         for i, (g, w) in enumerate(zip(got, want)):
             r = rel(g, w)
-            self.err[name] = max(self.err[name], max_abs(g, w))
+            self.err[name] = max(self.err.get(name, 0.0), max_abs(g, w))
             print(f"kernel {name} {label} out{i}: rel_fro={r:.3e}")
             require(np.isfinite(r) and r <= tol,
                     f"{name} {label} output {i} differs from its plain version: {r:.3e}")
@@ -1254,6 +1291,66 @@ def sharded_kernels(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def fp32_ms(fn, card: str, what: str) -> float:
+    """Time the fp32 torch call (TF32 off) that computes a kernel's function."""
+    fn()
+    torch.cuda.synchronize()
+    ms = cuda_ms(fn, 10)
+    print(f"time {what}: fp32 {ms:.4f} ms [{card}]")
+    return ms
+
+
+def sharded_hr_kernels(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
+    """B7a and B7b at rank (0, 0)'s segment-0 local shape of the hr sharded
+    path on this A, in "highest" and the emulated modes, against the plain
+    version of the same mode, with bounds and times beside that plain
+    version and the fp32 torch call computing the same function."""
+    from tileqr_torch.drivers import square_hr
+    from tileqr_torch.drivers.sharded import _local_block
+    from tileqr_torch.kernels import panel_apply as pa
+
+    # C: rank (0, 0)'s 4096×8192 local matrix; Y: the reflectors of the hr
+    # panel of its first tile column, (4096, 256) as the world's Y there
+    c0 = _local_block(a, NB, *MESH_SH, 0, 0).contiguous()
+    m, n = c0.shape
+    with square_hr._highest():
+        y, t, _ = square_hr.hr_panel(c0[:, :NB])
+        w = (t.T @ pa.panel_project_plain(y, c0, "highest")).contiguous()
+        for mode in ("highest",) + EMULATED_MODES:
+            p = passes_of(mode)
+            label = f"Y ({m}, {NB}), C ({m}, {n}), mr {pa._block(m, NB, 512)}"
+            compare_mode(rec, "panel_project", mode, label, pa.panel_project(y, c0, mode),
+                         pa.panel_project_plain(y, c0, mode),
+                         pa.panel_project_plain(y, c0, "highest"))
+            outs = [fn(y, w, c0.clone(), prec) for fn, prec in (
+                (pa.panel_sub, mode), (pa.panel_sub_plain, mode), (pa.panel_sub_plain, "highest"))]
+            compare_mode(rec, "panel_sub", mode, label, *outs)
+            del outs
+            # each product 2·m·nb·n flops (p bf16 passes in an emulated
+            # mode), the subtraction m·n in fp32; each input read once and
+            # each output written once
+            mm = 2.0 * m * NB * n
+            kp, ks = counter_key("panel_project", mode), counter_key("panel_sub", mode)
+            rec.bound[kp] = rec.bound_of(0.0 if p else mm, 4 * (m * NB + m * n + NB * n), p * mm)
+            rec.bound[ks] = rec.bound_of(m * n + (0.0 if p else mm),
+                                         4 * (m * NB + NB * n + 2 * m * n), p * mm)
+            c = c0.clone()
+            lib_p, lib_s = (lambda: y.T @ c0), (lambda: torch.addmm(c0, y, w, alpha=-1.0))
+            hi = mode == "highest"
+            rec.time(kp, lambda: pa.panel_project(y, c0, mode),
+                     lambda: pa.panel_project_plain(y, c0, mode), lib_p if hi else None, 10, 3,
+                     card)
+            rec.time(ks, lambda: pa.panel_sub(y, w, c, mode),
+                     lambda: pa.panel_sub_plain(y, w, c, mode), lib_s if hi else None, 10, 3,
+                     card)
+            if not hi:  # the split product has no library call: the fp32 one beside it
+                fp32_ms(lib_p, card, f"{kp} beside Y^T C")
+                fp32_ms(lib_s, card, f"{ks} beside torch.addmm(C, Y, W, alpha=-1)")
+            del c
+    del c0, y, w
+    torch.cuda.empty_cache()
+
+
 def sharded_rank(mesh, n: int, seed: int, cfg) -> dict:
     """Rank side of phase 10 (run on every rank of the world): the main
     path counted, the factor rerun and timed, Q formed; rank 0 checks and
@@ -1318,15 +1415,180 @@ def sharded_rank(mesh, n: int, seed: int, cfg) -> dict:
     return out
 
 
-def phase10(rec: KernelRecord, rng, card: str) -> dict:
-    """The sharded path; returns the new kernels' launches summed over the
-    ranks of its counted run."""
+def sharded_hr_rank(mesh, n: int, seed: int, modes) -> dict:
+    """Rank side of phase 11 (run on every rank of the world): in each mode
+    the main path counted call by call, the factor rerun and timed, Q
+    formed; rank 0 checks and holds R against the single-card hr R."""
+    import torch.distributed as dist
+
+    import tileqr_torch
+    from tileqr_torch.dist.launch import digest
+    from tileqr_torch.drivers.sharded_hr import planned_launches_hr
+    from tileqr_torch.kernels import _build
+    from tileqr_torch.utils.verify import backward_error_f64, residuals_f64
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    a = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (n, n), dtype=np.float32)).to(dev)
+
+    def counted(fn):
+        """fn() with the counts set to 0 just before and read just after."""
+        torch.cuda.synchronize()
+        dist.barrier()
+        _build.reset_counts()
+        mesh.reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+
+    def flat(f):
+        return [f.local, f.r_diag, f.t_all, f.health, *f.y_segs]
+
+    out = {}
+    for mode in modes:
+        cfg = tileqr_torch.QRConfig(mesh_shape=mesh.shape, square_method="hr", precision=mode)
+
+        def factor():
+            return tileqr_torch.qr_sharded(a, mesh, cfg, mode="factor")
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")  # a guard trip fails the run
+            f, launches, plain = counted(factor)
+        info = dict(kind=type(f).__name__, health=float(f.health), launches_factor=launches,
+                    plain=dict(factor=plain), moved=dict(mesh.moved), staged=mesh.staged,
+                    planned=planned_launches_hr(f.grid, f.nb, mode),
+                    planned_apply=planned_launches_hr(f.grid, f.nb, mode, cols=n // mesh.pc))
+        r, info["launches_r"], info["plain"]["r"] = counted(
+            lambda: tileqr_torch.assemble_r_sharded(f, mesh))
+        qta, info["launches_qta"], info["plain"]["qta"] = counted(
+            lambda: tileqr_torch.apply_q_sharded(f, a, mesh, config=cfg))
+
+        # the factor again, timed on rank 0 between barriers, and bitwise
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        start.record()
+        f2 = factor()
+        end.record()
+        torch.cuda.synchronize()
+        info.update(host_s=time.perf_counter() - t0, ms=start.elapsed_time(end),
+                    same=all(torch.equal(x, y) for x, y in zip(flat(f), flat(f2))),
+                    digest=digest(f.r_diag, f.t_all, f.health))
+        del f2
+        dist.barrier()
+        eye = torch.eye(n, device=dev)
+        q, info["launches_q"], info["plain"]["q"] = counted(
+            lambda: tileqr_torch.apply_q_sharded(f, eye, mesh, trans=False, config=cfg))
+        del eye, f
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, info)
+        if mesh.rank == 0:
+            res = dict(ranks=ranks, relerr=backward_error_f64(a, qta, r))
+            del qta
+            torch.cuda.empty_cache()
+            err = residuals_f64(a, q, r)
+            del q
+            torch.cuda.empty_cache()
+            res.update(resid=err["relerr"], orth=err["orth"], r_vs_hr=sign_fixed_rel(
+                r, tileqr_torch.qr(a, mode="r", config=tileqr_torch.QRConfig(
+                    square_method="hr", precision=mode))))
+            out[mode] = res
+        del r
+        qta = q = None
+        torch.cuda.empty_cache()
+    return out if mesh.rank == 0 else None
+
+
+def sharded_world(mesh, hh: dict, hr: dict):
+    """Phases 10 and 11 in one world of ranks (one spawn): the Householder
+    sharded path, then the hr one."""
+    out = dict(hh=sharded_rank(mesh, **hh))
+    torch.cuda.empty_cache()
+    out["hr"] = sharded_hr_rank(mesh, **hr)
+    return out if mesh.rank == 0 else None
+
+
+def phase11(out: dict, card: str) -> dict:
+    """The hr sharded path's gates on the world's results; returns its
+    kernels' launches summed over the ranks' counted runs (factor, R and
+    QᵀA in each mode)."""
+    import tileqr_torch
+    from tileqr_torch.kernels import _build
+
+    pr, pc = MESH_SH
+    k_max = N_SH // NB
+    launches = dict.fromkeys(_build.LAUNCHES, 0)
+    flops = 2.0 * N_SH * N_SH * (N_SH - N_SH / 3.0)
+    tau = tileqr_torch.QRConfig().hr_guard_tau
+    for mode in SH_HR_MODES:
+        res = out[mode]
+        ranks = res["ranks"]
+        own = tuple(ranks[0]["planned"])
+        halves = tuple(res["ranks"][0]["planned_apply"])
+        for i, d in enumerate(ranks):
+            lf = d["launches_factor"]
+            print(f"sharded hr {mode} rank {i} factor launches "
+                  f"{json.dumps({k: lf[k] for k in own})}, planned {json.dumps(d['planned'])}")
+            require(d["kind"] == "ShardedHRFactors", f"rank {i}: the hr guard fell back")
+            require(all(lf[k] == d["planned"][k] for k in own), f"rank {i}: factor launches "
+                    f"off the plan")
+            require(not any(v for k, v in lf.items() if k not in own),
+                    f"rank {i}: the factor launched other kernels")
+            for what in ("qta", "q"):
+                la = d[f"launches_{what}"]
+                require(all(la[k] == d["planned_apply"][k] for k in halves)
+                        and not any(v for k, v in la.items() if k not in halves),
+                        f"rank {i}: apply_q_sharded ({what}) launches off the plan: {la}")
+            require(not any(d["launches_r"].values()), f"rank {i}: assemble_r launched kernels")
+            require(not any(v for p in d["plain"].values() for v in p.values()),
+                    f"rank {i}: a plain version ran: {d['plain']}")
+            require(d["same"], f"rank {i}: the hr factor's rerun is not bitwise equal")
+            require(d["health"] <= tau, f"rank {i}: health {d['health']:.3e} past hr_guard_tau")
+            for k in _build.LAUNCHES:
+                launches[k] += d["launches_factor"][k] + d["launches_r"][k] + d["launches_qta"][k]
+        require(len({d["digest"] for d in ranks}) == 1,
+                f"{mode}: r_diag/t_all/health differ across the ranks")
+        print(f"sharded hr {mode}: every rank's factor launches as planned, no plain version, "
+              f"rerun bitwise equal on every rank, r_diag/t_all/health bitwise equal across the "
+              f"{pr * pc} ranks; health {ranks[0]['health']:.3e} (hr_guard_tau {tau})")
+        r0 = ranks[0]
+        for name, nbytes in r0["moved"].items():
+            print(f"sharded hr {mode} rank 0 {name}: {nbytes / k_max / 2 ** 20:.3f} MiB per panel")
+        total = sum(sum(d["moved"].values()) for d in ranks)
+        staged = sum(d["staged"] for d in ranks)
+        print(f"sharded hr {mode} factor, all ranks: {total / k_max / 2 ** 20:.3f} MiB per panel "
+              f"through the collectives, {staged / k_max / 2 ** 20:.3f} MiB per panel staged "
+              f"through the host by the mesh ({staged / max(total, 1):.3f} of it; gloo stages "
+              f"its own CUDA broadcasts and all_reduces too)")
+        print(f"sharded hr qr_sharded factor {N_SH}x{N_SH} precision={mode} on {pr}x{pc} ranks "
+              f"time-sharing ONE card (not a multi-GPU figure): {r0['ms']:.3f} ms by CUDA "
+              f"events on rank 0, host {r0['host_s']:.3f} s, "
+              f"{flops / r0['ms'] / 1e9:.3f} TFLOP/s [{card}]")
+        print(f"sharded hr {N_SH}x{N_SH} precision={mode}: relerr ||Q^T A - R||F/||A||F = "
+              f"{res['relerr']:.3e}, explicit-Q residual {res['resid']:.3e}, orth "
+              f"{res['orth']:.3e}; R against the single-card hr R of the same mode (row signs "
+              f"matched) rel_fro={res['r_vs_hr']:.3e} [{card}]")
+        t_rel, t_res, t_orth = TOL_SH_HR[mode]
+        require(res["relerr"] <= t_rel, f"sharded hr {mode} relerr {res['relerr']:.3e} > {t_rel}")
+        require(res["resid"] <= t_res and res["orth"] <= t_orth,
+                f"sharded hr {mode} explicit-Q residual {res['resid']:.3e} / orth "
+                f"{res['orth']:.3e}")
+    return launches
+
+
+def phase10(rec: KernelRecord, rng, card: str):
+    """The sharded paths, phases 10 and 11 in one world; returns the hh
+    path's new kernels' launches summed over the ranks of its counted run,
+    and the hr path's (``phase11``)."""
     import tileqr_torch
     from tileqr_torch.dist import launch
     from tileqr_torch.kernels import _build
 
     a = torch.from_numpy(rng.standard_normal((N_SH, N_SH), dtype=np.float32)).cuda()
     sharded_kernels(a, rec, card)
+    sharded_hr_kernels(a, rec, card)
     del a
     torch.cuda.empty_cache()
 
@@ -1335,10 +1597,14 @@ def phase10(rec: KernelRecord, rng, card: str) -> dict:
     print(f"sharded {pr}x{pc} world on {torch.cuda.device_count()} card(s): backend {backend} "
           f"({why}) [{card}]")
     seed = int(rng.integers(2 ** 31))
+    seed_hr = int(rng.integers(2 ** 31))
     t0 = time.perf_counter()
-    out = launch.run_world(sharded_rank, pr, pc, device="cuda", timeout=900, kwargs=dict(
-        n=N_SH, seed=seed, cfg=tileqr_torch.QRConfig(mesh_shape=MESH_SH)))
-    print(f"sharded world: {time.perf_counter() - t0:.1f} s from spawn to rank 0's result")
+    both = launch.run_world(sharded_world, pr, pc, device="cuda", timeout=900, kwargs=dict(
+        hh=dict(n=N_SH, seed=seed, cfg=tileqr_torch.QRConfig(mesh_shape=MESH_SH)),
+        hr=dict(n=N_SH, seed=seed_hr, modes=SH_HR_MODES)))
+    print(f"sharded world (phases 10 and 11): {time.perf_counter() - t0:.1f} s from spawn to "
+          f"rank 0's result")
+    out = both["hh"]
     ranks = out["ranks"]
     k_max = N_SH // NB
     own = ("panel_chain", "couple_strip", "larfb_strip", "ttqrt", "panel_head", "ssrfb")
@@ -1376,7 +1642,7 @@ def phase10(rec: KernelRecord, rng, card: str) -> dict:
     require(out["relerr"] <= TOL_RELERR, f"sharded relerr {out['relerr']:.3e} > {TOL_RELERR}")
     require(out["resid"] <= TOL_SH_RESID and out["orth"] <= TOL_ORTH,
             f"sharded explicit-Q residual {out['resid']:.3e} / orth {out['orth']:.3e}")
-    return launches
+    return launches, phase11(both["hr"], card)
 
 
 def main() -> int:
@@ -1433,9 +1699,10 @@ def main() -> int:
     launches.update(phase9(rec, rng, card))
     launches[counter_key("panel_apply", "b3")] += ts_b7
 
-    # the sharded path: its new kernels' launches over the world's ranks
-    sh = phase10(rec, rng, card)
+    # the sharded paths: their new kernels' launches over the world's ranks
+    sh, sh_hr = phase10(rec, rng, card)
     launches.update({k: sh[k] for k in _build.SHARDED_KERNELS + _build.SITE_KERNELS})
+    launches.update({k: sh_hr[k] for k in KERNEL_INFO if k.split("[")[0] in SHARDED_HR_KERNELS})
     idle = [k for k in KERNEL_INFO if not launches[k]]
     require(not idle, f"kernels of the line that no path launched: {idle}")
     print(json.dumps({"kernels": rec.line(launches)}))

@@ -656,3 +656,89 @@ def test_sharded_2x2_world_on_one_card(cuda, driver):
     s = np.sign(np.diag(r)) * np.sign(np.diag(r_hh))
     s[s == 0] = 1
     assert np.linalg.norm(r * s[:, None] - r_hh) / np.linalg.norm(r_hh) <= 1e-5
+
+
+# ---- the sharded hr path: B7's halves, a world ----
+
+@pytest.mark.parametrize("nb", [64, 256])
+@pytest.mark.parametrize("mode", ["highest"] + MODES)
+def test_panel_halves_match_plain(cuda, nb, mode):
+    """B7a ``panel_project`` (3 Kahan row blocks of 512) and B7b
+    ``panel_sub`` on a strided window of a larger C, against their plain
+    versions in the same mode: the launch counted under the mode's
+    instantiation, C updated in place and untouched outside the window."""
+    rng = np.random.default_rng(nb)
+    m, n = 1536, 3 * nb
+    y = torch.from_numpy(rng.standard_normal((m, nb), dtype=np.float32)).to(cuda)
+    big = torch.from_numpy(rng.standard_normal((m, n + nb), dtype=np.float32)).to(cuda)
+    c = big[:, nb:]
+    w = torch.from_numpy(rng.standard_normal((nb, n), dtype=np.float32)).to(cuda)
+    _build.reset_counts()
+    got = panel_apply.panel_project(y, c, mode)
+    want = panel_apply.panel_project_plain(y, c, mode)
+    hi = panel_apply.panel_project_plain(y, c, "highest")
+    cw = big.clone()
+    out = panel_apply.panel_sub(y, w, cw[:, nb:], mode)
+    want_sub = panel_apply.panel_sub_plain(y, w, big.clone()[:, nb:], mode)
+    hi_sub = panel_apply.panel_sub_plain(y, w, big.clone()[:, nb:], "highest")
+    torch.cuda.synchronize()
+    key = {"highest": "", "b3": "[b3]", "b4": "[b4]", "default": "[default]"}[mode]
+    assert _build.LAUNCHES[f"panel_project{key}"] == 1 == _build.LAUNCHES[f"panel_sub{key}"]
+    assert out.data_ptr() == cw[:, nb:].data_ptr() and torch.equal(cw[:, :nb], big[:, :nb])
+    if mode == "highest":
+        assert rel(got, want) <= TOL and rel(out, want_sub) <= TOL
+    else:
+        assert nearer_own_mode(got, want, hi, mode)
+        assert nearer_own_mode(out, want_sub, hi_sub, mode)
+
+
+def test_panel_halves_raise_on_the_card(cuda):
+    """float64, an nb the fp32 instantiation does not take, c rows != y
+    rows: each raises, nothing falls back to the plain version."""
+    y = torch.zeros((1024, 512), device=cuda)
+    c = torch.zeros((1024, 512), device=cuda)
+    _build.reset_counts()
+    with pytest.raises(TypeError):
+        panel_apply.panel_project(y.double(), c.double(), "b3")
+    with pytest.raises(ValueError, match="nb"):
+        panel_apply.panel_project(y, c, "highest")
+    with pytest.raises(ValueError, match="nb"):
+        panel_apply.panel_sub(y, torch.zeros((512, 512), device=cuda), c, "highest")
+    with pytest.raises(ValueError, match="c rows"):
+        panel_apply.panel_sub(y, torch.zeros((512, 512), device=cuda), c[:512], "b3")
+    assert not any(_build.PLAIN_CALLS.values()) and not any(_build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("mode", ["highest", "b3"])
+def test_sharded_hr_2x1_world_on_one_card(cuda, mode):
+    """A 2×1 gloo world of spawned ranks sharing the card runs the hr
+    sharded path at 2048², nb = 256 (8 panels, 8 segments): rank 0's
+    factor launches equal ``planned_launches_hr`` (B9 and B8 on every
+    panel, B7's halves on every panel in b3 and on none in "highest"), no
+    plain version runs, ‖QᵀA − R‖F/‖A‖F within the mode's
+    limit, Q(QᵀA) = A, reruns and the replicated factors bitwise equal,
+    and R against the single-card hr R with row signs matched."""
+    from tileqr_torch.dist import launch
+
+    n = 2048
+    a = np.random.default_rng(9).standard_normal((n, n)).astype(np.float32)
+    cfg = tileqr_torch.QRConfig(mesh_shape=(2, 1), square_method="hr", precision=mode)
+    out = launch.run_world(launch.sharded_hr_case, 2, 1, timeout=600,
+                           kwargs=dict(a=a, config=cfg, device="cuda"))
+    plan = {k: v for k, v in out["planned"].items() if v}
+    assert {k: v for k, v in out["launches"].items() if v} == plan
+    assert plan["potrf_batched"] == plan["modified_lu"] == 8
+    assert out["planned"]["panel_sub[b3]" if mode == "b3" else "panel_sub"] == (8 if mode == "b3"
+                                                                               else 0)
+    assert not any(out["plain"].values())
+    assert out["same"] and len(set(out["replicated"])) == 1
+    tol = 1e-6 if mode == "highest" else 1e-4
+    r = out["r"].astype(np.float64)
+    a64 = a.astype(np.float64)
+    assert np.linalg.norm(out["qtc"] - r) / np.linalg.norm(a64) <= tol
+    assert np.linalg.norm(out["qqtc"] - a64) / np.linalg.norm(a64) <= 10 * tol
+    r_hr = tileqr_torch.qr(torch.from_numpy(a).to(cuda), mode="r", config=tileqr_torch.QRConfig(
+        square_method="hr")).double().cpu().numpy()
+    s = np.sign(np.diag(r)) * np.sign(np.diag(r_hr))
+    s[s == 0] = 1
+    assert np.linalg.norm(r * s[:, None] - r_hr) / np.linalg.norm(r_hr) <= 100 * tol

@@ -134,12 +134,16 @@ def check_collectives(ranks, pr, pc):
         # all_gather order: axis index order
         assert list(d["gather_cols"][:, 0]) == [r * pc + j + 1 for j in range(pc)]
         assert list(d["gather_rows"][:, 0]) == [i * pc + c + 1 for i in range(pr)]
+        # psum: the sum of the axis group's tags
+        assert np.all(d["psum_cols"] == sum(r * pc + j + 1 for j in range(pc)))
+        assert np.all(d["psum_rows"] == sum(i * pc + c + 1 for i in range(pr)))
         # bytes: a rank with no pair at a level makes no call and moves
         # nothing; a root or leaf sends or receives 24 bytes each way
         roles = sum(any(_roles((r - r_k) % pr, dd, pr))
                     for r_k in range(pr) for _, _, dd in _tree_perms(pr, r_k))
         assert d["moved"] == {"broadcast": 24 * (pc * (pc > 1) + pr * pc),
-                              "ppermute": 48 * roles, "all_gather": 24 * (pc + pr)}
+                              "ppermute": 48 * roles, "all_gather": 24 * (pc + pr),
+                              "psum": 24 * ((pc > 1) + (pr > 1))}
 
 
 def test_collectives_2x2(world22):
@@ -157,7 +161,7 @@ def test_collectives_4x2_and_ranks_without_a_pair(world42):
 
 
 def test_raises_inside_a_world(world22):
-    assert world22[1] == {"world": "ValueError", "hr": "NotImplementedError"}
+    assert world22[1] == {"world": "ValueError", "hr": "ValueError"}
 
 
 # ---- the path against tileqr's dynamic driver ----
@@ -282,8 +286,10 @@ def test_qr_sharded_raises_without_cuda_or_group():
             tileqr_torch.qr_sharded(a, config=tcfg((1, 1)))
     with pytest.raises(RuntimeError, match="process group"):
         tileqr_torch.qr_sharded(torch.tensor(a), config=tcfg((2, 2)))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tileqr_torch.qr_sharded(torch.tensor(a), config=tcfg((1, 1), square_method="hr"))
+    fh = tileqr_torch.qr_sharded(torch.tensor(a), config=tcfg((1, 1), square_method="hr"),
+                                 mode="factor")
+    with pytest.raises(ValueError, match="c rows"):
+        tileqr_torch.apply_q_sharded(fh, a[:8])
     with pytest.raises(ValueError, match="unknown mode"):
         tileqr_torch.qr_sharded(torch.tensor(a), config=tcfg((1, 1)), mode="reduced")
     with pytest.raises(ValueError, match="mesh"):

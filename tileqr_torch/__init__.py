@@ -17,7 +17,9 @@ Householder routes run one batched GEQRT kernel (``kernels/geqrt.py``); and
 ``qr_sharded`` (2D block-cyclic over a pr × pc process grid on
 ``torch.distributed``, ``dist/mesh.py``; the Householder sharded driver
 ``drivers/sharded.py`` with the TTQRT tree-combine kernel,
-``kernels/ttqrt.py``), whose factors ``assemble_r_sharded`` and
+``kernels/ttqrt.py``, or, with square_method="hr", the CholeskyQR2 one
+``drivers/sharded_hr.py`` with B7's halves ``panel_project`` and
+``panel_sub``), whose factors ``assemble_r_sharded`` and
 ``apply_q_sharded`` consume. ``dist/launch.py`` spawns such a world.
 
 CUDA sources are in ``csrc/``. CUDA tensors run the CUDA kernels; CPU
@@ -30,7 +32,7 @@ Public API
   :func:`lstsq`, :func:`tsqr`, :func:`qr_batched`
 - :func:`qr_sharded`, :func:`assemble_r_sharded`, :func:`apply_q_sharded`
 - :class:`QRConfig`, :class:`QRFactors`, :class:`HRFactors`,
-  :class:`TSQRFactors`, :class:`ShardedFactors`
+  :class:`TSQRFactors`, :class:`ShardedFactors`, :class:`ShardedHRFactors`
 - :func:`qr_check` — float64 acceptance metrics of a computed QR.
 """
 
@@ -39,6 +41,7 @@ from tileqr_torch.api import (
     HRFactors,
     QRFactors,
     ShardedFactors,
+    ShardedHRFactors,
     TSQRFactors,
     apply_q,
     apply_q_sharded,
@@ -58,6 +61,7 @@ __all__ = [
     "QRConfig",
     "QRFactors",
     "ShardedFactors",
+    "ShardedHRFactors",
     "TSQRFactors",
     "apply_q",
     "apply_q_sharded",

@@ -36,8 +36,10 @@ from tileqr_torch.core.layout import pad_to_tiles, pow2_at_least, round_up
 from tileqr_torch.drivers.batched import qr_batched as _qr_batched
 from tileqr_torch.dist.mesh import Mesh, rank_device
 from tileqr_torch.drivers import sharded as _sh
+from tileqr_torch.drivers import sharded_hr as _shr
 from tileqr_torch.drivers.cholqr import _highest, cholqr2_batched, guard_trips
 from tileqr_torch.drivers.sharded import ShardedFactors
+from tileqr_torch.drivers.sharded_hr import ShardedHRFactors
 from tileqr_torch.drivers.square import apply_q_tiled, assemble_r, qr_tiled
 from tileqr_torch.drivers.square_hr import apply_q_hr, hr_panel, orgqr_hr, pad_for_hr, qr_hr
 from tileqr_torch.drivers.tsqr import (
@@ -387,13 +389,17 @@ def qr_sharded(a, mesh: Optional[Mesh] = None, config: Optional[QRConfig] = None
     every rank of the mesh with the same global A (M, N).
 
     mode "r" → R (M, N) on every rank; "factor" → this rank's
-    ``ShardedFactors``, for ``assemble_r_sharded`` and ``apply_q_sharded``.
-    mesh: a ``tileqr_torch.dist.mesh.Mesh``; None builds one of
-    ``config.mesh_shape`` over the default process group. The couple height
-    follows tileqr's driver rule (``QRConfig.driver``): 1 where tileqr takes
-    its static driver, ``config.chunk`` (clamped to the local tile rows)
-    where it takes the dynamic one. ``square_method="hr"`` (tileqr's
-    CholeskyQR2 sharded driver) is not ported yet and raises.
+    ``ShardedFactors`` (or ``ShardedHRFactors``), for
+    ``assemble_r_sharded`` and ``apply_q_sharded``. mesh: a
+    ``tileqr_torch.dist.mesh.Mesh``; None builds one of
+    ``config.mesh_shape`` over the default process group.
+    ``square_method="hr"`` runs the CholeskyQR2 sharded driver
+    (``drivers/sharded_hr.py``); its breakdown guard, checked on the host
+    (every rank holds the same health), falls back to the Householder one
+    under ``hr_guard="fallback"``. The Householder couple height follows
+    tileqr's driver rule (``QRConfig.driver``): 1 where tileqr takes its
+    static driver, ``config.chunk`` (clamped to the local tile rows) where
+    it takes the dynamic one.
     """
     shape = tuple(a.shape) if hasattr(a, "shape") else tuple(np.shape(a))
     if len(shape) != 2 or 0 in shape:
@@ -404,35 +410,40 @@ def qr_sharded(a, mesh: Optional[Mesh] = None, config: Optional[QRConfig] = None
         raise ValueError(f"unknown mode {mode!r}")
     cfg = _cfg(config)
     passes_of(cfg.precision)
-    if cfg.square_method == "hr":
-        raise NotImplementedError(
-            "qr_sharded with square_method='hr' (tileqr/drivers/sharded_hr.py) is the "
-            "next slice of the port (ROADMAP.md queue A item 8); use square_method='hh'"
-        )
     if mesh is None:
         mesh = Mesh(*cfg.mesh_shape)
     a = _to_device(a, cfg.dtype, device if isinstance(a, torch.Tensor) else rank_device(device))
+    if cfg.square_method == "hr":
+        fh = _shr.qr_sharded_factor_hr(a, mesh, cfg.nb, cfg.precision)
+        health = fh.health if cfg.hr_guard != "off" else None
+        if not (guard_trips(health, cfg, "qr_sharded/hr") and cfg.hr_guard == "fallback"):
+            return fh if mode == "factor" else _sh.assemble_r_sharded(fh, mesh)
     chunk = 1 if cfg.resolve_driver(*shape) == "static" else cfg.chunk
     f = _sh.qr_sharded_factor(a, mesh, cfg.nb, cfg.ib, chunk, cfg.precision)
     return f if mode == "factor" else _sh.assemble_r_sharded(f, mesh)
 
 
-def _mesh_of(f: ShardedFactors, mesh: Optional[Mesh]) -> Mesh:
+def _mesh_of(f, mesh: Optional[Mesh]) -> Mesh:
     return mesh if mesh is not None else Mesh(*f.grid[2:])
 
 
-def assemble_r_sharded(f: ShardedFactors, mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """R (M, N) from the sharded factors, on every rank (a collective).
-    mesh: the factor's; None builds one of the factor's shape."""
+def assemble_r_sharded(f, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """R (M, N) from the sharded factors (``ShardedFactors`` or
+    ``ShardedHRFactors``), on every rank (a collective). mesh: the
+    factor's; None builds one of the factor's shape."""
     return _sh.assemble_r_sharded(f, _mesh_of(f, mesh))
 
 
-def apply_q_sharded(f: ShardedFactors, c, mesh: Optional[Mesh] = None, trans: bool = True,
+def apply_q_sharded(f, c, mesh: Optional[Mesh] = None, trans: bool = True,
                     config: Optional[QRConfig] = None) -> torch.Tensor:
     """C ← Qᵀ·C (trans, the default, as tileqr's) or Q·C with the sharded
     factors, on every rank (a collective): C (M, P), the same on every
-    rank, goes to the factors' device."""
+    rank, goes to the factors' device. Both factor records are taken:
+    tileqr's own ``apply_q_sharded`` refuses ``ShardedHRFactors``
+    (AttributeError on ``panels``), the port routes them to
+    ``apply_q_sharded_hr``."""
     precision = _cfg(config).precision
     passes_of(precision)
     c = torch.as_tensor(c, dtype=f.local.dtype, device=f.local.device)
-    return _sh.apply_q_sharded(f, c, _mesh_of(f, mesh), trans=trans, precision=precision)
+    apply = _shr.apply_q_sharded_hr if isinstance(f, ShardedHRFactors) else _sh.apply_q_sharded
+    return apply(f, c, _mesh_of(f, mesh), trans=trans, precision=precision)

@@ -35,7 +35,11 @@
 // blocks of mr = _block(m, nb, 1024) rows. So the phases are two C entries:
 // tq_panel_project (W = op(T) sum_i Y_i^T C_i, or the bare sum with no T,
 // as panel_project) and tq_panel_sub (C -= Y W, as panel_sub); B6 and B7
-// call both. Each takes `passes`, the precision: 0 ("highest") is the code
+// call both. Alone they are B7's halves, tileqr/kernels/panel_apply.py:307
+// (_panel_project_call, the bare sum with mr = _block(m, nb, 512)) and :349
+// (_panel_sub_call), which the sharded hr driver launches with the sum of W
+// over the mesh rows between them (kernels/panel_apply.py panel_project,
+// panel_sub). Each takes `passes`, the precision: 0 ("highest") is the code
 // above. 1, 3, 4 ("default", "b3"/"high", "b4") compute Y_i^T C_i and Y W
 // with the split tensor-core product (bx_mma.cuh): phase 1 keeps one W
 // slab and its Kahan compensation in shared memory (2 x 32 KiB at

@@ -22,13 +22,16 @@ torch and tileqr_torch (a function is sent to a rank by its import path).
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import hashlib
 import multiprocessing
 import queue
 import socket
 import sys
 import time
 import traceback
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -38,7 +41,7 @@ import torch.distributed as dist
 import tileqr_torch
 from tileqr_torch import interop
 from tileqr_torch.dist.mesh import Mesh, rank_device
-from tileqr_torch.drivers import sharded
+from tileqr_torch.drivers import sharded, sharded_hr
 from tileqr_torch.kernels import _build
 
 
@@ -78,6 +81,8 @@ def _rank_main(rank: int, spec: Dict[str, Any], results) -> None:
     try:
         if spec["device"] == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())
+        else:  # the ranks share the host's cores: one thread each
+            torch.set_num_threads(1)
         dist.init_process_group(
             spec["backend"], init_method=f"tcp://127.0.0.1:{spec['port']}", rank=rank,
             world_size=spec["pr"] * spec["pc"],
@@ -166,8 +171,8 @@ def probe_collectives(mesh: Mesh) -> List[Dict[str, Any]]:
     and over both axes from each rank (the non-owners pass garbage, which
     must not leak), ppermute over 'rows' with every level of every
     rotation of the tree (zeros where nothing arrives, no call where a rank
-    has no pair) and the all_gathers over both axes; and the jax, jaxlib
-    or tileqr modules the rank has imported (none)."""
+    has no pair), the all_gathers and the psums over both axes; and the
+    jax, jaxlib or tileqr modules the rank has imported (none)."""
     rank = mesh.rank
     tag = torch.full((3,), float(rank + 1), dtype=torch.float64)
     out: Dict[str, Any] = {"coords": (mesh.r, mesh.c), "foreign_modules": sorted(
@@ -185,17 +190,22 @@ def probe_collectives(mesh: Mesh) -> List[Dict[str, Any]]:
     out["perms"] = perms
     out["gather_cols"] = mesh.all_gather(tag, "cols")
     out["gather_rows"] = mesh.all_gather(tag, "rows")
+    out["psum_cols"] = mesh.psum(tag.clone(), "cols")
+    out["psum_rows"] = mesh.psum(tag.clone(), "rows")
     out["moved"] = dict(mesh.moved)
     return _gather_to_list(out)
 
 
 def raise_probe(mesh: Mesh) -> Dict[str, str]:
-    """The errors a wrong world size and the unported hr route raise."""
+    """The errors a wrong world size and an hr factor applied to a C of
+    the wrong height raise."""
     out = {}
+    cfg = tileqr_torch.QRConfig(nb=8, square_method="hr", mesh_shape=mesh.shape)
     for name, fn in (
             ("world", lambda: Mesh(mesh.pr + 1, mesh.pc)),
-            ("hr", lambda: tileqr_torch.qr_sharded(
-                torch.zeros((8, 8)), mesh, tileqr_torch.QRConfig(nb=8, square_method="hr")))):
+            ("hr", lambda: tileqr_torch.apply_q_sharded(tileqr_torch.qr_sharded(
+                torch.eye(16, 8, dtype=torch.float64), mesh, cfg, mode="factor"),
+                torch.zeros((9, 2), dtype=torch.float64), mesh))):
         try:
             fn()
             out[name] = "no error"
@@ -248,9 +258,88 @@ def interop_case(mesh: Mesh, factors: Dict[str, Any], c: np.ndarray, config) -> 
                 qc=tileqr_torch.apply_q_sharded(f, ct, mesh, trans=False, config=config))
 
 
+def digest(*tensors: torch.Tensor) -> str:
+    """sha256 of the tensors' bytes: equal digests on two ranks mean
+    bitwise equal values."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sharded_hr_case(mesh: Mesh, a: np.ndarray, config, c: Optional[np.ndarray] = None,
+                    device: str = "cpu", segments: Optional[int] = None,
+                    gather_factors: bool = False) -> Optional[Dict[str, Any]]:
+    """The hr sharded path on the numpy A (the same on every rank): the
+    factor (``qr_sharded``, or the driver at ``segments``), R, Qᵀ·C, Q·C
+    and Q·(Qᵀ·C) for C = c (A when None); rank 0's kernel launches and
+    plain-version calls in the factor beside ``planned_launches_hr``;
+    whether a rerun's factors are bitwise equal, and every rank's digest
+    of r_diag, t_all and health; with ``gather_factors``, every rank's
+    factors. Returns them on rank 0."""
+    dev = rank_device(device)
+    at = torch.as_tensor(a, dtype=config.dtype, device=dev)
+    ct = at if c is None else torch.as_tensor(c, dtype=config.dtype, device=dev)
+    segs = sharded_hr.SEGMENTS if segments is None else segments
+
+    def factor():
+        if segments is None:
+            return tileqr_torch.qr_sharded(at, mesh, config, mode="factor")
+        return sharded_hr.qr_sharded_factor_hr(at, mesh, config.nb, config.precision, segments)
+
+    def flat(f):
+        return [f.local, f.r_diag, f.t_all, f.health, *f.y_segs]
+
+    _build.reset_counts()
+    f = factor()
+    out = dict(launches=dict(_build.LAUNCHES), plain=dict(_build.PLAIN_CALLS),
+               planned=sharded_hr.planned_launches_hr(f.grid, f.nb, config.precision, segs),
+               segs=f.segs, health=f.health)
+    f2 = factor()
+    out["same"] = all(torch.equal(x, y) for x, y in zip(flat(f), flat(f2)))
+    del f2
+    out["replicated"] = _gather_to_list(digest(f.r_diag, f.t_all, f.health))
+    apply = dict(mesh=mesh, config=config)
+    out.update(r=tileqr_torch.assemble_r_sharded(f, mesh),
+               qtc=tileqr_torch.apply_q_sharded(f, ct, trans=True, **apply),
+               qc=tileqr_torch.apply_q_sharded(f, ct, trans=False, **apply))
+    out["qqtc"] = tileqr_torch.apply_q_sharded(f, out["qtc"], trans=False, **apply)
+    if gather_factors:
+        out["factors"] = _gather_to_list(f)
+    return out if mesh.rank == 0 else None
+
+
+def sharded_hr_guard_case(mesh: Mesh, a: np.ndarray, config) -> Optional[Dict[str, Any]]:
+    """``qr_sharded`` with square_method="hr" under the config's guard:
+    the factors' type, the warnings raised, and R beside the Householder
+    sharded driver's R on the same A."""
+    at = torch.as_tensor(a, dtype=config.dtype)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        f = tileqr_torch.qr_sharded(at, mesh, config, mode="factor")
+    hh = tileqr_torch.qr_sharded(at, mesh, dataclasses.replace(config, square_method="hh"))
+    out = dict(kind=type(f).__name__, warned=[str(w.message) for w in caught],
+               r=tileqr_torch.assemble_r_sharded(f, mesh), r_hh=hh)
+    return out if mesh.rank == 0 else None
+
+
+def sharded_hr_interop_case(mesh: Mesh, factors: Dict[str, Any], c: np.ndarray,
+                            config) -> Dict[str, Any]:
+    """tileqr's ShardedHRFactors (as numpy, every rank's buffers) carried
+    to this rank by ``interop``, then applied by the port: Qᵀ·C and Q·C."""
+    f = interop.sharded_hr_factors_from_numpy(factors, (mesh.r, mesh.c), dtype=config.dtype)
+    ct = torch.as_tensor(c, dtype=config.dtype)
+    return dict(qtc=tileqr_torch.apply_q_sharded(f, ct, mesh, trans=True, config=config),
+                qc=tileqr_torch.apply_q_sharded(f, ct, mesh, trans=False, config=config),
+                r=tileqr_torch.assemble_r_sharded(f, mesh))
+
+
 RUNNERS: Dict[str, Callable] = {
     "collectives": probe_collectives,
     "raises": raise_probe,
     "sharded": sharded_case,
     "interop": interop_case,
+    "sharded_hr": sharded_hr_case,
+    "sharded_hr_guard": sharded_hr_guard_case,
+    "sharded_hr_interop": sharded_hr_interop_case,
 }

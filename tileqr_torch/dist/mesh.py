@@ -15,13 +15,19 @@ Rank = r·pc + c holds mesh position (r, c). One row group per mesh row
   ``batch_isend_irecv``; ranks that receive nothing get zeros, as from
   ppermute, and a rank with no pair makes no call (gloo's
   ``batch_isend_irecv`` refuses an empty list);
-- ``all_gather(x, axis)``: the pieces stacked in axis-index order.
+- ``all_gather(x, axis)``: the pieces stacked in axis-index order;
+- ``psum(x, axis)`` is ``jax.lax.psum`` of an unmasked value (the sharded
+  hr driver's grams and its projection W): ``all_reduce(SUM)`` on the
+  axis group, in place. gloo's ring sums each segment on one rank and
+  copies it to the others, so every rank of the group gets the same bits
+  (``tests/test_torch_sharded_hr.py`` holds the replicated factors to
+  that).
 
 Under gloo, CUDA tensors go to the point-to-point ops and to all_gather
 through a host copy (gloo moves CUDA tensors only for broadcast and
 all_reduce, which it stages through the host itself). ``moved`` counts the
-bytes each collective moved on this rank (broadcast: the payload; ppermute:
-sent plus received; all_gather: the gathered output) and ``staged`` the
+bytes each collective moved on this rank (broadcast and psum: the payload;
+ppermute: sent plus received; all_gather: the gathered output) and ``staged`` the
 bytes this module copied between the card and the host for gloo. NCCL
 (every rank with a card of its own) moves CUDA tensors directly.
 
@@ -47,7 +53,8 @@ class Mesh:
         if pr < 1 or pc < 1:
             raise ValueError(f"mesh shape ({pr}, {pc}) must be positive")
         self.pr, self.pc = pr, pc
-        self.moved: Dict[str, int] = {"broadcast": 0, "ppermute": 0, "all_gather": 0}
+        self.moved: Dict[str, int] = {"broadcast": 0, "ppermute": 0, "all_gather": 0,
+                                      "psum": 0}
         self.staged = 0
         self._row_groups: List = []
         self._col_groups: List = []
@@ -123,6 +130,16 @@ class Mesh:
             return x
         dist.broadcast(x, src=src, group=group)
         self.moved["broadcast"] += x.numel() * x.element_size()
+        return x
+
+    def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of x over the axis group ('rows' or 'cols'), in place on
+        x, on every rank of the group; the identity on a group of one."""
+        group, members, _ = self._axis(axis)
+        if len(members) == 1:
+            return x
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        self.moved["psum"] += x.numel() * x.element_size()
         return x
 
     def ppermute_rows(self, x: torch.Tensor, pairs: Iterable[Tuple[int, int]]) -> torch.Tensor:

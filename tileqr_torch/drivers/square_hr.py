@@ -231,16 +231,20 @@ def orgqr_hr(panels: Tuple, mp: int, nb: int, ncols: int,
     return q
 
 
-def pad_for_hr(a: torch.Tensor, nb: int) -> Tuple[torch.Tensor, Tuple[int, int]]:
+def pad_for_hr(a: torch.Tensor, nb: int, row_mult: Optional[int] = None,
+               col_mult: Optional[int] = None) -> Tuple[torch.Tensor, Tuple[int, int]]:
     """Pad (M, N) to nb multiples for the hr driver, into a new buffer.
     Zero row padding is exact; padded columns carry an α·identity block on
     otherwise-zero padding rows (α = the exact power of two at or above
     max|A|), so the last panel's gram stays nonsingular and the padded
-    columns factor to unit reflectors without touching R's real block."""
+    columns factor to unit reflectors without touching R's real block.
+    row_mult/col_mult replace nb as the padding multiples: the sharded hr
+    driver pads to nb·pr × nb·pc, so that every rank's block-cyclic local
+    matrix has the same shape."""
     m, n = a.shape
-    np_ = round_up(n, nb)
+    np_ = round_up(n, col_mult or nb)
     col_pad = np_ - n
-    mp = round_up(m + col_pad, nb) if col_pad else round_up(m, nb)
+    mp = round_up(m + col_pad, row_mult or nb) if col_pad else round_up(m, row_mult or nb)
     ap = a.new_zeros((mp, np_))
     ap[:m, :n] = a
     if col_pad:

@@ -8,9 +8,10 @@ static driver's ``QRFactors`` (``packed``, ``r_diag``, ``t_geqrt``,
 (``packed_leaves``, ``t_leaves``, ``levels`` as (pk, tl, count, arity),
 ``r``, ``leaf_rows``, ``shape``, ``plan``) between numpy arrays and the
 port's torch tensors, so that either package can consume factors the
-other made; and the dynamic sharded driver's ``ShardedDynFactors``, whose
-per-device buffers carry leading (pr, pc) axes, to and from the port's
-per-rank ``ShardedFactors``. Neither direction imports
+other made; and the dynamic sharded driver's ``ShardedDynFactors`` and
+the hr sharded driver's ``ShardedHRFactors``, whose per-device buffers
+carry leading (pr, pc) (or, for Y, (pr,)) axes, to and from the port's
+per-rank ``ShardedFactors`` and ``ShardedHRFactors``. Neither direction imports
 jax: the JAX side is reached through ``numpy.asarray`` on its arrays.
 """
 
@@ -21,7 +22,7 @@ from typing import Any, Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from tileqr_torch.api import HRFactors, QRFactors, ShardedFactors, TSQRFactors
+from tileqr_torch.api import HRFactors, QRFactors, ShardedFactors, ShardedHRFactors, TSQRFactors
 
 # ShardedFactors' per-rank buffers: (pr, pc, ...)-stacked in ShardedDynFactors
 _SHARDED_BUFFERS = ("local", "v_heads", "tg_all", "t2_heads", "v_chunks", "t2_chunks",
@@ -171,3 +172,48 @@ def sharded_factors_to_numpy(fs: Sequence[ShardedFactors]) -> Dict[str, Any]:
     out.update(r_diag=n(f0.r_diag), nb=f0.nb, chunk=f0.chunk, shape=tuple(f0.shape),
                grid=tuple(f0.grid))
     return out
+
+
+def sharded_hr_factors_from_numpy(f: Any, coords: Tuple[int, int], device=None,
+                                  dtype=None) -> ShardedHRFactors:
+    """tileqr's ``ShardedHRFactors`` (a mapping or NamedTuple: ``local``
+    (pr, pc, lm, ln), ``y_segs`` each (pr, ke − ks, h_s, nb), ``r_diag``,
+    ``t_all``, ``health``, ``nb``, ``shape``, ``grid``, ``segs``) → rank
+    ``coords`` = (r, c)'s ``ShardedHRFactors`` on ``device``."""
+    d = f._asdict() if hasattr(f, "_asdict") else dict(f)
+    r, c = coords
+
+    def t(x):
+        return torch.as_tensor(np.array(x), device=device, dtype=dtype)
+
+    return ShardedHRFactors(
+        local=t(np.asarray(d["local"])[r, c]), r_diag=t(d["r_diag"]), t_all=t(d["t_all"]),
+        y_segs=tuple(t(np.asarray(y)[r]) for y in d["y_segs"]), nb=int(d["nb"]),
+        shape=tuple(int(s) for s in d["shape"]), grid=tuple(int(g) for g in d["grid"]),
+        segs=tuple(tuple(int(v) for v in s) for s in d["segs"]),
+        health=_scalar_from(d.get("health"), t), coords=(int(r), int(c)),
+    )
+
+
+def sharded_hr_factors_to_numpy(fs: Sequence[ShardedHRFactors]) -> Dict[str, Any]:
+    """Every rank's ``ShardedHRFactors``, in rank order → a dict of numpy
+    arrays under tileqr's ``ShardedHRFactors`` field names, ``local``
+    stacked on (pr, pc) and each Y segment on (pr,) (mesh column 0's: Y is
+    replicated along 'cols'); ``tileqr.drivers.sharded_hr.ShardedHRFactors(**d)``
+    rebuilds the JAX record."""
+    f0 = fs[0]
+    pr, pc = f0.grid[2:]
+    if [tuple(f.coords) for f in fs] != [(r, c) for r in range(pr) for c in range(pc)]:
+        raise ValueError("sharded_hr_factors_to_numpy takes every rank's factors in rank order")
+
+    def n(x):
+        return x.detach().cpu().numpy()
+
+    return dict(
+        local=np.stack([n(f.local) for f in fs]).reshape((pr, pc) + tuple(f0.local.shape)),
+        r_diag=n(f0.r_diag), t_all=n(f0.t_all),
+        y_segs=tuple(np.stack([n(fs[r * pc].y_segs[i]) for r in range(pr)])
+                     for i in range(len(f0.segs))),
+        nb=f0.nb, shape=tuple(f0.shape), grid=tuple(f0.grid), segs=tuple(f0.segs),
+        health=_scalar_to(f0.health),
+    )

@@ -41,16 +41,20 @@ TS_KERNELS = ("geqrt_batched",)
 APPLY_KERNELS = ("panel_apply",)
 # B15's TTQRT, the combine of the sharded tree
 SHARDED_KERNELS = ("ttqrt",)
+# B7's halves, the sharded hr driver's update with its sum over mesh rows
+# between them
+SHARDED_HR_KERNELS = ("panel_project", "panel_sub")
 # TPU kernels that the sharded path runs on another's CUDA kernel, each
 # launch counted under the TPU kernel's name instead of the CUDA kernel's:
 # B13 panel_head is K1 on a rank's panel column, B15 ssrfb (the strip
 # tree's TTMQR) is K3 with one couple, keyed by mode as K3 is
 SITE_KERNELS = ("panel_head", "ssrfb")
 # the kernels with a split-product instantiation per emulated mode
-MODE_KERNELS = ("couple_strip", "larfb_strip", "panel_apply_carry", "panel_apply")
+MODE_KERNELS = ("couple_strip", "larfb_strip", "panel_apply_carry", "panel_apply",
+                "panel_project", "panel_sub")
 EMULATED_MODES = ("b3", "b4", "default")
 KERNELS = (HH_KERNELS + HR_KERNELS + TS_KERNELS + APPLY_KERNELS + SHARDED_KERNELS
-           + SITE_KERNELS
+           + SHARDED_HR_KERNELS + SITE_KERNELS
            + tuple(f"{k}[{m}]" for k in MODE_KERNELS + ("ssrfb",) for m in EMULATED_MODES))
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}

@@ -1,6 +1,7 @@
 """The whole-panel block-reflector apply: B6, the hr driver's in-place
-trailing update, and B7, the value-level apply of the hr ``apply_q`` and
-``orgqr``.
+trailing update, B7, the value-level apply of the hr ``apply_q`` and
+``orgqr``, and B7's two halves, which the sharded hr driver calls with its
+sum over the mesh rows between them.
 
 Counterparts of ``tileqr/kernels/panel_apply.py``:
 
@@ -9,7 +10,10 @@ Counterparts of ``tileqr/kernels/panel_apply.py``:
 - ``panel_apply`` (B7): C ← (I − Y·T·Yᵀ)^{T?} · C for an (m, n) C, m and n
   multiples of nb; here C may be any view with unit column stride (a
   window of a larger matrix), updated in place through its leading
-  dimension.
+  dimension;
+- ``panel_project`` (B7a): W = Σᵢ Yᵢᵀ Cᵢ, phase 1 without op(T), over row
+  blocks of ``_block(m, nb, 512)`` rows;
+- ``panel_sub`` (B7b): C ← C − Y·W in place, phase 2 alone.
 
 Both run two phases, a barrier between them (every row block of Y
 contributes to W before any C block is updated):
@@ -17,7 +21,8 @@ contributes to W before any C block is updated):
   phase 1: W = op(T) · Σᵢ Yᵢᵀ Cᵢ over row blocks of ``mr`` rows, in
            order, with Kahan-compensated fp32 accumulation across the
            blocks (``_kahan_add``); mr = ``_block(m, nb, 512)`` for B6 and
-           ``_block(m, nb, 1024)`` for B7, the reference's targets;
+           B7a and ``_block(m, nb, 1024)`` for B7, the reference's
+           targets (mr sets the order of the sums, so the values);
   phase 2: C ← C − Y · W.
 
 ``precision`` (``kernels/common.py``) sets the product of Yᵢᵀ Cᵢ and of
@@ -88,42 +93,64 @@ def _check_value(y, t, c):
     return m, n, nb
 
 
-def _apply_plain(y, t, c, mr: int, trans: bool, precision: str) -> None:
-    """The two phases in torch, in place on the (m, n) view c."""
-    m = y.shape[0]
+def _project_plain(y, c, mr: int, precision: str) -> torch.Tensor:
+    """Phase 1 without op(T) in torch: Σᵢ Yᵢᵀ Cᵢ, Kahan-summed in order."""
     acc = c.new_zeros((y.shape[1], c.shape[1]))
     comp = c.new_zeros(acc.shape)
-    for r0 in range(0, m, mr):
+    for r0 in range(0, y.shape[0], mr):
         val = dot_t(y[r0 : r0 + mr], c[r0 : r0 + mr], precision)
         yk = val - comp
         tk = acc + yk
         comp = (tk - acc) - yk
         acc = tk
+    return acc
+
+
+def _apply_plain(y, t, c, mr: int, trans: bool, precision: str) -> None:
+    """The two phases in torch, in place on the (m, n) view c."""
     tm = t.T if trans else t
-    c -= dot(y, tm @ acc, precision)
+    c -= dot(y, tm @ _project_plain(y, c, mr, precision), precision)
 
 
-def _apply_kernel(y, t, c, mr: int, trans: bool, precision: str) -> None:
-    """Launch both phases on the (m, n) view c, in place."""
-    _build.require_fp32(y, t, c)
+def _require_kernel(y, c, nb: int, precision: str) -> None:
+    """The checks of every launch: fp32, Y contiguous, C row-major, an nb
+    the mode's instantiation takes."""
+    _build.require_fp32(y, c)
     _build.require_contiguous(y=y)
     _build.require_row_major(c=c)
-    m, nb = y.shape
-    n = c.shape[1]
     if not kernel_takes(nb, precision):
         raise ValueError(
             f"the panel apply kernels take nb a multiple of 32, <= 256 in 'highest' and nb "
             f"<= {BX_MAX_NB} in the split modes; got nb={nb} in {precision!r}")
-    passes = passes_of(precision)
-    tm = (t.T if trans else t).contiguous()
+
+
+def _launch_project(y, tm, c, mr: int, precision: str) -> torch.Tensor:
+    """Phase 1 on the card: W (nb, n) = tm·Σᵢ Yᵢᵀ Cᵢ, or the bare sum when
+    tm is None."""
+    m, nb = y.shape
+    n = c.shape[1]
     w = torch.empty((nb, n), dtype=c.dtype, device=c.device)
-    lib = _build.lib()
-    rc = lib.tq_panel_project(y.data_ptr(), tm.data_ptr(), c.data_ptr(), c.stride(0), m, n,
-                              nb, mr, w.data_ptr(), passes, _build.stream())
+    rc = _build.lib().tq_panel_project(y.data_ptr(), _build.ptr(tm), c.data_ptr(), c.stride(0),
+                                       m, n, nb, mr, w.data_ptr(), passes_of(precision),
+                                       _build.stream())
     _build.check(rc, "panel_project")
-    rc = lib.tq_panel_sub(y.data_ptr(), w.data_ptr(), c.data_ptr(), c.stride(0), m, n, nb,
-                          passes, _build.stream())
+    return w
+
+
+def _launch_sub(y, w, c, precision: str) -> None:
+    """Phase 2 on the card: C −= Y·W in place."""
+    m, nb = y.shape
+    rc = _build.lib().tq_panel_sub(y.data_ptr(), w.data_ptr(), c.data_ptr(), c.stride(0), m,
+                                   c.shape[1], nb, passes_of(precision), _build.stream())
     _build.check(rc, "panel_sub")
+
+
+def _apply_kernel(y, t, c, mr: int, trans: bool, precision: str) -> None:
+    """Launch both phases on the (m, n) view c, in place."""
+    _require_kernel(y, c, y.shape[1], precision)
+    _build.require_fp32(t)
+    tm = (t.T if trans else t).contiguous()
+    _launch_sub(y, _launch_project(y, tm, c, mr, precision), c, precision)
 
 
 def panel_apply_carry_plain(y, t, carry, k: int, nb: int, trans: bool = True,
@@ -176,4 +203,67 @@ def panel_apply(y: torch.Tensor, t: torch.Tensor, c: torch.Tensor, trans: bool =
         return c
     _apply_kernel(y, t, c, _block(m, nb, 1024), trans, precision)
     _build.LAUNCHES[counter_key("panel_apply", precision)] += 1
+    return c
+
+
+def _check_half(y, c, what: str):
+    """(m, n, nb) of a B7a/B7b call: c rows must be y's (the reference's
+    ValueError), both extents multiples of nb."""
+    if y.dim() != 2 or c.dim() != 2:
+        raise ValueError(f"{what}: y must be (m, nb) and c 2-D")
+    m, nb = y.shape
+    mc, n = c.shape
+    if mc != m:
+        raise ValueError(f"c rows {mc} != y rows {m}")
+    if m % nb or n % nb:
+        raise ValueError(f"{what}: c {tuple(c.shape)} extents must be multiples of nb={nb}")
+    return m, n, nb
+
+
+def panel_project_plain(y, c, precision: str = "b3") -> torch.Tensor:
+    """Plain torch B7a."""
+    _build.PLAIN_CALLS[counter_key("panel_project", precision)] += 1
+    m, _, nb = _check_half(y, c, "panel_project")
+    return _project_plain(y, c, _block(m, nb, 512), precision)
+
+
+def panel_project(y: torch.Tensor, c: torch.Tensor, precision: str = "b3") -> torch.Tensor:
+    """W (nb, n) = Yᵀ·C, Kahan-summed over row blocks of
+    ``_block(m, nb, 512)`` rows, in the precision mode: the projection half
+    of the whole-panel apply, so that a sum over the mesh rows can sit
+    between it and ``panel_sub`` (the sharded hr driver's update).
+    y: (m, nb) contiguous; c: (m, n) with unit column stride."""
+    passes_of(precision)
+    if not _build.is_cuda(y, c):
+        return panel_project_plain(y, c, precision)
+    m, n, nb = _check_half(y, c, "panel_project")
+    _require_kernel(y, c, nb, precision)
+    w = _launch_project(y, None, c, _block(m, nb, 512), precision)
+    _build.LAUNCHES[counter_key("panel_project", precision)] += 1
+    return w
+
+
+def panel_sub_plain(y, w, c, precision: str = "b3"):
+    """Plain torch B7b (in place on c)."""
+    _build.PLAIN_CALLS[counter_key("panel_sub", precision)] += 1
+    _check_half(y, c, "panel_sub")
+    c -= dot(y, w, precision)
+    return c
+
+
+def panel_sub(y: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
+              precision: str = "b3") -> torch.Tensor:
+    """C ← C − Y·W in place on the (m, n) view c (the reference aliases C
+    to the output), in the precision mode; returns c. w: (nb, n)."""
+    passes_of(precision)
+    if not _build.is_cuda(y, w, c):
+        return panel_sub_plain(y, w, c, precision)
+    m, n, nb = _check_half(y, c, "panel_sub")
+    if tuple(w.shape) != (nb, n):
+        raise ValueError(f"panel_sub: w {tuple(w.shape)} must be ({nb}, {n})")
+    _require_kernel(y, c, nb, precision)
+    _build.require_fp32(w)
+    _build.require_contiguous(w=w)
+    _launch_sub(y, w, c, precision)
+    _build.LAUNCHES[counter_key("panel_sub", precision)] += 1
     return c

@@ -5,6 +5,7 @@
     python -m tileqr_torch.utils.profile --method tsqr [--n 512] [--qr]
     python -m tileqr_torch.utils.profile --method batched [--n 128]
     python -m tileqr_torch.utils.profile --method sharded [--n 16384]
+    python -m tileqr_torch.utils.profile --method sharded_hr [--n 16384] [--precision b3]
 
 Builds the kernels, runs ``qr_factor`` (or, with ``--qr``, ``qr``) once
 warm on a gaussian fp32 (n, n) A made from ``--seed``, then once more under
@@ -15,7 +16,9 @@ BASELINE's configs 3 and 4 at the default n. ``--method sharded`` spawns
 a 4×2 world of ranks on the machine's cards (``dist/launch.py``) and
 profiles ``qr_sharded(mode="factor")`` on every rank: rank 0's kernels in
 the tables, and each rank's device and wall time, whose device times add
-up to the card's busy time when the ranks share one card. ``--precision`` sets
+up to the card's busy time when the ranks share one card; ``--method
+sharded_hr`` the same with square_method="hr" (the CholeskyQR2 sharded
+driver). ``--precision`` sets
 ``QRConfig.precision`` (default "highest"); the square paths' update and
 apply kernels then run that mode's instantiation (a template argument of
 1, 3 or 4 bf16 passes in the kernel's name).
@@ -47,11 +50,12 @@ OWN = {
     "larfb_strip_kernel": "larfb_strip",
     "modlu_kernel": "modified_lu",
     "potrf_kernel": "potrf_batched",
-    "project_kernel": "panel apply B6/B7 (phase 1)",
-    "apply_kernel": "panel apply B6/B7 (phase 2)",
-    "project_bx_kernel": "panel apply B6/B7 (phase 1, split product)",
-    "sub_bx_kernel": "panel apply B6/B7 (phase 2, split product)",
+    "project_kernel": "panel apply B6/B7/B7a (phase 1)",
+    "apply_kernel": "panel apply B6/B7/B7b (phase 2)",
+    "project_bx_kernel": "panel apply B6/B7/B7a (phase 1, split product)",
+    "sub_bx_kernel": "panel apply B6/B7/B7b (phase 2, split product)",
     "geqrt_batched_kernel": "geqrt_batched",
+    "Memcpy": "copies (Memcpy)",
     "ttqrt_kernel": "ttqrt",
 }
 
@@ -119,10 +123,11 @@ def profile_call(args, shape, n: int, tileqr_torch):
     return kernel_times(prof), wall_ms
 
 
-def sharded_rank(mesh, n: int, seed: int, precision: str):
-    """``--method sharded`` on every rank: one warm factor, then one more
-    between barriers under torch.profiler. Returns, on rank 0, rank 0's
-    (kernel times, wall ms) and every rank's (device ms, wall ms)."""
+def sharded_rank(mesh, n: int, seed: int, precision: str, method: str = "hh"):
+    """``--method sharded`` (or ``sharded_hr``: ``method`` "hr") on every
+    rank: one warm factor, then one more between barriers under
+    torch.profiler. Returns, on rank 0, rank 0's (kernel times, wall ms)
+    and every rank's (device ms, wall ms)."""
     import torch.distributed as dist
 
     import tileqr_torch
@@ -130,7 +135,8 @@ def sharded_rank(mesh, n: int, seed: int, precision: str):
     torch.backends.cuda.matmul.allow_tf32 = False
     a = torch.from_numpy(np.random.default_rng(seed).standard_normal(
         (n, n), dtype=np.float32)).cuda()
-    cfg = tileqr_torch.QRConfig(mesh_shape=mesh.shape, precision=precision)
+    cfg = tileqr_torch.QRConfig(mesh_shape=mesh.shape, precision=precision,
+                                square_method=method)
     tileqr_torch.qr_sharded(a, mesh, cfg, mode="factor")
     torch.cuda.synchronize()
     dist.barrier()
@@ -150,7 +156,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=None,
                     help="columns (default 16384 square, 512 tsqr, 128 batched)")
-    ap.add_argument("--method", choices=("hh", "hr", "tsqr", "batched", "sharded"),
+    ap.add_argument("--method", choices=("hh", "hr", "tsqr", "batched", "sharded", "sharded_hr"),
                     default="hr")
     ap.add_argument("--qr", action="store_true", help="profile qr (factor + R + Q)")
     ap.add_argument("--health", action="store_true", help="hr: print each panel's defect")
@@ -174,22 +180,25 @@ def main(argv=None) -> int:
     n = args.n or {"tsqr": 512, "batched": 128}.get(args.method, 16384)
     shape = {"tsqr": (1048576, n), "batched": (4096, n, n)}.get(args.method, (n, n))
     what = {"tsqr": "tsqr reduced" if args.qr else "tsqr r", "batched": "qr_batched",
-            "sharded": "qr_sharded factor, rank 0 of 4x2 ranks"}.get(
+            "sharded": "qr_sharded factor, rank 0 of 4x2 ranks",
+            "sharded_hr": "qr_sharded hr factor, rank 0 of 4x2 ranks"}.get(
         args.method, f"{args.method} {'qr' if args.qr else 'qr_factor'}")
     what += f" precision={args.precision}"
-    if args.method == "sharded":
+    sharded = args.method.startswith("sharded")
+    if sharded:
         from tileqr_torch.dist import launch
 
         kt, wall_ms, totals = launch.run_world(sharded_rank, 4, 2, device="cuda", kwargs=dict(
-            n=n, seed=args.seed, precision=args.precision))
+            n=n, seed=args.seed, precision=args.precision,
+            method="hr" if args.method == "sharded_hr" else "hh"))
         kt = {k: tuple(v) for k, v in kt.items()}
     else:
         kt, wall_ms = profile_call(args, shape, n, tileqr_torch)
     total = sum(ms for _, ms in kt.values())
     print(f"{what} {'x'.join(map(str, shape))}: wall {wall_ms:.3f} ms under the profiler, "
           f"device total {total:.3f} ms, idle share {max(0.0, 1 - total / wall_ms):.4f}"
-          f"{' (of rank 0 alone)' if args.method == 'sharded' else ''} [{card}]")
-    if args.method == "sharded":
+          f"{' (of rank 0 alone)' if sharded else ''} [{card}]")
+    if sharded:
         # ranks sharing one card time-slice it (no MPS): where their kernels
         # never overlap, the sum of their device times is the card's busy
         # time; a sum above the wall means the recorded spans overlap
