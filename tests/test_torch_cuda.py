@@ -60,6 +60,59 @@ def test_panel_kernels_match_plain(cuda, nb):
         assert g.shape == w.shape and rel(g, w) <= TOL
 
 
+# K1 and K2 as cluster kernels (csrc/geqrt_cluster.cuh): (nb, ib) with ib
+# = nb/2 and 128 where it divides; nb = 512 at ib = 256 keeps its active
+# block in the global workspace (cluster_plan: not resident)
+CLUSTER_GEOS = [(32, 16), (64, 32), (256, 128), (512, 256), (512, 128)]
+
+
+@pytest.mark.parametrize("nb,ib", CLUSTER_GEOS, ids=str)
+@pytest.mark.parametrize("n_couples", [0, 1, 3])
+def test_panel_factor_cluster_matches_plain(cuda, nb, ib, n_couples):
+    a = torch.from_numpy(np.random.default_rng(nb + ib).standard_normal(
+        ((1 + n_couples) * nb, nb), dtype=np.float32)).to(cuda)
+    plan = panel.cluster_plan(nb, 2 * nb if n_couples else nb, ib)
+    _build.reset_counts()
+    got = panel.panel_factor(a, 0, nb, ib, n_couples)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["panel_factor"] == 1 and not any(_build.PLAIN_CALLS.values())
+    want = panel.panel_factor_plain(a, 0, nb, ib, n_couples)
+    errs = [rel(g, w) for g, w in zip(got, want)]
+    print(f"K1 nb={nb} ib={ib} couples={n_couples} {plan}: rel {max(errs):.3e}")
+    assert all(e <= TOL for e in errs)
+    assert torch.equal(torch.tril(got[0], -1), torch.zeros_like(got[0]))
+
+
+@pytest.mark.parametrize("nb,ib", CLUSTER_GEOS, ids=str)
+@pytest.mark.parametrize("n_chunks,chunk", [(1, 1), (2, 2), (2, 4)])
+def test_panel_chain_cluster_matches_plain(cuda, nb, ib, n_chunks, chunk):
+    rng = np.random.default_rng(3 * nb + ib)
+    a = torch.from_numpy(rng.standard_normal(
+        (nb + n_chunks * chunk * nb, nb), dtype=np.float32)).to(cuda)
+    r_in = panel.panel_factor_plain(a, 0, nb, ib, 0)[0]
+    plan = panel.cluster_plan(nb, nb + chunk * nb, ib)
+    _build.reset_counts()
+    got = chain.panel_chain(a[nb:], r_in, 0, nb, 0, n_chunks, chunk * nb, ib)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["panel_chain"] == 1 and not any(_build.PLAIN_CALLS.values())
+    want = chain.panel_chain_plain(a[nb:], r_in, 0, nb, 0, n_chunks, chunk * nb, ib)
+    errs = [rel(g, w) for g, w in zip(got, want)]
+    print(f"K2 nb={nb} ib={ib} chunks={n_chunks}x{chunk * nb} {plan}: rel {max(errs):.3e}")
+    assert all(e <= TOL for e in errs)
+
+
+def test_cluster_kernels_rerun_bitwise(cuda):
+    """K1 (3 head couples) and K2 (chunk 4) at nb = 256 twice: the same bits."""
+    nb = 256
+    a = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (12 * nb, nb), dtype=np.float32)).to(cuda)
+    k1 = [panel.panel_factor(a, 0, nb, 128, 3) for _ in range(2)]
+    k2 = [chain.panel_chain(a, k1[0][0], 0, nb, 1, 2, 4 * nb, 128) for _ in range(2)]
+    torch.cuda.synchronize()
+    for x, y in (k1, k2):
+        assert all(torch.equal(u, v) for u, v in zip(x, y))
+
+
 @pytest.mark.parametrize("nb", [64, 256])
 @pytest.mark.parametrize("trans,reverse", [(True, False), (False, True), (True, True)])
 @pytest.mark.parametrize("fused", [False, True])
@@ -548,8 +601,9 @@ def tri_pair(cuda, nb, seed=0):
 @pytest.mark.parametrize("nb", [64, 256])
 def test_ttqrt_matches_plain_and_tsqrt_kernel(cuda, nb):
     """TTQRT against its plain version (1e-5) and against the TSQRT kernel
-    (K2 with one couple) on the same couple: equal up to the sign of zero,
-    since the rows past the live window only add exact zeros."""
+    (K2 with one couple) on the same couple, at the kernel tolerance: the two
+    once shared geqrt_couple's sums and were bitwise equal; K2 now runs the
+    cluster routine, whose sums go in another order."""
     from tileqr_torch.kernels import tsqrt, ttqrt
 
     r1, r2 = tri_pair(cuda, nb, nb)
@@ -561,7 +615,9 @@ def test_ttqrt_matches_plain_and_tsqrt_kernel(cuda, nb):
     assert _build.LAUNCHES["ttqrt"] == 1 and _build.LAUNCHES["panel_chain"] == 1
     for g, w, f in zip(got, want, full):
         assert rel(g, w) <= TOL
-        assert torch.equal(g, f)
+        print(f"ttqrt against tsqrt nb={nb}: rel {rel(g, f):.3e}, "
+              f"max abs {float((g - f).abs().max()):.3e}")
+        assert rel(g, f) <= TOL
     assert torch.equal(torch.tril(got[1], -1), torch.zeros_like(got[1]))
 
 

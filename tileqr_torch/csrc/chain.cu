@@ -1,11 +1,17 @@
 // K2 (panel_chain), K3 (couple_strip) and K4 (larfb_strip).
 //
 // K2 replaces tileqr/kernels/chain.py:panel_chain (_chain_kernel_factory):
-// TSQRT on n_chunks couples [R; B], B of block_rows rows, R carried. As in
-// K1 (panel.cu) the sequential TPU grid becomes a loop inside one block of
-// GEQRT_THREADS threads around geqrt_couple (geqrt.cuh); the couple, up to
-// nb x (nb + chunk*nb) fp32 = 1.25 MiB at the defaults, lives in an
-// L2-resident global workspace. Bound: latency of the column loop, one SM.
+// TSQRT on n_chunks couples [R; B], B of block_rows rows, R carried; B15's
+// tsqrt (kernels/tsqrt.py) is K2 with one couple. As in K1 (panel.cu) the
+// sequential TPU grid becomes a loop inside ONE thread-block cluster around
+// geqrt_couple_cluster (geqrt_cluster.cuh): each couple's m = nb +
+// block_rows rows (1280 at the defaults) are split over C CTAs (16 at the
+// defaults, 80 rows each; 16 for the tsqr chain's 2560 rows at nb = 512,
+// 160 each), each holding its rows of the active ib block in shared memory.
+// B's rows live in their V output between blocks, R's in r_out (seeded
+// from r_in), both in L2. Bound: latency of the column loop, now one
+// cluster barrier and a pass over rpc = m / C shared-memory rows a column
+// (geqrt.cuh's single-block design walks m rows through L2 on one SM).
 //
 // K3 replaces chain.py:couple_strip (_couple_strip_kernel_factory), the
 // SSRFB trailing sweep W = T2^T (C_top + V2^T C_bot); C_top -= W;
@@ -35,47 +41,30 @@
 // first version stages through shared memory with mma.sync and reaches
 // neither (PERF.md).
 #include "bx_mma.cuh"
-#include "geqrt.cuh"
+#include "geqrt_cluster.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(GEQRT_THREADS)
+template <bool RES>
+__global__ void __launch_bounds__(cl::CL_THREADS)
 panel_chain_kernel(const float* __restrict__ a, long long lda, const float* r_in, int k,
                    int nb, int base_block, int n_chunks, int block_rows, int ib,
                    float* r_out, float* v_chunks, float* t2, float* work) {
-  extern __shared__ float v_sh[];
-  const int tid = threadIdx.x, bd = blockDim.x;
-  const int m = nb + block_rows;
-  const long long tile2 = (long long)nb * nb;
-  float* at = work;
-  float* tt = at + (long long)nb * m;
-  float* ws = tt + tile2;
+  extern __shared__ __align__(16) float smem[];
+  const cl::Cta w = cl::carve<RES>(smem, work, nb, nb + block_rows, ib);
   for (int i = 0; i < n_chunks; ++i) {
-    const float* rsrc = (i == 0) ? r_in : r_out;
-    const float* b = a + (long long)(base_block + i) * block_rows * lda + (long long)k * nb;
-    for (long long idx = tid; idx < tile2; idx += bd) {
-      const int r = (int)(idx / nb), c = (int)(idx % nb);
-      at[(long long)c * m + r] = rsrc[idx];
-      tt[idx] = 0.f;
-    }
-    for (long long idx = tid; idx < (long long)block_rows * nb; idx += bd) {
-      const int r = (int)(idx / nb), c = (int)(idx % nb);
-      at[(long long)c * m + nb + r] = b[r * lda + c];
-    }
-    __syncthreads();
-    geqrt_couple(at, nb, m, tt, ib, ws, v_sh, nb);
-    float* v_out = v_chunks + (long long)i * block_rows * nb;
-    float* t_out = t2 + i * tile2;
-    for (long long idx = tid; idx < tile2; idx += bd) {
-      const int r = (int)(idx / nb), c = (int)(idx % nb);
-      r_out[idx] = at[(long long)c * m + r];  // strictly-lower stays exactly 0
-      t_out[idx] = tt[(long long)c * nb + r];
-    }
-    for (long long idx = tid; idx < (long long)block_rows * nb; idx += bd) {
-      const int r = (int)(idx / nb), c = (int)(idx % nb);
-      v_out[idx] = at[(long long)c * m + nb + r];
-    }
-    __syncthreads();
+    cl::Couple cp;
+    cp.nb = nb;
+    cp.m = nb + block_rows;
+    cp.r_rows = nb;
+    cp.r_src = i == 0 ? r_in : r_out;
+    cp.r_home = r_out;
+    cp.b_src = a + (long long)(base_block + i) * block_rows * lda + (long long)k * nb;
+    cp.ldb = lda;
+    cp.b_home = v_chunks + (long long)i * block_rows * nb;
+    cp.t_out = t2 + (long long)i * nb * nb;
+    cl::geqrt_couple_cluster<RES>(cp, w);
+    cl::cluster_sync_global();
   }
 }
 
@@ -354,18 +343,20 @@ int launch_larfb_strip(const float* vkk, const float* tg, float* strip, long lon
 
 }  // namespace
 
+// ctas, smem, resident: kernels/panel.py:cluster_plan(nb, nb + block_rows, ib)
 extern "C" int tq_panel_chain(const float* a, long long lda, const float* r_in, int k,
                               int nb, int base_block, int n_chunks, int block_rows, int ib,
-                              float* r_out, float* v_chunks, float* t2, float* work,
-                              void* stream) {
-  const size_t smem = sizeof(float) * (nb + block_rows);
-  cudaError_t e = cudaFuncSetAttribute(
-      panel_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  panel_chain_kernel<<<1, GEQRT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, lda, r_in, k, nb, base_block, n_chunks, block_rows, ib, r_out, v_chunks, t2,
-      work);
-  return (int)cudaGetLastError();
+                              float* r_out, float* v_chunks, float* t2, float* work, int ctas,
+                              long long smem, int resident, void* stream) {
+  const int rows = nb + block_rows;
+  if (!cl::smem_matches(nb, rows, ib, ctas, resident, smem)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (resident)
+    return cl::launch_cluster(panel_chain_kernel<true>, ctas, (size_t)smem, st, a, lda, r_in, k,
+                              nb, base_block, n_chunks, block_rows, ib, r_out, v_chunks, t2,
+                              work);
+  return cl::launch_cluster(panel_chain_kernel<false>, ctas, (size_t)smem, st, a, lda, r_in, k,
+                            nb, base_block, n_chunks, block_rows, ib, r_out, v_chunks, t2, work);
 }
 
 // passes: 0 ("highest"), 1 ("default"), 3 ("b3"/"high") or 4 ("b4")
@@ -401,3 +392,7 @@ extern "C" int tq_larfb_strip(const float* vkk, const float* tg, float* strip, l
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+#ifdef TQ_CL_STAGES
+extern "C" int tq_cl_stages_chain(unsigned long long* out) { return cl::read_stages(out); }
+#endif

@@ -1,9 +1,11 @@
 // GEQRT of one stacked couple, as a device routine for one thread block.
 //
 // Replaces tileqr/kernels/geqrt.py:geqrt_in_refs, the Householder column
-// loop inside the TPU panel kernels (panel.py:panel_factor and
-// chain.py:panel_chain). Contract, step by step as the JAX body (and its
-// plain torch version, tileqr_torch/kernels/geqrt.py):
+// loop inside the TPU kernels, for the kernels that run it on ONE block:
+// TTQRT (ttqrt.cu) and the batched GEQRT (geqrt_batched.cu). K1 and K2
+// (panel.cu, chain.cu) run the same contract on a thread-block cluster
+// (geqrt_cluster.cuh). Contract, step by step as the JAX body
+// (and its plain torch version, tileqr_torch/kernels/geqrt.py):
 //   - the couple is held transposed: row j of `at` (n rows of m floats) is
 //     column j of the (m x n) couple [R; B];
 //   - LARFG with no rescaling: sgn = +1 when alpha >= 0, beta = -sgn*||x||,
@@ -18,16 +20,16 @@
 //
 // What bounds it on the H100: latency. Each column depends on the one
 // before it, so the loop is a chain of block-wide reductions and barriers
-// (two per column) on ONE SM; the couple (<= 1.25 MiB at nb=256, chunk=4)
-// does not fit one SM's 227 KB of shared memory and is streamed from L2.
+// (two per column) on ONE SM; a couple larger than one SM's 227 KB of
+// shared memory is streamed from L2.
 // What the design does about it: one block of 1024 threads; the couple and
 // small work matrices live in a global workspace that stays in the 50 MB
-// L2; shared memory holds only the current reflector v, the reduction
-// partials and the tiles of the block-wide fp32 FMA GEMM below. In the
-// rank-1 phase each warp owns whole columns, so it needs no barrier inside.
-// Arithmetic is IEEE fp32 FMA on CUDA cores (precision "highest", never
-// TF32). Faster designs (thread-block clusters with DSMEM holding the
-// couple, or spreading the block apply over many blocks) are later work.
+// L2 (or in shared memory, where the batched GEQRT's tile fits); shared
+// memory holds the current reflector v, the reduction partials and the
+// tiles of the block-wide fp32 FMA GEMM below. In the rank-1 phase each
+// warp owns whole columns, so it needs no barrier inside. Arithmetic is
+// IEEE fp32 FMA on CUDA cores (precision "highest", never TF32). The
+// cluster routine is the faster design for TTQRT too (a later PR).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,0 +1,655 @@
+// GEQRT of a sequence of stacked couples by ONE thread-block cluster: the
+// device routine of K1 (panel.cu) and K2 (chain.cu).
+//
+// Replaces, for those two kernels, tileqr/kernels/geqrt.py:geqrt_in_refs,
+// the Householder column loop inside tileqr/kernels/panel.py:panel_factor
+// and tileqr/kernels/chain.py:panel_chain. The algebra is the one of
+// geqrt.cuh and of the plain version (tileqr_torch/kernels/geqrt.py:
+// geqrt_in_place): LARFG with no rescaling, rank-1 updates inside the
+// ib-column block, the block's T by the doubling recurrence
+// T <- T - T (G o M) T from G = Vb^T Vb, one block-reflector apply to the
+// columns right of the block, the off-diagonal T as -T1 (V1^T Vb) Tb.
+//
+// What bounds it on the H100: latency. Each column depends on the one
+// before it, and a couple (m = nb + rows fp32 rows: 1280 x 256 = 1.25 MiB
+// in K2 at the defaults, 2560 x 512 = 5 MiB in the tsqr chain at nb = 512)
+// is larger than one SM's 227 KB of shared memory. The single-block design
+// (geqrt.cuh) streamed it from L2 on one SM.
+//
+// The design: one cluster of C CTAs (C in {1, 2, 4, 8, 16}, CL_THREADS
+// threads each, chosen by kernels/panel.py:cluster_plan from nb, m and
+// ib) holds the couple's rows, split contiguously: CTA q owns couple rows
+// [q*rpc, (q+1)*rpc), rpc = ceil(m / C), so the carried R (the top nb rows)
+// sits on the first CTAs. Every row is walked, R's zero rows too, as the
+// plain version walks them (K2 takes any r_in), so the split is balanced.
+//   - While ib-block [s, s+ibk) is eliminated, each CTA holds its rows of
+//     that block in its own shared memory (the slab, row stride ib + 1).
+//     The columns right of the block stay in global memory (L2): only the
+//     block apply reads and writes them, once per block; the next block is
+//     loaded from there when its turn comes. The outputs are the homes of
+//     the couple between blocks: the B rows live in the V output, the R
+//     rows in r_out, which also carries R from one couple to the next
+//     (L2-resident; the slab buffer is reused by every block, so R is not
+//     kept in shared memory across couples).
+//   - The column loop, with ONE cluster barrier per column: each CTA
+//     reduces over its rows the tail norm of column j and the raw dots
+//     y_c . x of the block's remaining columns with x = column j below the
+//     diagonal (each active column's rows split over up to GRP_MAX threads,
+//     their partials added in group order). It stores these partials, and
+//     the owner of row j that row's values (alpha and y_c[j]), into EVERY
+//     CTA's shared memory (cluster.map_shared_rank; posted stores, double-
+//     buffered by column parity). After cluster.sync() every CTA adds the C
+//     partials in rank order 0..C-1 from its own shared memory, so every
+//     CTA holds the same bits, with no atomics. Then y_c . v = y_c[j] +
+//     scale * sum_{r>j} y_c[r] x[r] (the plain version rounds v = x*scale
+//     first: an O(eps) difference, held to the kernel tolerance), and the
+//     rank-1 update is local to each CTA's rows.
+//   - Block T and the apply: P = Vb^T [V_prev | Vb | A_rest] (ibk x n: the
+//     off-diagonal T's Z^T, G and W in one product) is a partial per CTA
+//     over its rows, computed in column chunks of CL_CW into shared memory
+//     and reduced the same way (each CTA sums its share of the chunk's
+//     entries over the ranks in order and writes it to an L2 buffer that
+//     all CTAs read). Every CTA then builds Tb from G (the same bits on
+//     each; G sits in the slab's place meanwhile, Vb being in its home),
+//     reloads Vb, computes W2 = Tb^T W chunk by chunk and applies
+//     A_rest -= Vb W2 to its own rows. The off-diagonal T's rows are dealt
+//     out over the CTAs. The products run through cta_gemm (128 x 64
+//     tiles, 4 x 4 outputs a thread, the next step's operands loaded
+//     before this step's FMAs).
+//   - Arithmetic is IEEE fp32 FMA on the CUDA cores in every precision
+//     mode: no TF32, no tensor cores.
+//   - No prefetch of the next couple's tile (cp.async.bulk / TMA): not
+//     done in this version; each block is loaded when its turn comes.
+// On the H100 (PERF.md, utils/cluster_stages.py) the column loop is still
+// two thirds of the time; its exchange stage (the stores, the barrier and
+// the wait for the slowest CTA) is about half of that, the rest short
+// latency-bound loops over shared memory. C = 16 is a non-portable cluster
+// size, allowed on the function and checked with
+// cudaOccupancyMaxActiveClusters before the launch.
+// Where the slab, Tb and the work buffer do not fit 227 KB at any C (ib
+// = 256 and up, or very long couples), the same code runs with them in a
+// per-CTA global workspace (template RES = false); only the column
+// partials then stay in shared memory.
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+namespace {
+namespace cl {
+
+namespace cg = cooperative_groups;
+
+constexpr int CL_THREADS = 512;
+constexpr int CL_CW = 64;     // columns of a P or W2 chunk
+constexpr int GI = 128;       // cta_gemm output tile: GI rows x GJ columns
+constexpr int GJ = 64;
+constexpr int GK = 16;        // cta_gemm contraction step
+constexpr int GRP_MAX = 32;   // threads a column's rows are split over, at most
+
+// Float counts of one CTA's buffers (kernels/panel.py:cluster_plan mirrors
+// them): slab, Tb, work buffer (P chunk, W2 chunk, the doubling's X, the
+// off-diagonal rows), staging, column partials, group partials, taus.
+struct Sizes {
+  long long slab, tb, ybuf;
+  int stage, part, red, tau;
+};
+
+__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+__host__ __device__ inline Sizes sizes(int nb, int rows, int ib, int ctas) {
+  Sizes z;
+  const int rpc = ceil_div(rows, ctas);
+  int pow2 = 1;  // the doubling's widest half block
+  while (2 * pow2 < ib) pow2 *= 2;
+  int ycols = CL_CW;
+  if (pow2 > ycols) ycols = pow2;
+  if (ceil_div(nb, ctas) > ycols) ycols = ceil_div(nb, ctas);
+  // the slab also holds G (ib x (ib + 1)) while Tb is built
+  z.slab = (long long)(rpc > ib ? rpc : ib) * (ib + 1);
+  z.tb = (long long)ib * (ib + 1);
+  z.ybuf = (long long)ib * ycols;
+  z.stage = GK * (GI + GJ);
+  z.part = 2 * (ctas + 1) * ib;
+  z.red = ib > CL_THREADS ? ib : CL_THREADS;
+  z.tau = ib + 2;
+  return z;
+}
+
+__host__ __device__ inline long long smem_floats(const Sizes& z, bool res) {
+  const long long small = (long long)z.stage + z.part + z.red + z.tau;
+  return res ? z.slab + z.tb + z.ybuf + small : small;
+}
+
+// global floats: the reduced P (ib x nb), then per CTA the slab, Tb and
+// work buffer where they are not resident
+__host__ __device__ inline long long ws_floats(int nb, int rows, int ib, int ctas, bool res) {
+  const Sizes z = sizes(nb, rows, ib, ctas);
+  return (long long)ib * nb + (res ? 0 : (long long)ctas * (z.slab + z.tb + z.ybuf));
+}
+
+// One CTA's view of its buffers.
+struct Cta {
+  float* slab;   // rpc x (ib + 1): its rows of the active block
+  float* tb;     // ibk x (ib + 1): Tb^T (lower triangular)
+  float* ybuf;   // work buffer
+  float* stage;  // cta_gemm staging
+  float* part;   // 2 x (C + 1) x ib: every CTA's column partials and row j,
+                 // by column parity
+  float* red;    // group partials of the column loop
+  float* tau;    // the block's taus
+  float* sc;     // scale and beta of the column just eliminated
+  float* pred;   // global: reduced P, ib x nb
+  long long ypeer;  // floats between two CTAs' work buffers (RES = false)
+  int ld;        // ib + 1
+  int ib;
+  int rank, ctas;
+};
+
+// The couple's rows: R (r_rows rows, 0 or nb) on top of B. Before the first
+// block of a couple the rows are read from their sources, afterwards from
+// their homes (which are outputs).
+struct Couple {
+  int m, r_rows, nb;
+  const float* r_src;  // R rows at block 0 (row stride nb)
+  float* r_home;       // R rows' home (row stride nb)
+  const float* b_src;  // B rows at block 0 (row stride ldb)
+  long long ldb;
+  float* b_home;       // B rows' home (row stride nb)
+  float* t_out;        // T (nb x nb, row-major, upper triangular)
+};
+
+__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
+
+// Stage timer, compiled only with TQ_CL_STAGES (utils/cluster_stages.py
+// builds the kernels so and prints the split): thread 0 of CTA 0 adds each
+// stage's globaltimer nanoseconds to cl_stage_ns: 0 the slab's load and
+// store, 1 P and its reduction, 2 Tb, 3 the off-diagonal T, 4 the apply;
+// in the column loop 5 the dots, 6 the partials' exchange and the cluster
+// barrier, 7 LARFG and the rank-1 update.
+#ifdef TQ_CL_STAGES
+__device__ unsigned long long cl_stage_ns[8];
+__device__ unsigned long long cl_stage_last;
+#define CL_STAGE(i)                                                              \
+  do {                                                                           \
+    if (threadIdx.x == 0 && cg::this_cluster().block_rank() == 0) {              \
+      unsigned long long t_;                                                     \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                     \
+      if ((i) >= 0) cl_stage_ns[(i) < 0 ? 0 : (i)] += t_ - cl_stage_last;        \
+      cl_stage_last = t_;                                                        \
+    }                                                                            \
+  } while (0)
+#else
+#define CL_STAGE(i) \
+  do {              \
+  } while (0)
+#endif
+
+__device__ __forceinline__ float src_at(const Couple& cp, int g, int c, bool first) {
+  if (g < cp.r_rows)
+    return ldcg((first ? cp.r_src : cp.r_home) + (long long)g * cp.nb + c);
+  const int b = g - cp.r_rows;
+  return first ? ldcg(cp.b_src + b * cp.ldb + c) : ldcg(cp.b_home + (long long)b * cp.nb + c);
+}
+
+__device__ __forceinline__ float* home_at(const Couple& cp, int g, int c) {
+  return g < cp.r_rows ? cp.r_home + (long long)g * cp.nb + c
+                       : cp.b_home + (long long)(g - cp.r_rows) * cp.nb + c;
+}
+
+// reflector element: V(g, c) = 1 on the diagonal, 0 above, the packed value below
+__device__ __forceinline__ float vmask(int g, int c, float packed) {
+  return g == c ? 1.f : (g < c ? 0.f : packed);
+}
+
+// A barrier of the whole cluster that also publishes global writes to the
+// other CTAs (their reads go through L2, ldcg).
+__device__ __forceinline__ void cluster_sync_global() {
+  __threadfence();
+  cg::this_cluster().sync();
+}
+
+// Out (I x J) = sum_k a(k, i) b(k, j), k ascending in each output's one
+// sequential sum; store(i, j, value). By the whole CTA (CL_THREADS): GI x
+// GJ output tiles, each thread 4 x 4 outputs (rows ty + 32h, columns tx +
+// 16q), K in steps of GK staged in shared memory.
+template <class FA, class FB, class FS>
+__device__ void cta_gemm(int I, int J, int K, FA a, FB b, FS store, float* stage) {
+  float* As = stage;            // GK x GI: As[kk][ii] = a(k0 + kk, i0 + ii)
+  float* Bs = stage + GK * GI;  // GK x GJ: Bs[kk][jj] = b(k0 + kk, j0 + jj)
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  constexpr int SA = GK * GI / CL_THREADS, SB = GK * GJ / CL_THREADS;
+  for (int i0 = 0; i0 < I; i0 += GI) {
+    for (int j0 = 0; j0 < J; j0 += GJ) {
+      float acc[4][4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[h][q] = 0.f;
+      // the next step's operands are loaded into registers before this
+      // step's products, so their latency (L2 for the global operands)
+      // overlaps the FMAs
+      float ra[SA], rb[SB];
+      auto fetch = [&](int k0) {
+#pragma unroll
+        for (int h = 0; h < SA; ++h) {
+          const int idx = tid + h * CL_THREADS, kk = idx / GI, e = idx % GI;
+          ra[h] = (k0 + kk < K && i0 + e < I) ? a(k0 + kk, i0 + e) : 0.f;
+        }
+#pragma unroll
+        for (int h = 0; h < SB; ++h) {
+          const int idx = tid + h * CL_THREADS, kk = idx / GJ, e = idx % GJ;
+          rb[h] = (k0 + kk < K && j0 + e < J) ? b(k0 + kk, j0 + e) : 0.f;
+        }
+      };
+      if (K > 0) fetch(0);
+      for (int k0 = 0; k0 < K; k0 += GK) {
+#pragma unroll
+        for (int h = 0; h < SA; ++h) As[tid + h * CL_THREADS] = ra[h];
+#pragma unroll
+        for (int h = 0; h < SB; ++h) Bs[tid + h * CL_THREADS] = rb[h];
+        __syncthreads();
+        if (k0 + GK < K) fetch(k0 + GK);
+        const int kend = min(GK, K - k0);
+        for (int kk = 0; kk < kend; ++kk) {
+          float av[4], bv[4];
+#pragma unroll
+          for (int h = 0; h < 4; ++h) av[h] = As[kk * GI + ty + 32 * h];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) bv[q] = Bs[kk * GJ + tx + 16 * q];
+#pragma unroll
+          for (int h = 0; h < 4; ++h)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[h][q] = fmaf(av[h], bv[q], acc[h][q]);
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int i = i0 + ty + 32 * h;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = j0 + tx + 16 * q;
+          if (i < I && j < J) store(i, j, acc[h][q]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+
+// Split the kernel's buffers: `smem` is the dynamic shared memory, `work`
+// the global workspace of ws_floats(nb, rows, ib, C, RES) floats.
+template <bool RES>
+__device__ Cta carve(float* smem, float* work, int nb, int rows, int ib) {
+  cg::cluster_group cluster = cg::this_cluster();
+  Cta w;
+  w.rank = (int)cluster.block_rank();
+  w.ctas = (int)cluster.num_blocks();
+  w.ld = ib + 1;
+  w.ib = ib;
+  const Sizes z = sizes(nb, rows, ib, w.ctas);
+  CL_STAGE(-1);
+  w.pred = work;
+  float* p = smem;
+  w.ypeer = z.slab + z.tb + z.ybuf;
+  float* big = RES ? smem : work + (long long)ib * nb + w.rank * w.ypeer;
+  w.slab = big;
+  w.tb = w.slab + z.slab;
+  w.ybuf = w.tb + z.tb;
+  if (RES) p += w.ypeer;
+  w.stage = p;
+  w.part = w.stage + z.stage;
+  w.red = w.part + z.part;
+  w.tau = w.red + z.red;
+  w.sc = w.tau + ib;
+  return w;
+}
+
+// entry e of every CTA's work buffer, summed in rank order (the loads
+// issued together, then added)
+template <bool RES>
+__device__ __forceinline__ float sum_ranks(const Cta& w, int e) {
+  float v[16];
+#pragma unroll
+  for (int p = 0; p < 16; ++p) {
+    if (p < w.ctas) {
+      if constexpr (RES) v[p] = cg::this_cluster().map_shared_rank(w.ybuf, p)[e];
+      else v[p] = ldcg(w.ybuf + (long long)(p - w.rank) * w.ypeer + e);
+    }
+  }
+  float t = 0.f;
+#pragma unroll
+  for (int p = 0; p < 16; ++p)
+    if (p < w.ctas) t += v[p];
+  return t;
+}
+
+// sum_{r in [r, hi)} y[r] x[r] into acc, rows in order; four rows' loads
+// are issued before their FMAs (the same sequential sum)
+__device__ __forceinline__ float dot_rows(const float* slab, int ld, int c, int jj, int r,
+                                          int hi, float acc) {
+  for (; r + 4 <= hi; r += 4) {
+    float y[4], x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      y[i] = slab[(r + i) * ld + c];
+      x[i] = slab[(r + i) * ld + jj];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc = fmaf(y[i], x[i], acc);
+  }
+  for (; r < hi; ++r) acc = fmaf(slab[r * ld + c], slab[r * ld + jj], acc);
+  return acc;
+}
+
+// y[r] -= tw * (x[r] * scale) over rows [r, hi), four rows a step
+__device__ __forceinline__ void update_rows(float* slab, int ld, int c, int jj, int r, int hi,
+                                            float tw, float scale) {
+  for (; r + 4 <= hi; r += 4) {
+    float y[4], x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      y[i] = slab[(r + i) * ld + c];
+      x[i] = slab[(r + i) * ld + jj];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) slab[(r + i) * ld + c] = y[i] - tw * (x[i] * scale);
+  }
+  for (; r < hi; ++r) slab[r * ld + c] = slab[r * ld + c] - tw * (slab[r * ld + jj] * scale);
+}
+
+// threads per active column in the column loop
+__device__ __forceinline__ int groups_of(int na) { return min(GRP_MAX, max(1, CL_THREADS / na)); }
+
+// The Householder column loop over block [s, s + ibk) on this CTA's rows
+// [r0, r0 + nr) of the slab; rpc: rows per CTA (the owner of row j is
+// j / rpc). One cluster barrier per column. Every thread works on the
+// columns still active: each of the n_act active columns gets
+// groups_of(n_act) threads, each a contiguous group of rows, so the rows
+// per thread shrink as the block's columns are eliminated (and a column's
+// partial sums at most GRP_MAX groups).
+__device__ void column_loop(const Cta& w, int s, int ibk, int r0, int nr, int rpc) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, ld = w.ld, ib = w.ib;
+  float* slab = w.slab;
+  for (int jj = 0; jj < ibk; ++jj) {
+    const int j = s + jj;
+    float* part = w.part + (jj & 1) * (w.ctas + 1) * ib;  // [rank][ib], then row j
+    // A: pack column jj - 1 (nobody reads it in this phase); this CTA's
+    // dots of column j's tail with itself and with the columns right of it
+    if (jj > 0) {
+      const float scale = w.sc[0], beta = w.sc[1];
+      for (int r = max(0, j - 1 - r0) + tid; r < nr; r += CL_THREADS) {
+        float* x = slab + r * ld + jj - 1;
+        *x = (r0 + r == j - 1) ? beta : *x * scale;
+      }
+    }
+    {
+      const int na = ibk - jj, grp = groups_of(na), rg = ceil_div(nr, grp);
+      for (int u = tid; u < grp * na; u += CL_THREADS) {
+        const int c = jj + u % na, g = u / na;
+        const int lo = g * rg, hi = min(nr, lo + rg);
+        w.red[u] = dot_rows(slab, ld, c, jj, max(lo, j + 1 - r0), hi, 0.f);
+      }
+    }
+    __syncthreads();
+    CL_STAGE(5);
+    // B: the CTA's partials, and the owner's row j, stored into every CTA's
+    // shared memory (posted stores: no CTA waits on a remote load)
+    const bool own = j >= r0 && j < r0 + nr;
+    {
+      const int na = ibk - jj, grp = groups_of(na);
+      for (int c = jj + tid; c < ibk; c += CL_THREADS) {
+        float t = 0.f;
+        for (int g = 0; g < grp; ++g) t += w.red[g * na + c - jj];
+        const float yj = own ? slab[(j - r0) * ld + c] : 0.f;
+        for (int p = 0; p < w.ctas; ++p) {
+          float* dst = cluster.map_shared_rank(part, p);
+          dst[w.rank * ib + c] = t;
+          if (own) dst[w.ctas * ib + c] = yj;
+        }
+      }
+    }
+    cluster.sync();
+    CL_STAGE(6);
+    // C: the partials of every CTA in rank order, LARFG, the rank-1 update
+    const float* yrow = part + w.ctas * ib;
+    float tailsq = 0.f;
+    for (int p = 0; p < w.ctas; ++p) tailsq += part[p * ib + jj];
+    const float alpha = yrow[jj];
+    const float sgn = alpha >= 0.f ? 1.f : -1.f;
+    const float nrm = sqrtf(alpha * alpha + tailsq);
+    const bool has_tail = tailsq > 0.f;
+    const float beta = has_tail ? -sgn * nrm : alpha;
+    const float tau = has_tail ? (beta - alpha) / beta : 0.f;
+    const float scale = has_tail ? 1.f / (alpha - beta) : 0.f;
+    if (tid == 0) {
+      w.tau[jj] = tau;
+      w.sc[0] = scale;
+      w.sc[1] = beta;
+    }
+    const int na = ibk - jj - 1;  // the columns right of column j
+    if (na > 0) {
+      const int grp = groups_of(na), rg = ceil_div(nr, grp);
+      for (int u = tid; u < grp * na; u += CL_THREADS) {
+        const int c = jj + 1 + u % na, g = u / na;
+        float d = 0.f;
+        for (int p = 0; p < w.ctas; ++p) d += part[p * ib + c];
+        const float tw = tau * (yrow[c] + scale * d);
+        const int lo = g * rg, hi = min(nr, lo + rg);
+        int r = max(lo, j - r0);
+        if (r < hi && r0 + r == j) {  // v = 1 on row j
+          slab[r * ld + c] = slab[r * ld + c] - tw;
+          ++r;
+        }
+        update_rows(slab, ld, c, jj, r, hi, tw, scale);
+      }
+    }
+    __syncthreads();
+    CL_STAGE(7);
+  }
+  // pack the block's last column
+  {
+    const int jj = ibk - 1, j = s + jj;
+    const float scale = w.sc[0], beta = w.sc[1];
+    for (int r = max(0, j - r0) + tid; r < nr; r += CL_THREADS) {
+      float* x = slab + r * ld + jj;
+      *x = (r0 + r == j) ? beta : *x * scale;
+    }
+  }
+  __syncthreads();
+}
+
+// Factor the couple cp in place (its homes), T into cp.t_out. Called by
+// every thread of every CTA of the cluster.
+template <bool RES>
+__device__ void geqrt_couple_cluster(const Couple& cp, const Cta& w) {
+  const int tid = threadIdx.x, ld = w.ld, ib = w.ib, nb = cp.nb;
+  const int q = w.rank, C = w.ctas;
+  const int rpc = ceil_div(cp.m, C);
+  const int r0 = q * rpc;
+  const int nr = max(0, min(rpc, cp.m - r0));
+  float* slab = w.slab;
+  for (int s = 0; s < nb; s += ib) {
+    const int ibk = min(ib, nb - s);
+    const bool first = s == 0;
+
+    // ---- the block's rows of this CTA into the slab; the column loop ----
+    for (int idx = tid; idx < nr * ibk; idx += CL_THREADS) {
+      const int r = idx / ibk, c = idx % ibk;
+      slab[r * ld + c] = src_at(cp, r0 + r, s + c, first);
+    }
+    __syncthreads();
+    CL_STAGE(0);
+    column_loop(w, s, ibk, r0, nr, rpc);
+    for (int idx = tid; idx < nr * ibk; idx += CL_THREADS) {
+      const int r = idx / ibk, c = idx % ibk;
+      *home_at(cp, r0 + r, s + c) = slab[r * ld + c];
+    }
+    CL_STAGE(0);
+
+    // ---- P = Vb^T [V_prev | Vb | A_rest], reduced over the cluster ----
+    for (int c0 = 0; c0 < nb; c0 += CL_CW) {
+      const int cw = min(CL_CW, nb - c0);
+      cta_gemm(
+          ibk, cw, nr,
+          [&](int r, int a) { return vmask(r0 + r, s + a, slab[r * ld + a]); },
+          [&](int r, int jc) {
+            const int c = c0 + jc, g = r0 + r;
+            if (c < s) return vmask(g, c, ldcg(home_at(cp, g, c)));
+            if (c < s + ibk) return vmask(g, c, slab[r * ld + c - s]);
+            return src_at(cp, g, c, first);
+          },
+          [&](int a, int jc, float v) { w.ybuf[a * cw + jc] = v; }, w.stage);
+      cluster_sync_global();
+      const int e_all = ibk * cw, share = ceil_div(e_all, C);
+      for (int e = q * share + tid; e < min(e_all, (q + 1) * share); e += CL_THREADS) {
+        w.pred[(long long)(e / cw) * nb + c0 + e % cw] = sum_ranks<RES>(w, e);
+      }
+      cluster_sync_global();
+    }
+    CL_STAGE(1);
+
+    // ---- Tb by doubling, transposed (tb = Tb^T), on every CTA; G (from
+    // the reduced P) in the slab's place meanwhile: Vb is in its home ----
+    float* G = slab;  // G(a, k) = G[a * ld + k]
+    for (int idx = tid; idx < ibk * ibk; idx += CL_THREADS) {
+      const int a = idx / ibk, b = idx % ibk;
+      w.tb[a * ld + b] = (a == b) ? w.tau[a] : 0.f;
+      G[a * ld + b] = ldcg(w.pred + (long long)a * nb + s + b);
+    }
+    __syncthreads();
+    float* X = w.ybuf;
+    for (int bsz = 1; bsz < ibk; bsz *= 2) {
+      // X = (G o M) Tb^T on the pairs (odd block A, even block B = A - 1)
+      for (int idx = tid; idx < ibk * bsz; idx += CL_THREADS) {
+        const int a = idx / bsz, ea = a / bsz;
+        if (!(ea & 1)) continue;
+        const int b = (ea - 1) * bsz + idx % bsz;
+        float t = 0.f;
+        for (int k = b; k < ea * bsz; ++k) t = fmaf(G[a * ld + k], w.tb[k * ld + b], t);
+        X[idx] = t;
+      }
+      __syncthreads();
+      for (int idx = tid; idx < ibk * bsz; idx += CL_THREADS) {
+        const int a = idx / bsz, ea = a / bsz, bo = idx % bsz;
+        if (!(ea & 1)) continue;
+        float t = 0.f;
+        for (int k = ea * bsz; k <= a; ++k) t = fmaf(w.tb[a * ld + k], X[k * bsz + bo], t);
+        w.tb[a * ld + (ea - 1) * bsz + bo] = -t;
+      }
+      __syncthreads();
+    }
+    if (q == 0) {
+      for (int idx = tid; idx < ibk * ibk; idx += CL_THREADS) {
+        const int a = idx / ibk, b = idx % ibk;
+        cp.t_out[(long long)(s + a) * nb + s + b] = w.tb[b * ld + a];
+      }
+    }
+    for (int idx = tid; idx < nr * ibk; idx += CL_THREADS) {
+      const int r = idx / ibk, c = idx % ibk;
+      slab[r * ld + c] = ldcg(home_at(cp, r0 + r, s + c));
+    }
+    __syncthreads();
+    CL_STAGE(2);
+
+    // ---- off-diagonal T[0:s, block] = -T1 (V1^T Vb) Tb, rows dealt out ----
+    if (s > 0) {
+      const int sh = ceil_div(s, C), a0 = q * sh, na = max(0, min(sh, s - a0));
+      // M2 = T1[a0:a0+na, :] Z, Z(k, b) = P(b, k), T1 upper triangular
+      cta_gemm(
+          na, ibk, s,
+          [&](int k, int i) {
+            return k >= a0 + i ? ldcg(cp.t_out + (long long)(a0 + i) * nb + k) : 0.f;
+          },
+          [&](int k, int b) { return ldcg(w.pred + (long long)b * nb + k); },
+          [&](int i, int b, float v) { w.ybuf[i * ibk + b] = v; }, w.stage);
+      for (int idx = tid; idx < na * ibk; idx += CL_THREADS) {
+        const int al = idx / ibk, a = a0 + al, b = idx % ibk;
+        float t = 0.f;
+        for (int k = 0; k <= b; ++k) t = fmaf(w.tb[b * ld + k], w.ybuf[al * ibk + k], t);
+        cp.t_out[(long long)a * nb + s + b] = -t;
+        cp.t_out[(long long)(s + b) * nb + a] = 0.f;
+      }
+      __syncthreads();
+    }
+    CL_STAGE(3);
+
+    // ---- A_rest <- A_rest - Vb (Tb^T W), chunk by chunk, on own rows ----
+    for (int c0 = s + ibk; c0 < nb; c0 += CL_CW) {
+      const int cw = min(CL_CW, nb - c0);
+      cta_gemm(
+          ibk, cw, ibk, [&](int k, int a) { return k <= a ? w.tb[a * ld + k] : 0.f; },
+          [&](int k, int jc) { return ldcg(w.pred + (long long)k * nb + c0 + jc); },
+          [&](int a, int jc, float v) { w.ybuf[a * cw + jc] = v; }, w.stage);
+      cta_gemm(
+          nr, cw, ibk, [&](int k, int r) { return vmask(r0 + r, s + k, slab[r * ld + k]); },
+          [&](int k, int jc) { return w.ybuf[k * cw + jc]; },
+          [&](int r, int jc, float v) {
+            const int g = r0 + r, c = c0 + jc;
+            *home_at(cp, g, c) = src_at(cp, g, c, first) - v;
+          },
+          w.stage);
+    }
+    __syncthreads();
+    CL_STAGE(4);
+  }
+}
+
+// Launch `kernel` as one cluster of `ctas` CTAs with `smem` bytes of
+// dynamic shared memory each. A configuration the card refuses returns its
+// error (the wrapper raises); nothing else is launched in its place.
+template <typename... Exp, typename... Act>
+int launch_cluster(void (*kernel)(Exp...), int ctas, size_t smem, cudaStream_t stream,
+                   Act&&... args) {
+  if (ctas != 1 && ctas != 2 && ctas != 4 && ctas != 8 && ctas != 16)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (ctas > 8) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas, 1, 1);
+  cfg.blockDim = dim3(CL_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<Act&&>(args)...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+#ifdef TQ_CL_STAGES
+// copy the stage nanoseconds to `out` (8 values) and zero them
+inline int read_stages(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, cl_stage_ns, sizeof(cl_stage_ns));
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  return (int)cudaMemcpyToSymbol(cl_stage_ns, zero, sizeof(zero));
+}
+#endif
+
+// Whether `smem` is the shared bytes this layout needs (kernels/panel.py:
+// cluster_plan computes the same number); a launch given another is refused.
+inline bool smem_matches(int nb, int rows, int ib, int ctas, int resident, long long smem) {
+  return smem == (long long)sizeof(float) * smem_floats(sizes(nb, rows, ib, ctas), resident != 0);
+}
+
+}  // namespace cl
+}  // namespace

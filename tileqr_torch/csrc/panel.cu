@@ -3,57 +3,62 @@
 //
 // Replaces tileqr/kernels/panel.py:panel_factor (_mk_panel_kernel), whose
 // TPU grid of 1 + n_couples sequential steps becomes a loop inside ONE
-// thread block here: blocks of a CUDA grid run in no order, and each step
-// needs the R of the step before. Each step stages its couple transposed
-// into a global workspace, runs geqrt_couple (geqrt.cuh) and writes the
-// step's outputs.
+// thread-block cluster here: each step needs the R of the step before.
+// Each step runs geqrt_couple_cluster (geqrt_cluster.cuh) on its couple:
+// step 0 on the diagonal tile alone (m = nb rows, its home the GEQRT slot
+// of v_stack), step i on [R; A(k+i, k)] (m = 2 nb, R's home r_out, B's
+// the V2 slot i), then writes R as the upper triangle of the couple's top.
+// B13 (panel.py:panel_head) is this kernel on a row view.
 //
-// What bounds it on the H100: latency of the serial Householder column loop
-// (see geqrt.cuh), on one SM. The design keeps R and the couple in the
-// workspace (L2-resident) between steps instead of round-tripping through
-// the host or separate launches: one launch per panel.
-#include "geqrt.cuh"
+// What bounds it on the H100: latency of the serial Householder column
+// loop (1 + n_couples couples of nb columns each). The design spreads each
+// couple's rows over a cluster of C CTAs (C from cluster_plan at m = 2 nb:
+// 8 at nb = 256), so a column costs one cluster barrier and a pass over
+// rpc = m / C rows of shared memory per CTA instead of a pass over m rows
+// through L2 on one SM (geqrt.cuh's one-block design). One launch per panel;
+// R crosses from step to step through r_out (L2), with a cluster barrier
+// between steps because step 0's row split differs from the couples'.
+#include "geqrt_cluster.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(GEQRT_THREADS)
+template <bool RES>
+__global__ void __launch_bounds__(cl::CL_THREADS)
 panel_factor_kernel(const float* __restrict__ a, long long lda, int k, int nb, int ib,
                     int n_couples, float* r_out, float* v_stack, float* t_geqrt,
                     float* t2_stack, float* work) {
-  extern __shared__ float v_sh[];
-  const int tid = threadIdx.x, bd = blockDim.x;
+  extern __shared__ __align__(16) float smem[];
+  const int rows = n_couples > 0 ? 2 * nb : nb;
+  const cl::Cta w = cl::carve<RES>(smem, work, nb, rows, ib);
   const long long tile2 = (long long)nb * nb;
-  float* at = work;
-  float* tt = at + (long long)nb * 2 * nb;
-  float* ws = tt + tile2;
   for (int i = 0; i <= n_couples; ++i) {
-    const float* tile = a + (long long)(k + i) * nb * lda + (long long)k * nb;
-    // step 0 factors the diagonal tile alone (m = nb); a couple step
-    // stacks R on top of the sub-diagonal tile (m = 2nb)
-    const int m = (i == 0) ? nb : 2 * nb;
-    for (long long idx = tid; idx < tile2; idx += bd) {
+    cl::Couple cp;
+    cp.nb = nb;
+    cp.r_rows = i == 0 ? 0 : nb;
+    cp.m = cp.r_rows + nb;
+    cp.r_src = r_out;
+    cp.r_home = r_out;
+    cp.b_src = a + (long long)(k + i) * nb * lda + (long long)k * nb;
+    cp.ldb = lda;
+    cp.b_home = v_stack + i * tile2;
+    cp.t_out = i == 0 ? t_geqrt : t2_stack + i * tile2;
+    cl::geqrt_couple_cluster<RES>(cp, w);
+    // R = the upper triangle of the couple's top nb rows, on own rows
+    const int rpc = cl::ceil_div(cp.m, w.ctas), r0 = w.rank * rpc;
+    const int r1 = min(min(nb, cp.m), r0 + rpc);
+    for (long long idx = (long long)r0 * nb + threadIdx.x; idx < (long long)r1 * nb;
+         idx += cl::CL_THREADS) {
       const int r = (int)(idx / nb), c = (int)(idx % nb);
-      if (i == 0) {
-        at[(long long)c * m + r] = tile[r * lda + c];
-      } else {
-        at[(long long)c * m + r] = r_out[(long long)r * nb + c];
-        at[(long long)c * m + nb + r] = tile[r * lda + c];
-      }
-      tt[idx] = 0.f;
+      if (i == 0) r_out[idx] = c >= r ? __ldcg(v_stack + idx) : 0.f;
+      else if (c < r) r_out[idx] = 0.f;
     }
-    __syncthreads();
-    geqrt_couple(at, nb, m, tt, ib, ws, v_sh, nb);
-    float* v_out = v_stack + i * tile2;
-    float* t_out = (i == 0) ? t_geqrt : t2_stack + i * tile2;
-    for (long long idx = tid; idx < tile2; idx += bd) {
-      const int r = (int)(idx / nb), c = (int)(idx % nb);
-      const float top = at[(long long)c * m + r];
-      r_out[idx] = (r <= c) ? top : 0.f;
-      v_out[idx] = (i == 0) ? top : at[(long long)c * m + nb + r];
-      t_out[idx] = tt[(long long)c * nb + r];
-      if (i == 0) t2_stack[idx] = 0.f;
+    if (i == 0) {
+      const long long sh = (tile2 + w.ctas - 1) / w.ctas;
+      for (long long idx = w.rank * sh + threadIdx.x; idx < min(tile2, (w.rank + 1) * sh);
+           idx += cl::CL_THREADS)
+        t2_stack[idx] = 0.f;
     }
-    __syncthreads();
+    cl::cluster_sync_global();
   }
 }
 
@@ -63,19 +68,27 @@ extern "C" const char* tq_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-extern "C" int tq_geqrt_work_floats(int nb, int rows, int ib) {
-  return static_cast<int>(couple_work_floats(nb, rows, ib));
+// global workspace floats of a K1/K2 cluster launch over couples of `rows`
+// rows (K1: 2 nb, or nb without couples; K2: nb + block_rows)
+extern "C" long long tq_cluster_work_floats(int nb, int rows, int ib, int ctas, int resident) {
+  return cl::ws_floats(nb, rows, ib, ctas, resident != 0);
 }
 
+// ctas, smem, resident: kernels/panel.py:cluster_plan(nb, rows, ib)
 extern "C" int tq_panel_factor(const float* a, long long lda, int k, int nb, int ib,
                                int n_couples, float* r_out, float* v_stack,
-                               float* t_geqrt, float* t2_stack, float* work,
-                               void* stream) {
-  const size_t smem = sizeof(float) * 2 * nb;
-  cudaError_t e = cudaFuncSetAttribute(
-      panel_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  panel_factor_kernel<<<1, GEQRT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, lda, k, nb, ib, n_couples, r_out, v_stack, t_geqrt, t2_stack, work);
-  return (int)cudaGetLastError();
+                               float* t_geqrt, float* t2_stack, float* work, int ctas,
+                               long long smem, int resident, void* stream) {
+  const int rows = n_couples > 0 ? 2 * nb : nb;
+  if (!cl::smem_matches(nb, rows, ib, ctas, resident, smem)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (resident)
+    return cl::launch_cluster(panel_factor_kernel<true>, ctas, (size_t)smem, st, a, lda, k, nb,
+                              ib, n_couples, r_out, v_stack, t_geqrt, t2_stack, work);
+  return cl::launch_cluster(panel_factor_kernel<false>, ctas, (size_t)smem, st, a, lda, k, nb,
+                            ib, n_couples, r_out, v_stack, t_geqrt, t2_stack, work);
 }
+
+#ifdef TQ_CL_STAGES
+extern "C" int tq_cl_stages_panel(unsigned long long* out) { return cl::read_stages(out); }
+#endif

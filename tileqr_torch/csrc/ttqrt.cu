@@ -56,6 +56,11 @@ ttqrt_kernel(const float* __restrict__ r1, const float* __restrict__ r2, int nb,
 
 }  // namespace
 
+// workspace floats of one geqrt_couple couple of nb + rows rows
+extern "C" int tq_geqrt_work_floats(int nb, int rows, int ib) {
+  return static_cast<int>(couple_work_floats(nb, rows, ib));
+}
+
 // r1, r2: (nb x nb) upper triangular, contiguous; work:
 // tq_geqrt_work_floats(nb, nb, ib) floats.
 extern "C" int tq_ttqrt(const float* r1, const float* r2, int nb, int ib, float* r_out,

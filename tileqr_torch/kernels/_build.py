@@ -69,11 +69,14 @@ NVCC_FLAGS = (
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # argtypes of every C function of csrc/*.cu
 SIGNATURES = {
-    # a, lda, k, nb, ib, n_couples, r_out, v_stack, t_geqrt, t2_stack, work, stream
-    "tq_panel_factor": (_P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    # a, lda, k, nb, ib, n_couples, r_out, v_stack, t_geqrt, t2_stack, work,
+    # ctas, smem, resident, stream
+    "tq_panel_factor": (_P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _L, _I, _P),
     # a, lda, r_in, k, nb, base_block, n_chunks, block_rows, ib,
-    # r_out, v_chunks, t2, work, stream
-    "tq_panel_chain": (_P, _L, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # r_out, v_chunks, t2, work, ctas, smem, resident, stream
+    "tq_panel_chain": (_P, _L, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _L, _I, _P),
+    # K1/K2 cluster workspace floats (int64): nb, rows, ib, ctas, resident
+    "tq_cluster_work_floats": (_I, _I, _I, _I, _I),
     # v_stack, t2_stack, c, ldc, strip, lds, width, stack_base, base_block,
     # n_chunks, block_rows, nb, col_start, trans, reverse, vkk, tg, passes,
     # stream
@@ -82,7 +85,7 @@ SIGNATURES = {
     ),
     # vkk, tg, strip, lds, width, nb, trans, passes, stream
     "tq_larfb_strip": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
-    # panel_factor / panel_chain workspace size in floats: nb, rows, ib
+    # TTQRT's workspace size in floats: nb, rows, ib
     "tq_geqrt_work_floats": (_I, _I, _I),
     # lu (in place), n, d, stream
     "tq_modified_lu": (_P, _I, _P, _P),
@@ -101,6 +104,9 @@ SIGNATURES = {
     # r1, r2, nb, ib, r_out, v2, t2, work, stream
     "tq_ttqrt": (_P, _P, _I, _I, _P, _P, _P, _P, _P),
 }
+
+# the C functions that return something other than an int
+RESTYPES = {"tq_cluster_work_floats": ctypes.c_int64}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
@@ -180,7 +186,7 @@ def lib() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         handle.tq_error_string.argtypes = [ctypes.c_int]
         handle.tq_error_string.restype = ctypes.c_char_p
         _lib = handle

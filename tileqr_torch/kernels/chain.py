@@ -10,7 +10,8 @@ Counterparts of ``tileqr/kernels/chain.py``:
 - ``larfb_strip`` (K4): the diagonal LARFB alone, for a panel with no
   couples.
 
-On a CUDA tensor each wrapper launches its CUDA kernel (``csrc/chain.cu``);
+On a CUDA tensor each wrapper launches its CUDA kernel (``csrc/chain.cu``;
+K2 as one thread-block cluster, sized by ``panel.cluster_plan``);
 on a CPU tensor it runs the plain version beside it. K3 and K4 update C and
 the strip IN PLACE (the JAX kernels alias C to their output): the strip may
 be a view of C's row strip, which the couple rows never touch. K3 and K4
@@ -29,6 +30,7 @@ from tileqr_torch.kernels import _build
 from tileqr_torch.kernels.common import counter_key, passes_of
 from tileqr_torch.kernels.geqrt import geqrt_in_place
 from tileqr_torch.kernels.larfb import larfb_body
+from tileqr_torch.kernels.panel import _cluster_args
 from tileqr_torch.kernels.ssrfb import ssrfb_body
 
 
@@ -77,12 +79,11 @@ def panel_chain(a, r_in, k: int, nb: int, base_block: int, n_chunks: int,
     r = torch.empty((nb, nb), **kw)
     v_chunks = torch.empty((n_chunks, block_rows, nb), **kw)
     t2 = torch.empty((n_chunks, nb, nb), **kw)
-    lib = _build.lib()
-    work = torch.empty(lib.tq_geqrt_work_floats(nb, block_rows, ib), **kw)
+    lib, work, ctas, smem, resident = _cluster_args(nb, nb + block_rows, ib, kw)
     rc = lib.tq_panel_chain(
         a.data_ptr(), a.stride(0), r_in.data_ptr(), k, nb, base_block, n_chunks,
         block_rows, ib, r.data_ptr(), v_chunks.data_ptr(), t2.data_ptr(),
-        work.data_ptr(), _build.stream(),
+        work.data_ptr(), ctas, smem, resident, _build.stream(),
     )
     _build.check(rc, "panel_chain")
     _build.LAUNCHES["panel_chain"] += 1

@@ -5,17 +5,83 @@ on tile (k, k); steps i ≥ 1 run TSQRT on the couple [R; A(k+i, k)], with R
 carried from step to step. On a CUDA tensor the wrapper launches the CUDA
 kernel ``tq_panel_factor`` (``csrc/panel.cu``); on a CPU tensor it runs the
 plain version below. A is read only.
+
+K1 and K2 (``kernels/chain.py``) run as one thread-block cluster a launch
+(``csrc/geqrt_cluster.cuh``); ``cluster_plan`` picks its size and where
+the active block lives, and the launch is given its numbers.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from tileqr_torch.kernels import _build
 from tileqr_torch.kernels.common import triu
 from tileqr_torch.kernels.geqrt import geqrt_in_place
+
+
+# the cluster kernel's constants (csrc/geqrt_cluster.cuh): threads per CTA,
+# the chunk width of its block products, its GEMM staging tile and depth
+CL_THREADS, CL_CW, CL_GI, CL_GJ, CL_GK = 512, 64, 128, 64, 16
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# couple rows per CTA the plan aims at: K1's 512 rows on 8 CTAs, K2's
+# 1280 on 16 (the nb = 512 chain's 2560 on 16 as well, 160 rows a CTA);
+# on the H100 80 rows a CTA ran K1 and K2 faster than 160 (PERF.md)
+ROWS_PER_CTA = 80
+SMEM_LIMIT = 232448  # bytes of shared memory one CTA may have on the H100
+
+
+class ClusterPlan(NamedTuple):
+    ctas: int          # C, the CTAs of the one cluster
+    smem_bytes: int    # dynamic shared memory per CTA
+    resident: bool     # the active block, Tb and the work buffer in shared memory
+    rows_per_cta: int  # ceil(rows / C): CTA q owns couple rows [q·rpc, (q+1)·rpc)
+
+
+def cluster_smem_bytes(nb: int, rows: int, ib: int, ctas: int, resident: bool) -> int:
+    """Shared bytes per CTA of a K1/K2 launch (``geqrt_cluster.cuh``:
+    ``sizes``/``smem_floats``): GEMM staging, column partials (two parities
+    of (C + 1)·ib: every CTA's dots and row j), group partials, taus and two
+    scalars; when resident also the slab
+    (max(rpc, ib) × (ib+1): it holds G while Tb is built), Tb (ib × (ib+1))
+    and the work buffer."""
+    rpc = -(-rows // ctas)
+    pow2 = 1
+    while 2 * pow2 < ib:
+        pow2 *= 2
+    ycols = max(CL_CW, pow2, -(-nb // ctas))
+    small = CL_GK * (CL_GI + CL_GJ) + 2 * (ctas + 1) * ib + max(ib, CL_THREADS) + ib + 2
+    big = max(rpc, ib) * (ib + 1) + ib * (ib + 1) + ib * ycols
+    return 4 * (small + (big if resident else 0))
+
+
+def cluster_plan(nb: int, rows: int, ib: int) -> ClusterPlan:
+    """The cluster of a K1/K2 launch whose largest couple has ``rows`` rows
+    (K1: 2·nb, or nb with no couples; K2: nb + block_rows): the fewest CTAs
+    that hold at most ROWS_PER_CTA rows each (16 at most), grown while the
+    active block does not fit one CTA's shared memory; where it fits at no
+    size, the smallest such cluster with the block in a global workspace."""
+    if nb < 1 or ib < 1 or rows < nb:
+        raise ValueError(f"cluster_plan: nb={nb}, rows={rows}, ib={ib}")
+    fits = [c for c in CLUSTER_SIZES if -(-rows // c) <= ROWS_PER_CTA]
+    c0 = fits[0] if fits else CLUSTER_SIZES[-1]
+    for c in CLUSTER_SIZES[CLUSTER_SIZES.index(c0):]:
+        smem = cluster_smem_bytes(nb, rows, ib, c, True)
+        if smem <= SMEM_LIMIT:
+            return ClusterPlan(c, smem, True, -(-rows // c))
+    return ClusterPlan(c0, cluster_smem_bytes(nb, rows, ib, c0, False), False, -(-rows // c0))
+
+
+def _cluster_args(nb: int, rows: int, ib: int, kw) -> tuple:
+    """(library, work tensor, ctas, smem bytes, resident) of a K1/K2 launch;
+    the plan first, so a bad geometry raises before the library loads."""
+    plan = cluster_plan(nb, rows, ib)
+    lib = _build.lib()
+    work = torch.empty(lib.tq_cluster_work_floats(nb, rows, ib, plan.ctas, int(plan.resident)),
+                       **kw)
+    return lib, work, plan.ctas, plan.smem_bytes, int(plan.resident)
 
 
 def _steps(a: torch.Tensor, k: int, nb: int, n_couples: Optional[int]) -> int:
@@ -79,12 +145,11 @@ def panel_factor(a: torch.Tensor, k: int, nb: int, ib: int = 128,
     v_stack = torch.empty((steps, nb, nb), **kw)
     t_geqrt = torch.empty((nb, nb), **kw)
     t2_stack = torch.empty((steps, nb, nb), **kw)
-    lib = _build.lib()
-    work = torch.empty(lib.tq_geqrt_work_floats(nb, nb, ib), **kw)
+    lib, work, ctas, smem, resident = _cluster_args(nb, 2 * nb if steps > 1 else nb, ib, kw)
     rc = lib.tq_panel_factor(
         a.data_ptr(), a.stride(0), k, nb, ib, steps - 1,
         r.data_ptr(), v_stack.data_ptr(), t_geqrt.data_ptr(), t2_stack.data_ptr(),
-        work.data_ptr(), _build.stream(),
+        work.data_ptr(), ctas, smem, resident, _build.stream(),
     )
     _build.check(rc, "panel_factor")
     _build.LAUNCHES[counter] += 1
