@@ -32,6 +32,9 @@ use (one nvcc per source, in parallel), then:
    the modified LU), ``torch.linalg.cholesky`` for B9, and for B6
    ``torch.ormqr`` with tau = diag(T) (T is larft's for the compact-WY Y,
    so it applies the same Qᵀ); B6's three-matmul chain is timed beside it;
+   B8's rerun must be bitwise equal, and its cluster is printed beside its
+   time (``modlu_plan``: CTAs, panel width, shared bytes per CTA, whether
+   the block is resident in shared memory);
 5. runs ``tileqr_torch.qr`` with ``square_method="hr"`` at 16384² (64
    panels) and checks the same metrics, that the health is ≤ hr_guard_tau
    with no guard warning, that B6, B8, B9 and B7 (``orgqr``'s windows
@@ -59,7 +62,9 @@ use (one nvcc per source, in parallel), then:
    cholqr2 → ``HRFactors``): health ≤ hr_guard_tau with no guard warning,
    B9 and B8 launched at n = 512, the relerr with Qᵀ applied in float64
    ≤ 1e-6, and the fp32 ``apply_q`` relerr printed (held to 3e-6 when above
-   1e-6, as for hr); ``apply_q`` in "b3" of those factors to A, with the
+   1e-6, as for hr); B8 at nb = 512 on that panel's Q_top against its
+   plain version (d bitwise equal), rerun bitwise, and timed beside its
+   plain version, its bound and ``lu_factor``, with its cluster; ``apply_q`` in "b3" of those factors to A, with the
    counts set to 0 just before and read just after (nb = 512: one launch
    of B7's split instantiation, no plain version; relerr ≤ 1e-4), and B7
    at that shape against its b3 and "highest" plain versions, timed; times
@@ -98,9 +103,12 @@ use (one nvcc per source, in parallel), then:
    timed in each mode beside "highest" and cuSOLVER;
 10. the sharded path at BASELINE config 5's mesh and tile (4×2, nb = 256),
    cut to a 16384² gaussian A: first, on this process, the TTQRT kernel
-   (B15) on two R tiles of that A against its plain version and against
-   the TSQRT kernel (K2's cluster routine, whose sums go in another order:
-   rel ≤ 1e-5, printed), the single-tile entries
+   (B15: the cluster routine on the couple's live rows) on two R tiles of
+   that A against its plain version and against the TSQRT kernel (K2's
+   cluster routine on all the couple's rows, whose sums go in another
+   order: rel ≤ 1e-5, printed), rerun bitwise, with its cluster
+   (``ttqrt_plan``) and its time beside the TSQRT kernel's on the same
+   couple; the single-tile entries
    tsqrt, larfb and ssrfb (K2, K4, K3; ssrfb at the strip tree's width),
    the panel head (B13: K1 on a rank's panel column) and ``couple_apply``
    (B14: K3 with nb-row couples, at tileqr's static driver's shape for this
@@ -636,16 +644,7 @@ def phase4(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
 
     rec.compare("potrf_batched", "panel 0 gram (1, 256, 256)",
                 [potrf.potrf_batched(g)], [potrf.potrf_batched_plain(g)])
-    got, want = modlu.modified_lu(q_top), modlu.modified_lu_plain(q_top)
-    require(torch.equal(got[1], want[1]), "modified_lu signs differ from the plain version")
-    rec.compare("modified_lu", "panel 0 Q_top (256, 256)", [got[0]], [want[0]])
-    # B8's library call: LU without pivoting of Q_top − diag(d), d taken
-    # from the modified LU (the one choice the library cannot make)
-    shifted = q_top - torch.diag(want[1])
-    lib_rel = rel(torch.linalg.lu_factor(shifted, pivot=False)[0], want[0])
-    print(f"library modified_lu: lu_factor(Q_top - diag(d), pivot=False) vs plain: "
-          f"rel_fro={lib_rel:.3e}")
-    require(lib_rel <= TOL_KERNEL, f"lu_factor(pivot=False) differs: {lib_rel:.3e}")
+    shifted = check_modlu(q_top, rec, f"panel 0 Q_top ({NB}, {NB})")
 
     n = a.shape[0]
     rec.set_bound("potrf_batched", NB ** 3 / 3.0, 4 * 2 * NB * NB)
@@ -712,6 +711,59 @@ def phase4(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
         rec.time("modified_lu", lambda: modlu.modified_lu(q_top),
                  lambda: modlu.modified_lu_plain(q_top),
                  lambda: torch.linalg.lu_factor(shifted, pivot=False), 20, 2, card)
+    print_modlu_plan(NB)
+
+
+def check_modlu(q_top: torch.Tensor, rec: KernelRecord, label: str) -> torch.Tensor:
+    """B8 on q_top against its plain version (d bitwise equal), rerun
+    bitwise; returns Q_top − diag(d), the input of its library call."""
+    from tileqr_torch.kernels import modlu
+
+    got, want = modlu.modified_lu(q_top), modlu.modified_lu_plain(q_top)
+    require(torch.equal(got[1], want[1]), f"modified_lu signs differ from the plain version ({label})")
+    rec.compare("modified_lu", label, [got[0]], [want[0]])
+    again = modlu.modified_lu(q_top)
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    print(f"kernel modified_lu {label}: rerun bitwise equal: {same}")
+    require(same, f"modified_lu reruns differ ({label})")
+    # B8's library call: LU without pivoting of Q_top − diag(d), d taken
+    # from the modified LU (the one choice the library cannot make)
+    shifted = q_top - torch.diag(want[1])
+    lib_rel = rel(torch.linalg.lu_factor(shifted, pivot=False)[0], want[0])
+    print(f"library modified_lu {label}: lu_factor(Q_top - diag(d), pivot=False) vs plain: "
+          f"rel_fro={lib_rel:.3e}")
+    require(lib_rel <= TOL_KERNEL, f"lu_factor(pivot=False) differs: {lib_rel:.3e}")
+    return shifted
+
+
+def print_modlu_plan(nb: int) -> None:
+    """The thread-block cluster B8 runs on at nb (``modlu_plan``)."""
+    from tileqr_torch.kernels.modlu import modlu_plan
+
+    plan = modlu_plan(nb)
+    print(f"cluster modified_lu nb={nb}: C={plan.ctas} CTAs of {-(-nb // plan.ctas)} columns, "
+          f"panels of ib={plan.ib}, {plan.smem_bytes} shared bytes per CTA, "
+          f"block resident in shared memory: {plan.resident}")
+
+
+def modlu_nb512(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
+    """B8 on the tsqr factor's one panel's Q_top (nb = 512), as
+    ``hr_panel`` hands it over: against its plain version, timed beside it,
+    its bound and ``lu_factor``."""
+    from tileqr_torch.drivers import square_hr
+    from tileqr_torch.kernels import modlu
+
+    with square_hr._highest():
+        q_top = square_hr.hr_panel_parts(a)["q_top"]
+        nb = q_top.shape[0]
+        shifted = check_modlu(q_top, rec, f"tsqr factor Q_top ({nb}, {nb})")
+        rec.time("modified_lu", lambda: modlu.modified_lu(q_top),
+                 lambda: modlu.modified_lu_plain(q_top),
+                 lambda: torch.linalg.lu_factor(shifted, pivot=False), 20, 1, card,
+                 label=f"nb={nb} (tsqr factor Q_top)",
+                 bound=rec.bound_of(2.0 * nb ** 3 / 3.0, 4 * (2 * nb * nb + nb)))
+    print_modlu_plan(nb)
+    torch.cuda.empty_cache()
 
 
 def sign_fixed_rel(r: torch.Tensor, ref: torch.Tensor) -> float:
@@ -875,6 +927,7 @@ def phase7(rec: KernelRecord, rng, card: str):
     b7_launches = tsqr_factor_b3(a, f, rf, rec, card)
     del f, rf
     torch.cuda.empty_cache()
+    modlu_nb512(a, rec, card)
 
     flops = 2.0 * n * n * (m - n / 3.0)
     c16 = torch.from_numpy(rng.standard_normal((m, 16), dtype=np.float32)).cuda()
@@ -1197,19 +1250,31 @@ def sharded_kernels(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
     r2 = panel.panel_factor(a[nb : 2 * nb, :nb].contiguous(), 0, nb, IB, 0)[0]
     got, want, full = ttqrt.ttqrt(r1, r2), ttqrt.ttqrt_plain(r1, r2), tsqrt.tsqrt(r1, r2)
     rec.compare("ttqrt", f"two R tiles ({nb}, {nb})", got, want)
-    # TTQRT runs geqrt_couple on one block, the TSQRT kernel (K2) the cluster
-    # routine: the same algebra with the sums in another order, so the two
-    # are held to each other at the kernel tolerance
+    # TTQRT runs the cluster routine on the couple's live rows, the TSQRT
+    # kernel (K2) on all its rows: the same algebra with the sums in another
+    # order, so the two are held to each other at the kernel tolerance
     diff = max(max_abs(g, f) for g, f in zip(got, full))
     drel = max(rel(g, f) for g, f in zip(got, full))
     print(f"kernel ttqrt against the TSQRT kernel on the same couple: rel_fro {drel:.3e}, "
           f"max abs difference {diff:.3e}")
     require(drel <= TOL_KERNEL,
             f"ttqrt differs from the TSQRT kernel by more than {TOL_KERNEL}: {drel:.3e}")
+    again = ttqrt.ttqrt(r1, r2)
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    print(f"kernel ttqrt two R tiles: rerun bitwise equal: {same}")
+    require(same, "ttqrt reruns differ")
     couple = torch.cat([r1, r2]).contiguous()
     rec.set_bound("ttqrt", 2.0 * nb ** 3 / 3.0, 4 * 5 * nb * nb)
     rec.time("ttqrt", lambda: ttqrt.ttqrt(r1, r2), lambda: ttqrt.ttqrt_plain(r1, r2),
              lambda: torch.geqrf(couple), 20, 3, card)
+    plan = panel.ttqrt_plan(nb, ttqrt.TREE_IB)
+    ts_ms = cuda_ms(lambda: tsqrt.tsqrt(r1, r2), 20)
+    print(f"cluster ttqrt nb={nb} ib={ttqrt.TREE_IB}: C={plan.ctas} CTAs, largest block's live "
+          f"rows {panel.ttqrt_rows(nb, ttqrt.TREE_IB)} of the couple's {2 * nb}, "
+          f"{plan.rows_per_cta} rows and {plan.smem_bytes} shared bytes per CTA, active block "
+          f"resident in shared memory: {plan.resident}; time ttqrt {rec.ms['ttqrt']:.4f} ms "
+          f"against the TSQRT kernel (K2, all {2 * nb} rows) {ts_ms:.4f} ms on the same couple "
+          f"[{card}]")
 
     # tsqrt (K2, one nb-row couple) on [R1; a tile of A]
     b = a[2 * nb : 3 * nb, :nb].contiguous()

@@ -207,6 +207,61 @@ def test_potrf_and_modlu_match_plain(cuda, nb):
     assert rel(lu, lu_p) <= TOL and torch.equal(d, d_p)
 
 
+# B8 as a blocked LU on a thread-block cluster (csrc/modlu.cu), panels of
+# 16: the plan's cluster at nb 32/40/64 (C = 1), 96/100 (2), 256 (4), 512
+# (8), 600 (16, more rows than threads) and 1024 (16, the block in global
+# memory); ragged last panels at nb 40 (16 + 16 + 8), 100 (CTAs of 50
+# columns) and 600 (38, the last CTA 30)
+MODLU_CASES = [32, 40, 64, 96, 100, 256, 512, 600, 1024]
+
+
+def q_top_of(nb, kind, seed):
+    """An (nb, nb) top block: of an orthonormal (4nb, nb) Q ("q"), zero
+    ("zero"), or a Q's block with its columns' signs set so that the
+    diagonal alternates in sign ("flip": pivots of both signs)."""
+    if kind == "zero":
+        return torch.zeros((nb, nb))
+    q, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal((4 * nb, nb)))
+    top = q[:nb].copy()
+    if kind == "flip":
+        top *= np.where(np.arange(nb) % 2 == 0, 1.0, -1.0) * np.sign(np.diag(top))
+    return torch.from_numpy(top.astype(np.float32))
+
+
+@pytest.mark.parametrize("nb", MODLU_CASES)
+@pytest.mark.parametrize("kind", ["q", "zero", "flip"])
+def test_modified_lu_cluster_matches_plain(cuda, nb, kind):
+    q_top = q_top_of(nb, kind, nb + 7)
+    plan = modlu.modlu_plan(nb)
+    _build.reset_counts()
+    lu, d = modlu.modified_lu(q_top.to(cuda))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["modified_lu"] == 1 and not any(_build.PLAIN_CALLS.values())
+    lu_p, d_p = modlu.modified_lu_plain(q_top)
+    err = rel(lu.cpu(), lu_p)
+    print(f"B8 nb={nb} {kind} {plan}: rel {err:.3e}")
+    assert err <= TOL and torch.equal(d.cpu(), d_p)
+    if kind == "zero":
+        assert torch.equal(d_p, torch.ones(nb))
+    if kind == "flip":
+        assert {-1.0, 1.0} <= set(d_p.tolist())
+
+
+def test_modified_lu_wrapper_takes_the_plan(cuda):
+    """The wrapper launches at modlu_plan(nb): C >= 2 and resident at nb =
+    256 and 512, the same bits as the sweep tool's launch at that plan, and
+    reruns bitwise."""
+    from tileqr_torch.utils.plan_sweep import modlu_at
+
+    for nb in (256, 512):
+        plan = modlu.modlu_plan(nb)
+        assert plan.ctas >= 2 and plan.resident
+        q_top = q_top_of(nb, "q", nb).to(cuda)
+        runs = [modlu.modified_lu(q_top) for _ in range(2)] + [modlu_at(q_top, plan)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for run in runs[1:] for x, y in zip(run, runs[0]))
+
+
 @pytest.mark.parametrize("nb", [64, 256])
 @pytest.mark.parametrize("trans", [True, False])
 def test_panel_apply_carry_matches_plain(cuda, nb, trans):
@@ -601,9 +656,9 @@ def tri_pair(cuda, nb, seed=0):
 @pytest.mark.parametrize("nb", [64, 256])
 def test_ttqrt_matches_plain_and_tsqrt_kernel(cuda, nb):
     """TTQRT against its plain version (1e-5) and against the TSQRT kernel
-    (K2 with one couple) on the same couple, at the kernel tolerance: the two
-    once shared geqrt_couple's sums and were bitwise equal; K2 now runs the
-    cluster routine, whose sums go in another order."""
+    (K2 with one couple) on the same couple, at the kernel tolerance: both
+    run the cluster routine, TTQRT on the couple's live rows only, so their
+    sums go in another order."""
     from tileqr_torch.kernels import tsqrt, ttqrt
 
     r1, r2 = tri_pair(cuda, nb, nb)
@@ -619,6 +674,47 @@ def test_ttqrt_matches_plain_and_tsqrt_kernel(cuda, nb):
               f"max abs {float((g - f).abs().max()):.3e}")
         assert rel(g, f) <= TOL
     assert torch.equal(torch.tril(got[1], -1), torch.zeros_like(got[1]))
+
+
+# TTQRT on the cluster routine's live rows (csrc/ttqrt.cu): (nb, ib) with
+# ib = nb/2 and 128 where it divides, ragged last blocks (96 of 256, 64 of
+# 96); the plan's C: 1 at nb = 32, 2 at 64, 4 at 96, 8 at 256, 16 at 512
+# (512/256 in the global workspace)
+TTQRT_CASES = [(32, 16), (64, 32), (256, 128), (512, 256), (512, 128), (256, 96), (96, 64)]
+
+
+@pytest.mark.parametrize("nb,ib", TTQRT_CASES, ids=str)
+def test_ttqrt_cluster_matches_plain_and_tsqrt_kernel(cuda, nb, ib):
+    from tileqr_torch.kernels import tsqrt, ttqrt
+
+    r1, r2 = tri_pair(cuda, nb, nb + ib)
+    plan = panel.ttqrt_plan(nb, ib)
+    _build.reset_counts()
+    got = ttqrt.ttqrt(r1, r2, ib)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ttqrt"] == 1 and not any(_build.PLAIN_CALLS.values())
+    want = ttqrt.ttqrt_plain(r1.cpu(), r2.cpu(), ib)
+    full = tsqrt.tsqrt(r1, r2, ib)
+    errs = [rel(g.cpu(), w) for g, w in zip(got, want)]
+    errs_k2 = [rel(g, f) for g, f in zip(got, full)]
+    print(f"TTQRT nb={nb} ib={ib} {plan}: rel to plain {max(errs):.3e}, "
+          f"to tsqrt {max(errs_k2):.3e}")
+    assert max(errs) <= TOL and max(errs_k2) <= TOL
+    for x in got[:2]:
+        assert torch.equal(torch.tril(x, -1), torch.zeros_like(x))
+    assert torch.equal(torch.tril(got[2], -1), torch.zeros_like(got[2]))
+
+
+def test_ttqrt_and_modified_lu_rerun_bitwise(cuda):
+    """TTQRT at nb = 256 (ib 128) and B8 at nb = 256, each twice: the same bits."""
+    from tileqr_torch.kernels import ttqrt
+
+    r1, r2 = tri_pair(cuda, 256, 9)
+    q_top = q_top_of(256, "flip", 9).to(cuda)
+    runs = [(ttqrt.ttqrt(r1, r2), modlu.modified_lu(q_top)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for x, y in zip(*runs):
+        assert all(torch.equal(u, v) for u, v in zip(x, y))
 
 
 @pytest.mark.parametrize("trans", [True, False])

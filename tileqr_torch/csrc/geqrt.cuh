@@ -1,9 +1,9 @@
 // GEQRT of one stacked couple, as a device routine for one thread block.
 //
 // Replaces tileqr/kernels/geqrt.py:geqrt_in_refs, the Householder column
-// loop inside the TPU kernels, for the kernels that run it on ONE block:
-// TTQRT (ttqrt.cu) and the batched GEQRT (geqrt_batched.cu). K1 and K2
-// (panel.cu, chain.cu) run the same contract on a thread-block cluster
+// loop inside the TPU kernels, for the kernel that runs it on ONE block:
+// the batched GEQRT (geqrt_batched.cu). K1, K2 and TTQRT (panel.cu,
+// chain.cu, ttqrt.cu) run the same contract on a thread-block cluster
 // (geqrt_cluster.cuh). Contract, step by step as the JAX body
 // (and its plain torch version, tileqr_torch/kernels/geqrt.py):
 //   - the couple is held transposed: row j of `at` (n rows of m floats) is
@@ -164,16 +164,8 @@ __host__ __device__ inline long long geqrt_ws_floats(int n, int ib) {
 // floats, shared memory where they fit (global otherwise). `at` and `tt`
 // may lie in shared or global memory. Called by all GEQRT_THREADS threads
 // of the block.
-//
-// tri_bottom: the couple is [R1; R2] with R2 (rows n..2n-1) upper
-// triangular, as in TTQRT. Reflector j then lives on rows {j} and
-// {n..n+j}, so while the block of columns [s, e) is eliminated only the
-// first n + e rows are live (tileqr's lane_extent window): every loop and
-// contraction over rows stops there. The rows past it hold exact zeros
-// that the full traversal would only add, so the result is the same as
-// with tri_bottom off, bitwise up to the sign of zero.
 __device__ void geqrt_couple(float* at, int n, int m, float* tt, int ib,
-                             float* ws, float* v, int kcols, bool tri_bottom = false) {
+                             float* ws, float* v, int kcols) {
   __shared__ float red[33];
   __shared__ float sc[3];
   const int tid = threadIdx.x, bd = blockDim.x;
@@ -191,14 +183,13 @@ __device__ void geqrt_couple(float* at, int n, int m, float* tt, int ib,
 
   for (int s = 0; s < kcols; s += ib) {
     const int ibk = min(ib, kcols - s);
-    const int mw = tri_bottom ? min(m, n + s + ibk) : m;  // live rows of the block
 
     // ---- column loop: LARFG + rank-1 updates inside the block ----
     for (int jj = 0; jj < ibk; ++jj) {
       const int j = s + jj;
       float* x = at + (long long)j * m;
       float part = 0.f;
-      for (int r = j + 1 + tid; r < mw; r += bd) part = fmaf(x[r], x[r], part);
+      for (int r = j + 1 + tid; r < m; r += bd) part = fmaf(x[r], x[r], part);
       const float tailsq = block_sum(part, red);
       if (tid == 0) {
         const float alpha = x[j];
@@ -213,7 +204,7 @@ __device__ void geqrt_couple(float* at, int n, int m, float* tt, int ib,
       }
       __syncthreads();
       const float beta = sc[0], tau = sc[1], scale = sc[2];
-      for (int r = tid; r < mw; r += bd) {
+      for (int r = tid; r < m; r += bd) {
         const float xv = x[r];
         v[r] = (r == j) ? 1.f : (r > j ? xv * scale : 0.f);
         if (r == j) x[r] = beta;
@@ -223,19 +214,19 @@ __device__ void geqrt_couple(float* at, int n, int m, float* tt, int ib,
       for (int c = j + 1 + warp; c < s + ibk; c += nwarps) {
         float* y = at + (long long)c * m;
         float w = 0.f;
-        for (int r = j + lane; r < mw; r += 32) w = fmaf(y[r], v[r], w);
+        for (int r = j + lane; r < m; r += 32) w = fmaf(y[r], v[r], w);
         const float tw = tau * warp_sum(w);
-        for (int r = j + lane; r < mw; r += 32) y[r] = y[r] - tw * v[r];
+        for (int r = j + lane; r < m; r += 32) y[r] = y[r] - tw * v[r];
       }
       __syncthreads();
     }
 
-    // V_b^T (ibk x mw) and V_b (mw x ibk), read from the packed rows of `at`
+    // V_b^T (ibk x m) and V_b (m x ibk), read from the packed rows of `at`
     const Mat vtb = mat(at + (long long)s * m, m, 1, 2, s);
     const Mat vb = mat(at + (long long)s * m, 1, m, 1, s);
 
     // ---- block T by doubling, transposed (TTB = T_b^T) ----
-    block_gemm(ibk, ibk, mw, vtb, vb, G, ib, 1.f, false);
+    block_gemm(ibk, ibk, m, vtb, vb, G, ib, 1.f, false);
     for (int idx = tid; idx < ibk * ibk; idx += bd) {
       const int a = idx / ibk, b = idx % ibk;
       TTB[a * ib + b] = (a == b) ? tt[(long long)(s + a) * n + s + a] : 0.f;
@@ -266,25 +257,19 @@ __device__ void geqrt_couple(float* at, int n, int m, float* tt, int ib,
     if (s + ibk < n) {
       const int nr = n - s - ibk;
       float* rest = at + (long long)(s + ibk) * m;
-      block_gemm(nr, ibk, mw, mat(rest, m, 1), vb, W1, ib, 1.f, false);
+      block_gemm(nr, ibk, m, mat(rest, m, 1), vb, W1, ib, 1.f, false);
       block_gemm(nr, ibk, ibk, mat(W1, ib, 1), mat(TTB, 1, ib), W2, ib, 1.f, false);
-      block_gemm(nr, mw, ibk, mat(W2, ib, 1), vtb, rest, m, -1.f, true);
+      block_gemm(nr, m, ibk, mat(W2, ib, 1), vtb, rest, m, -1.f, true);
     }
 
     // ---- off-diagonal T[0:s, block] = -T1 (V1^T V_b) T_b, transposed ----
     if (s > 0) {
-      block_gemm(ibk, s, mw, vtb, mat(at, 1, m, 1, 0), ZT, n, 1.f, false);
+      block_gemm(ibk, s, m, vtb, mat(at, 1, m, 1, 0), ZT, n, 1.f, false);
       block_gemm(ibk, s, s, mat(ZT, n, 1), mat(tt, n, 1), M2, n, 1.f, false);
       block_gemm(ibk, s, ibk, mat(TTB, ib, 1), mat(M2, n, 1), tt + (long long)s * n, n,
                  -1.f, false);
     }
   }
-}
-
-// Workspace floats of one couple factorization: at (n x (n + rows)), tt
-// (n x n) and the geqrt_couple scratch.
-__host__ __device__ inline long long couple_work_floats(int n, int rows, int ib) {
-  return (long long)n * (n + rows) + (long long)n * n + geqrt_ws_floats(n, ib);
 }
 
 }  // namespace

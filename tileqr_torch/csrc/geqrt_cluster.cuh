@@ -1,9 +1,9 @@
 // GEQRT of a sequence of stacked couples by ONE thread-block cluster: the
-// device routine of K1 (panel.cu) and K2 (chain.cu).
+// device routine of K1 (panel.cu), K2 (chain.cu) and TTQRT (ttqrt.cu).
 //
-// Replaces, for those two kernels, tileqr/kernels/geqrt.py:geqrt_in_refs,
-// the Householder column loop inside tileqr/kernels/panel.py:panel_factor
-// and tileqr/kernels/chain.py:panel_chain. The algebra is the one of
+// Replaces, for those kernels, tileqr/kernels/geqrt.py:geqrt_in_refs, the
+// Householder column loop inside tileqr/kernels/panel.py:panel_factor,
+// tileqr/kernels/chain.py:panel_chain and tileqr/kernels/ttqrt.py:ttqrt. The algebra is the one of
 // geqrt.cuh and of the plain version (tileqr_torch/kernels/geqrt.py:
 // geqrt_in_place): LARFG with no rescaling, rank-1 updates inside the
 // ib-column block, the block's T by the doubling recurrence
@@ -18,10 +18,15 @@
 //
 // The design: one cluster of C CTAs (C in {1, 2, 4, 8, 16}, CL_THREADS
 // threads each, chosen by kernels/panel.py:cluster_plan from nb, m and
-// ib) holds the couple's rows, split contiguously: CTA q owns couple rows
+// ib) holds the couple's rows. Which rows a block walks and how the CTAs
+// split them is the block's row set (FullRows, TriRows below). K1/K2
+// (FullRows): every row, split contiguously: CTA q owns couple rows
 // [q*rpc, (q+1)*rpc), rpc = ceil(m / C), so the carried R (the top nb rows)
 // sits on the first CTAs. Every row is walked, R's zero rows too, as the
 // plain version walks them (K2 takes any r_in), so the split is balanced.
+// TTQRT (TriRows, sized by panel.py:ttqrt_plan): only the block's live
+// rows, dealt out cyclically, each column's dots and update over its
+// reflector's support only.
 //   - While ib-block [s, s+ibk) is eliminated, each CTA holds its rows of
 //     that block in its own shared memory (the slab, row stride ib + 1).
 //     The columns right of the block stay in global memory (L2): only the
@@ -60,6 +65,9 @@
 //     mode: no TF32, no tensor cores.
 //   - No prefetch of the next couple's tile (cp.async.bulk / TMA): not
 //     done in this version; each block is loaded when its turn comes.
+//   - The index math of the column loop and the block steps uses no
+//     integer division (div_small, shifts): a division is a ~20-instruction
+//     sequence, and several stood on each column's critical path.
 // On the H100 (PERF.md, utils/cluster_stages.py) the column loop is still
 // two thirds of the time; its exchange stage (the stores, the barrier and
 // the wait for the slowest CTA) is about half of that, the rest short
@@ -361,51 +369,164 @@ __device__ __forceinline__ void update_rows(float* slab, int ld, int c, int jj, 
   for (; r < hi; ++r) slab[r * ld + c] = slab[r * ld + c] - tw * (slab[r * ld + jj] * scale);
 }
 
-// threads per active column in the column loop
-__device__ __forceinline__ int groups_of(int na) { return min(GRP_MAX, max(1, CL_THREADS / na)); }
+// floor(x / d) for 0 <= x < 2^20 and 1 <= d < 2^20, without an integer
+// division (a ~20-instruction sequence on the column loop's critical path):
+// the float quotient is within one of it, and one step corrects it
+__device__ __forceinline__ int div_small(int x, int d) {
+  int q = __float2int_rz(__fdividef((float)x, (float)d));
+  if ((q + 1) * d <= x) ++q;
+  else if (q * d > x) --q;
+  return q;
+}
 
-// The Householder column loop over block [s, s + ibk) on this CTA's rows
-// [r0, r0 + nr) of the slab; rpc: rows per CTA (the owner of row j is
-// j / rpc). One cluster barrier per column. Every thread works on the
-// columns still active: each of the n_act active columns gets
-// groups_of(n_act) threads, each a contiguous group of rows, so the rows
-// per thread shrink as the block's columns are eliminated (and a column's
-// partial sums at most GRP_MAX groups).
-__device__ void column_loop(const Cta& w, int s, int ibk, int r0, int nr, int rpc) {
+// threads per active column in the column loop
+__device__ __forceinline__ int groups_of(int na) {
+  return min(GRP_MAX, max(1, div_small(CL_THREADS, na)));
+}
+
+// This CTA's rows of a block's row set (Rows below): slab row r holds live
+// index li(r) = li0 + (r << sh), r < nr, in increasing order (the step is a
+// power of two: 1, or the cluster size).
+struct Mine {
+  int li0, sh, nr;
+  __device__ int li(int r) const { return li0 + (r << sh); }
+  // the first slab row whose live index is >= x (nr if none)
+  __device__ int from(int x) const {
+    return x <= li0 ? 0 : min(nr, (x - li0 + (1 << sh) - 1) >> sh);
+  }
+  // the slab row of live index x, or -1 when another CTA holds it
+  __device__ int at(int x) const {
+    const int d = x - li0;
+    return (d >= 0 && (d & ((1 << sh) - 1)) == 0 && (d >> sh) < nr) ? d >> sh : -1;
+  }
+};
+
+// The rows a block [s, s + ibk) of a couple walks: its row set, in the
+// order of the slab (a row's index in it is its "live index" li). Each set
+// says
+//   n      how many rows it has;
+//   d0     the live index of column s's diagonal row (column s + jj's is
+//          d0 + jj; the rows after it in the set are below the diagonal);
+//   mine   which of them CTA q of C holds;
+//   tail   the live indices [lo, hi) after column jj's diagonal where its
+//          reflector can be non-zero (the other rows after it hold exact
+//          zeros in that column);
+//   split_tail  whether the column loop deals the tail's rows (rather
+//          than all the CTA's rows) out to the thread groups of a column;
+//   row    the couple row of a live index;
+//   fresh  whether the row was in no earlier block's set (its block
+//          columns and those right of it are read from the source, not
+//          its home);
+//   vprev  the reflector element V(row, c) of an earlier block's column
+//          c < s, from its home or known zero;
+//   moves  whether a row can change CTA from one block to the next (then a
+//          block starts with a cluster barrier: its rows' homes were last
+//          written by the previous block's apply on other CTAs).
+//
+// FullRows (K1, K2): every row of the couple, in couple order, in every
+// block, split contiguously: CTA q owns [q*rpc, (q+1)*rpc), rpc = ceil(m /
+// C) (K1/K2's split, unchanged; a column's tail is every row after its
+// diagonal).
+struct FullRows {
+  static constexpr bool moves = false, split_tail = false;
+  int n, d0, s;
+  __device__ FullRows(const Couple& cp, int s_, int) : n(cp.m), d0(s_), s(s_) {}
+  __device__ Mine mine(int q, int C) const {
+    const int rpc = ceil_div(n, C);
+    return Mine{q * rpc, 0, max(0, min(rpc, n - q * rpc))};
+  }
+  __device__ int tail_lo(int jj) const { return d0 + jj + 1; }
+  __device__ int tail_hi(int) const { return n; }
+  __device__ int row(int li) const { return li; }
+  __device__ bool fresh(int) const { return s == 0; }
+  __device__ float vprev(const Couple& cp, int li, int c) const {
+    return vmask(li, c, ldcg(home_at(cp, li, c)));
+  }
+};
+
+// TriRows (TTQRT): the couple [R1; R2] of two upper-triangular nb x nb
+// tiles (r_rows = nb). While block [s, e) is eliminated only R1's rows
+// [s, e) and R2's rows [0, e) can be non-zero in its columns: R1's rows
+// above s are final R rows that no reflector j >= s touches, R1's rows
+// past e and R2's rows past e hold exact zeros there. The set is R1's rows
+// [s, e) (live indices 0..ibk-1, the diagonals at d0 = 0), then R2's rows
+// [0, e); ibk + e rows, against the couple's 2 nb. Inside the block,
+// column j's reflector lives on R1's row j and R2's rows [0, j]: its tail
+// is live indices [ibk, ibk + j + 1). The rows are dealt out cyclically
+// (CTA q holds li = q, q + C, ...), so every column's tail is spread over
+// all C CTAs. The off-diagonal T's V_prev^T Vb needs no other row:
+// V_prev's R1 rows (its unit diagonals, rows < s) are not in Vb's support,
+// and its R2 rows [0, s) are in the set. An R2 row r joins the set with the
+// block that holds column r and stays.
+struct TriRows {
+  static constexpr bool moves = true, split_tail = true;
+  int n, d0, s, ibk, nb;
+  __device__ TriRows(const Couple& cp, int s_, int ibk_)
+      : n(2 * ibk_ + s_), d0(0), s(s_), ibk(ibk_), nb(cp.nb) {}
+  __device__ Mine mine(int q, int C) const {
+    return Mine{q, __ffs(C) - 1, q < n ? ceil_div(n - q, C) : 0};
+  }
+  __device__ int tail_lo(int) const { return ibk; }
+  __device__ int tail_hi(int jj) const { return ibk + s + jj + 1; }
+  __device__ int row(int li) const { return li < ibk ? s + li : nb + li - ibk; }
+  __device__ bool fresh(int li) const { return li < ibk || li - ibk >= s; }
+  __device__ float vprev(const Couple& cp, int li, int c) const {
+    // R1 rows: below their diagonal (c < s <= row), zero; R2 row r: V2 is
+    // upper triangular, zero for r > c
+    const int r = li - ibk;
+    return (r >= 0 && r <= c) ? ldcg(cp.b_home + (long long)r * cp.nb + c) : 0.f;
+  }
+};
+
+// The Householder column loop over an ibk-column block on this CTA's rows
+// `mine` of the block's row set: column jj's diagonal row is live index
+// rows.d0 + jj, and its reflector lives there and on its tail. One cluster
+// barrier per column. Every thread works on the columns still active: each
+// of the n_act active columns gets groups_of(n_act) threads, each a
+// contiguous group of rows (of all the CTA's rows, or of the tail's where
+// the set splits the tail), so the rows per thread shrink as the block's
+// columns are eliminated (and a column's partial sums at most GRP_MAX
+// groups).
+template <class Rows>
+__device__ void column_loop(const Cta& w, const Rows& rows, const Mine& mine, int ibk) {
   cg::cluster_group cluster = cg::this_cluster();
-  const int tid = threadIdx.x, ld = w.ld, ib = w.ib;
+  const int tid = threadIdx.x, ld = w.ld, ib = w.ib, nr = mine.nr;
   float* slab = w.slab;
   for (int jj = 0; jj < ibk; ++jj) {
-    const int j = s + jj;
+    const int j = rows.d0 + jj;
     float* part = w.part + (jj & 1) * (w.ctas + 1) * ib;  // [rank][ib], then row j
+    // the rows the thread groups of a column split, and the tail's
+    const int tlo = mine.from(rows.tail_lo(jj)), thi = mine.from(rows.tail_hi(jj));
+    const int glo = Rows::split_tail ? tlo : 0, ghi = Rows::split_tail ? thi : nr;
     // A: pack column jj - 1 (nobody reads it in this phase); this CTA's
     // dots of column j's tail with itself and with the columns right of it
     if (jj > 0) {
       const float scale = w.sc[0], beta = w.sc[1];
-      for (int r = max(0, j - 1 - r0) + tid; r < nr; r += CL_THREADS) {
+      for (int r = mine.from(j - 1) + tid; r < nr; r += CL_THREADS) {
         float* x = slab + r * ld + jj - 1;
-        *x = (r0 + r == j - 1) ? beta : *x * scale;
+        *x = (mine.li(r) == j - 1) ? beta : *x * scale;
       }
     }
     {
-      const int na = ibk - jj, grp = groups_of(na), rg = ceil_div(nr, grp);
+      const int na = ibk - jj, grp = groups_of(na), rg = div_small(ghi - glo + grp - 1, grp);
       for (int u = tid; u < grp * na; u += CL_THREADS) {
-        const int c = jj + u % na, g = u / na;
-        const int lo = g * rg, hi = min(nr, lo + rg);
-        w.red[u] = dot_rows(slab, ld, c, jj, max(lo, j + 1 - r0), hi, 0.f);
+        const int g = div_small(u, na), c = jj + u - g * na;
+        const int lo = glo + g * rg, hi = min(ghi, lo + rg);
+        w.red[u] = dot_rows(slab, ld, c, jj, max(lo, tlo), min(hi, thi), 0.f);
       }
     }
     __syncthreads();
     CL_STAGE(5);
     // B: the CTA's partials, and the owner's row j, stored into every CTA's
     // shared memory (posted stores: no CTA waits on a remote load)
-    const bool own = j >= r0 && j < r0 + nr;
+    const int rj = mine.at(j);
+    const bool own = rj >= 0;
     {
       const int na = ibk - jj, grp = groups_of(na);
       for (int c = jj + tid; c < ibk; c += CL_THREADS) {
         float t = 0.f;
         for (int g = 0; g < grp; ++g) t += w.red[g * na + c - jj];
-        const float yj = own ? slab[(j - r0) * ld + c] : 0.f;
+        const float yj = own ? slab[rj * ld + c] : 0.f;
         for (int p = 0; p < w.ctas; ++p) {
           float* dst = cluster.map_shared_rank(part, p);
           dst[w.rank * ib + c] = t;
@@ -433,19 +554,24 @@ __device__ void column_loop(const Cta& w, int s, int ibk, int r0, int nr, int rp
     }
     const int na = ibk - jj - 1;  // the columns right of column j
     if (na > 0) {
-      const int grp = groups_of(na), rg = ceil_div(nr, grp);
+      const int grp = groups_of(na), rg = div_small(ghi - glo + grp - 1, grp);
       for (int u = tid; u < grp * na; u += CL_THREADS) {
-        const int c = jj + 1 + u % na, g = u / na;
+        const int g = div_small(u, na), c = jj + 1 + u - g * na;
         float d = 0.f;
         for (int p = 0; p < w.ctas; ++p) d += part[p * ib + c];
         const float tw = tau * (yrow[c] + scale * d);
-        const int lo = g * rg, hi = min(nr, lo + rg);
-        int r = max(lo, j - r0);
-        if (r < hi && r0 + r == j) {  // v = 1 on row j
-          slab[r * ld + c] = slab[r * ld + c] - tw;
-          ++r;
+        const int lo = glo + g * rg, hi = min(ghi, lo + rg);
+        if (Rows::split_tail) {
+          if (g == 0 && own) slab[rj * ld + c] = slab[rj * ld + c] - tw;  // v = 1 on row j
+          update_rows(slab, ld, c, jj, max(lo, tlo), min(hi, thi), tw, scale);
+        } else {
+          int r = max(lo, mine.from(j));
+          if (r < hi && mine.li(r) == j) {  // v = 1 on row j
+            slab[r * ld + c] = slab[r * ld + c] - tw;
+            ++r;
+          }
+          update_rows(slab, ld, c, jj, r, hi, tw, scale);
         }
-        update_rows(slab, ld, c, jj, r, hi, tw, scale);
       }
     }
     __syncthreads();
@@ -453,41 +579,46 @@ __device__ void column_loop(const Cta& w, int s, int ibk, int r0, int nr, int rp
   }
   // pack the block's last column
   {
-    const int jj = ibk - 1, j = s + jj;
+    const int jj = ibk - 1, j = rows.d0 + jj;
     const float scale = w.sc[0], beta = w.sc[1];
-    for (int r = max(0, j - r0) + tid; r < nr; r += CL_THREADS) {
+    for (int r = mine.from(j) + tid; r < nr; r += CL_THREADS) {
       float* x = slab + r * ld + jj;
-      *x = (r0 + r == j) ? beta : *x * scale;
+      *x = (mine.li(r) == j) ? beta : *x * scale;
     }
   }
   __syncthreads();
 }
 
-// Factor the couple cp in place (its homes), T into cp.t_out. Called by
-// every thread of every CTA of the cluster.
-template <bool RES>
+// the live rows of a TTQRT couple's largest block: its slab's row count
+__host__ __device__ inline int tri_rows_max(int nb, int ib) { return nb + (ib < nb ? ib : nb); }
+
+// Factor the couple cp in place (its homes), T into cp.t_out, each block
+// over the rows of its set (FullRows or TriRows). Called by every thread of
+// every CTA of the cluster.
+template <bool RES, class Rows = FullRows>
 __device__ void geqrt_couple_cluster(const Couple& cp, const Cta& w) {
   const int tid = threadIdx.x, ld = w.ld, ib = w.ib, nb = cp.nb;
   const int q = w.rank, C = w.ctas;
-  const int rpc = ceil_div(cp.m, C);
-  const int r0 = q * rpc;
-  const int nr = max(0, min(rpc, cp.m - r0));
   float* slab = w.slab;
   for (int s = 0; s < nb; s += ib) {
     const int ibk = min(ib, nb - s);
-    const bool first = s == 0;
+    const Rows rows(cp, s, ibk);
+    const Mine mine = rows.mine(q, C);
+    const int nr = mine.nr, d0 = rows.d0;
+    auto src = [&](int li, int c) { return src_at(cp, rows.row(li), c, rows.fresh(li)); };
+    if (Rows::moves && s > 0) cluster_sync_global();
 
     // ---- the block's rows of this CTA into the slab; the column loop ----
     for (int idx = tid; idx < nr * ibk; idx += CL_THREADS) {
-      const int r = idx / ibk, c = idx % ibk;
-      slab[r * ld + c] = src_at(cp, r0 + r, s + c, first);
+      const int r = div_small(idx, ibk), c = idx - r * ibk;
+      slab[r * ld + c] = src(mine.li(r), s + c);
     }
     __syncthreads();
     CL_STAGE(0);
-    column_loop(w, s, ibk, r0, nr, rpc);
+    column_loop(w, rows, mine, ibk);
     for (int idx = tid; idx < nr * ibk; idx += CL_THREADS) {
-      const int r = idx / ibk, c = idx % ibk;
-      *home_at(cp, r0 + r, s + c) = slab[r * ld + c];
+      const int r = div_small(idx, ibk), c = idx - r * ibk;
+      *home_at(cp, rows.row(mine.li(r)), s + c) = slab[r * ld + c];
     }
     CL_STAGE(0);
 
@@ -496,18 +627,19 @@ __device__ void geqrt_couple_cluster(const Couple& cp, const Cta& w) {
       const int cw = min(CL_CW, nb - c0);
       cta_gemm(
           ibk, cw, nr,
-          [&](int r, int a) { return vmask(r0 + r, s + a, slab[r * ld + a]); },
+          [&](int r, int a) { return vmask(mine.li(r), d0 + a, slab[r * ld + a]); },
           [&](int r, int jc) {
-            const int c = c0 + jc, g = r0 + r;
-            if (c < s) return vmask(g, c, ldcg(home_at(cp, g, c)));
-            if (c < s + ibk) return vmask(g, c, slab[r * ld + c - s]);
-            return src_at(cp, g, c, first);
+            const int c = c0 + jc, li = mine.li(r);
+            if (c < s) return rows.vprev(cp, li, c);
+            if (c < s + ibk) return vmask(li, d0 + c - s, slab[r * ld + c - s]);
+            return src(li, c);
           },
           [&](int a, int jc, float v) { w.ybuf[a * cw + jc] = v; }, w.stage);
       cluster_sync_global();
       const int e_all = ibk * cw, share = ceil_div(e_all, C);
       for (int e = q * share + tid; e < min(e_all, (q + 1) * share); e += CL_THREADS) {
-        w.pred[(long long)(e / cw) * nb + c0 + e % cw] = sum_ranks<RES>(w, e);
+        const int a = div_small(e, cw);
+        w.pred[(long long)a * nb + c0 + e - a * cw] = sum_ranks<RES>(w, e);
       }
       cluster_sync_global();
     }
@@ -517,25 +649,25 @@ __device__ void geqrt_couple_cluster(const Couple& cp, const Cta& w) {
     // the reduced P) in the slab's place meanwhile: Vb is in its home ----
     float* G = slab;  // G(a, k) = G[a * ld + k]
     for (int idx = tid; idx < ibk * ibk; idx += CL_THREADS) {
-      const int a = idx / ibk, b = idx % ibk;
+      const int a = div_small(idx, ibk), b = idx - a * ibk;
       w.tb[a * ld + b] = (a == b) ? w.tau[a] : 0.f;
       G[a * ld + b] = ldcg(w.pred + (long long)a * nb + s + b);
     }
     __syncthreads();
     float* X = w.ybuf;
-    for (int bsz = 1; bsz < ibk; bsz *= 2) {
+    for (int bsz = 1, lb = 0; bsz < ibk; bsz *= 2, ++lb) {
       // X = (G o M) Tb^T on the pairs (odd block A, even block B = A - 1)
       for (int idx = tid; idx < ibk * bsz; idx += CL_THREADS) {
-        const int a = idx / bsz, ea = a / bsz;
+        const int a = idx >> lb, ea = a >> lb;
         if (!(ea & 1)) continue;
-        const int b = (ea - 1) * bsz + idx % bsz;
+        const int b = (ea - 1) * bsz + (idx & (bsz - 1));
         float t = 0.f;
         for (int k = b; k < ea * bsz; ++k) t = fmaf(G[a * ld + k], w.tb[k * ld + b], t);
         X[idx] = t;
       }
       __syncthreads();
       for (int idx = tid; idx < ibk * bsz; idx += CL_THREADS) {
-        const int a = idx / bsz, ea = a / bsz, bo = idx % bsz;
+        const int a = idx >> lb, ea = a >> lb, bo = idx & (bsz - 1);
         if (!(ea & 1)) continue;
         float t = 0.f;
         for (int k = ea * bsz; k <= a; ++k) t = fmaf(w.tb[a * ld + k], X[k * bsz + bo], t);
@@ -545,13 +677,13 @@ __device__ void geqrt_couple_cluster(const Couple& cp, const Cta& w) {
     }
     if (q == 0) {
       for (int idx = tid; idx < ibk * ibk; idx += CL_THREADS) {
-        const int a = idx / ibk, b = idx % ibk;
+        const int a = div_small(idx, ibk), b = idx - a * ibk;
         cp.t_out[(long long)(s + a) * nb + s + b] = w.tb[b * ld + a];
       }
     }
     for (int idx = tid; idx < nr * ibk; idx += CL_THREADS) {
-      const int r = idx / ibk, c = idx % ibk;
-      slab[r * ld + c] = ldcg(home_at(cp, r0 + r, s + c));
+      const int r = div_small(idx, ibk), c = idx - r * ibk;
+      slab[r * ld + c] = ldcg(home_at(cp, rows.row(mine.li(r)), s + c));
     }
     __syncthreads();
     CL_STAGE(2);
@@ -568,7 +700,7 @@ __device__ void geqrt_couple_cluster(const Couple& cp, const Cta& w) {
           [&](int k, int b) { return ldcg(w.pred + (long long)b * nb + k); },
           [&](int i, int b, float v) { w.ybuf[i * ibk + b] = v; }, w.stage);
       for (int idx = tid; idx < na * ibk; idx += CL_THREADS) {
-        const int al = idx / ibk, a = a0 + al, b = idx % ibk;
+        const int al = div_small(idx, ibk), a = a0 + al, b = idx - al * ibk;
         float t = 0.f;
         for (int k = 0; k <= b; ++k) t = fmaf(w.tb[b * ld + k], w.ybuf[al * ibk + k], t);
         cp.t_out[(long long)a * nb + s + b] = -t;
@@ -586,11 +718,11 @@ __device__ void geqrt_couple_cluster(const Couple& cp, const Cta& w) {
           [&](int k, int jc) { return ldcg(w.pred + (long long)k * nb + c0 + jc); },
           [&](int a, int jc, float v) { w.ybuf[a * cw + jc] = v; }, w.stage);
       cta_gemm(
-          nr, cw, ibk, [&](int k, int r) { return vmask(r0 + r, s + k, slab[r * ld + k]); },
+          nr, cw, ibk, [&](int k, int r) { return vmask(mine.li(r), d0 + k, slab[r * ld + k]); },
           [&](int k, int jc) { return w.ybuf[k * cw + jc]; },
           [&](int r, int jc, float v) {
-            const int g = r0 + r, c = c0 + jc;
-            *home_at(cp, g, c) = src_at(cp, g, c, first) - v;
+            const int li = mine.li(r), c = c0 + jc;
+            *home_at(cp, rows.row(li), c) = src(li, c) - v;
           },
           w.stage);
     }

@@ -5,71 +5,93 @@
 // triangular), V2 (upper triangular: reflector j lives on rows {j} and
 // {nb..nb+j} of the couple) and T2, the compact-WY T of the nb reflectors.
 //
-// What bounds it on the H100: latency, as every kernel built on
-// geqrt_couple (geqrt.cuh). The work itself is small: LAPACK's count for a
-// triangle-on-triangle couple is about 2 nb^3 / 3 flops (11 MFLOP at
+// What bounds it on the H100: latency. The work is small: LAPACK's count
+// for a triangle-on-triangle couple is about 2 nb^3 / 3 flops (11 MFLOP at
 // nb = 256) and the tiles in and out are 5 nb^2 floats (1.25 MiB), a bound
 // of about 0.4 us set by the bytes; but the Householder column loop is a
-// chain of nb block-wide reductions on ONE SM.
+// chain of nb dependent reductions.
 // What the design does about it: the TPU kernel confines its lanes to a
-// 128-aligned window n + e while it eliminates the column block [s, e);
-// here geqrt_couple takes the same structure as a per-block live row count
-// nb + e (tri_bottom), which drops the norms, rank-1 updates, block apply
-// and T build over the rows of R2's zero lower triangle past the block (at
-// nb = 256, ib = 128: 384 of the 512 rows while the first block is
-// eliminated, all 512 for the second). One block of GEQRT_THREADS threads;
-// the couple (512 KiB at nb = 256, past the 227 KB of shared memory) sits
-// in an L2-resident global workspace, as in K1/K2. The rows past the
-// window hold exact zeros, so the outputs equal the K2 TSQRT of the same
-// couple (panel_chain with one nb-row couple) bitwise up to the sign of
-// zero. Faster designs (several couples of one tree level per launch, or
-// the couple in a cluster's distributed shared memory) are later work.
-#include "geqrt.cuh"
+// window while it eliminates the column block [s, e); here the couple runs
+// on the cluster routine of K1/K2 (geqrt_cluster.cuh, geqrt_couple_cluster
+// with the TriRows row set), whose blocks walk only their live rows: R1's
+// rows [s, e) and R2's rows [0, e). At nb = 256, ib = 128 that is 256 rows
+// for the first block and 384 for the second, against the 512 of the full
+// couple (tsqrt, K2). Inside a block, column j's norm, dots and rank-1
+// update run over its reflector's support only, R1's row j and R2's rows
+// [0, j] (the per-column window). Every other row holds exact zeros in the
+// columns concerned or is a final R row, so the outputs equal those of the
+// full couple up to the order of additions of exact zeros and the sum
+// order. The live rows of each block are dealt out cyclically over the
+// cluster's C CTAs (C from kernels/panel.py:ttqrt_plan; CTA q holds live
+// rows q, q + C, ...), so each column's window is spread over all of them;
+// the active block of them sits in shared memory, with one cluster barrier
+// per column and the partials added in rank order (the same bits on every
+// CTA, no atomics). As a row changes CTA from one block to the next, a
+// block starts with a cluster barrier. The columns right of the block stay
+// in the outputs (L2) between blocks. R1 and R2 are read from the inputs
+// and R, V2, T2 written straight to the outputs: there is no copy of the
+// couple. The global workspace holds only the reduced P of the block
+// product (and, where C is too small for shared memory, the slab). The
+// entries of R and V2 that no block writes (row g, columns left of g's
+// block) are zeroed here: both outputs are upper triangular.
+// Arithmetic: IEEE fp32 FMA on the CUDA cores, LARFG with no rescaling,
+// T by the doubling recurrence, as in K2: deterministic.
+// What bounds it now (PERF.md, utils/cluster_stages.py): the column loop,
+// nb dependent steps, each with its cluster barrier, as in K2.
+#include "geqrt_cluster.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(GEQRT_THREADS)
+template <bool RES>
+__global__ void __launch_bounds__(cl::CL_THREADS)
 ttqrt_kernel(const float* __restrict__ r1, const float* __restrict__ r2, int nb, int ib,
              float* r_out, float* v2, float* t2, float* work) {
-  extern __shared__ float v_sh[];
-  const int tid = threadIdx.x, bd = blockDim.x;
-  const int m = 2 * nb;
-  const long long tile2 = (long long)nb * nb;
-  float* at = work;
-  float* tt = at + (long long)nb * m;
-  float* ws = tt + tile2;
-  for (long long idx = tid; idx < tile2; idx += bd) {
-    const int r = (int)(idx / nb), c = (int)(idx % nb);
-    at[(long long)c * m + r] = r1[idx];
-    at[(long long)c * m + nb + r] = r2[idx];
-    tt[idx] = 0.f;
+  extern __shared__ __align__(16) float smem[];
+  const cl::Cta w = cl::carve<RES>(smem, work, nb, cl::tri_rows_max(nb, ib), ib);
+  // row g of R and V2 is first written by the block that holds column g;
+  // the entries left of that block (all below the diagonal) are zero
+  // (a warp a row, the rows dealt out over the CTAs)
+  const int lane = threadIdx.x & 31, warps = cl::CL_THREADS / 32;
+  for (int g = w.rank * warps + (threadIdx.x >> 5); g < nb; g += w.ctas * warps) {
+    const long long row = (long long)g * nb;
+    for (int c = lane; c < g / ib * ib; c += 32) {
+      r_out[row + c] = 0.f;
+      v2[row + c] = 0.f;
+    }
   }
-  __syncthreads();
-  geqrt_couple(at, nb, m, tt, ib, ws, v_sh, nb, true);
-  for (long long idx = tid; idx < tile2; idx += bd) {
-    const int r = (int)(idx / nb), c = (int)(idx % nb);
-    r_out[idx] = at[(long long)c * m + r];
-    v2[idx] = at[(long long)c * m + nb + r];
-    t2[idx] = tt[(long long)c * nb + r];
-  }
+  cl::Couple cp;
+  cp.nb = nb;
+  cp.m = 2 * nb;
+  cp.r_rows = nb;
+  cp.r_src = r1;
+  cp.r_home = r_out;
+  cp.b_src = r2;
+  cp.ldb = nb;
+  cp.b_home = v2;
+  cp.t_out = t2;
+  cl::geqrt_couple_cluster<RES, cl::TriRows>(cp, w);
+  cl::cluster_sync_global();
 }
 
 }  // namespace
 
-// workspace floats of one geqrt_couple couple of nb + rows rows
-extern "C" int tq_geqrt_work_floats(int nb, int rows, int ib) {
-  return static_cast<int>(couple_work_floats(nb, rows, ib));
+// r1, r2: (nb x nb) upper triangular, contiguous; work:
+// tq_cluster_work_floats(nb, nb + min(ib, nb), ib, ctas, resident) floats;
+// ctas, smem, resident: kernels/panel.py:ttqrt_plan(nb, ib).
+extern "C" int tq_ttqrt(const float* r1, const float* r2, int nb, int ib, float* r_out,
+                        float* v2, float* t2, float* work, int ctas, long long smem,
+                        int resident, void* stream) {
+  if (nb < 1 || ib < 1 || ib > nb) return (int)cudaErrorInvalidValue;
+  if (!cl::smem_matches(nb, cl::tri_rows_max(nb, ib), ib, ctas, resident, smem))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (resident)
+    return cl::launch_cluster(ttqrt_kernel<true>, ctas, (size_t)smem, st, r1, r2, nb, ib, r_out,
+                              v2, t2, work);
+  return cl::launch_cluster(ttqrt_kernel<false>, ctas, (size_t)smem, st, r1, r2, nb, ib, r_out,
+                            v2, t2, work);
 }
 
-// r1, r2: (nb x nb) upper triangular, contiguous; work:
-// tq_geqrt_work_floats(nb, nb, ib) floats.
-extern "C" int tq_ttqrt(const float* r1, const float* r2, int nb, int ib, float* r_out,
-                        float* v2, float* t2, float* work, void* stream) {
-  const size_t smem = sizeof(float) * 2 * nb;
-  cudaError_t e = cudaFuncSetAttribute(
-      ttqrt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  ttqrt_kernel<<<1, GEQRT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      r1, r2, nb, ib, r_out, v2, t2, work);
-  return (int)cudaGetLastError();
-}
+#ifdef TQ_CL_STAGES
+extern "C" int tq_cl_stages_ttqrt(unsigned long long* out) { return cl::read_stages(out); }
+#endif

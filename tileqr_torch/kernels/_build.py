@@ -85,10 +85,8 @@ SIGNATURES = {
     ),
     # vkk, tg, strip, lds, width, nb, trans, passes, stream
     "tq_larfb_strip": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
-    # TTQRT's workspace size in floats: nb, rows, ib
-    "tq_geqrt_work_floats": (_I, _I, _I),
-    # lu (in place), n, d, stream
-    "tq_modified_lu": (_P, _I, _P, _P),
+    # q, lu, n, d, ctas, smem, resident, stream
+    "tq_modified_lu": (_P, _P, _I, _P, _I, _L, _I, _P),
     # r (in place), batch, n, bp, stream
     "tq_potrf_batched": (_P, _I, _I, _I, _P),
     # y, tm (or NULL), c, ldc, m, n, nb, mr, w, passes, stream
@@ -101,8 +99,8 @@ SIGNATURES = {
     "tq_geqrt_batched_work_floats": (_I, _I, _I, _I),
     # a, packed, t, work, batch, m, n, kcols, ib, resident, grid, stream
     "tq_geqrt_batched": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
-    # r1, r2, nb, ib, r_out, v2, t2, work, stream
-    "tq_ttqrt": (_P, _P, _I, _I, _P, _P, _P, _P, _P),
+    # r1, r2, nb, ib, r_out, v2, t2, work, ctas, smem, resident, stream
+    "tq_ttqrt": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _L, _I, _P),
 }
 
 # the C functions that return something other than an int

@@ -68,8 +68,9 @@ def geqrt_in_place(at: torch.Tensor, tt: torch.Tensor, kcols: int, ib: int,
     tri_bottom: the tile is the TTQRT couple [R1; R2] with R2 (rows
     n..2n-1) upper triangular, so once the column block ending at column e
     is reached only its first n + e rows can be non-zero (tileqr's
-    ``lane_extent``): every step of that block runs on those rows only, as
-    ``csrc/geqrt.cuh`` does. Default: all m rows.
+    ``lane_extent``): every step of that block runs on those rows only
+    (``csrc/ttqrt.cu`` walks a subset of them, the block's live rows).
+    Default: all m rows.
     """
     n, m = at.shape[-2:]
     dt, dev = at.dtype, at.device

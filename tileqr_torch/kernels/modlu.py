@@ -7,17 +7,66 @@ Counterpart of ``tileqr/kernels/modlu.py:modified_lu``: factor
 with L1 unit lower triangular, U upper triangular and the signs
 d_j = −sign(pivot) chosen at step j (d_j = +1 for a zero pivot), so that
 |u_jj| = |q_jj| + 1 ∈ [1, 2] and no pivoting is needed. On a CUDA tensor the
-wrapper launches ``tq_modified_lu`` (``csrc/modlu.cu``); on a CPU tensor it
-runs the plain version, which follows ``_mk_modlu_kernel`` step by step.
+wrapper launches ``tq_modified_lu`` (``csrc/modlu.cu``: a blocked LU on one
+thread-block cluster, the block in its CTAs' shared memory, sized by
+``modlu_plan``); on a CPU tensor it runs the plain version, which follows
+``_mk_modlu_kernel`` step by step.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from tileqr_torch.kernels import _build
+from tileqr_torch.kernels.panel import CLUSTER_SIZES, SMEM_LIMIT
+
+# columns a CTA the plan aims at (a slab of nb × 64 fp32, 64 KiB at nb = 256),
+# and the panel width (csrc/modlu.cu: IB): on the H100 ib = 16 ran nb = 256
+# and 512 faster than 32 and 64 (PERF.md)
+MODLU_COLS_PER_CTA = 64
+MODLU_IB = 16
+
+
+class ModluPlan(NamedTuple):
+    ctas: int          # C, the CTAs of the one cluster; CTA q owns columns [q·cpc, (q+1)·cpc)
+    ib: int            # panel width, min(MODLU_IB, cpc): the slabs' ib-column pieces
+    smem_bytes: int    # dynamic shared memory per CTA
+    resident: bool     # the block in shared memory (else in the lu output, L2)
+
+
+def modlu_panel_width(nb: int, ctas: int) -> int:
+    """The panel width of a B8 launch (``csrc/modlu.cu``: ``panel_width``):
+    MODLU_IB, or a CTA's ceil(nb / C) columns where it holds fewer."""
+    return min(MODLU_IB, -(-nb // ctas))
+
+
+def modlu_smem_bytes(nb: int, ctas: int, resident: bool) -> int:
+    """Shared bytes per CTA of a B8 launch (``csrc/modlu.cu``:
+    ``smem_floats``): two parities of a panel row (2 × MODLU_IB), and when
+    resident the CTA's slab of ceil(nb / C) columns, all nb rows, row
+    stride cpc + 1, and its copy of L's panel, nb × (ib + 1)."""
+    cpc = -(-nb // ctas)
+    big = nb * (cpc + 1) + nb * (modlu_panel_width(nb, ctas) + 1) if resident else 0
+    return 4 * (2 * MODLU_IB + big)
+
+
+def modlu_plan(nb: int) -> ModluPlan:
+    """The cluster of a B8 launch on an (nb, nb) block: the fewest CTAs
+    (16 at most) that hold at most MODLU_COLS_PER_CTA columns each, grown
+    while the slab and the L panel do not fit one CTA's shared memory;
+    where none fits, 16 CTAs on the block in global memory."""
+    if nb < 1:
+        raise ValueError(f"modlu_plan: nb={nb}")
+    fits = [c for c in CLUSTER_SIZES if -(-nb // c) <= MODLU_COLS_PER_CTA]
+    sizes = CLUSTER_SIZES[CLUSTER_SIZES.index(fits[0]):] if fits else CLUSTER_SIZES[-1:]
+    for c in sizes:
+        smem = modlu_smem_bytes(nb, c, True)
+        if smem <= SMEM_LIMIT:
+            return ModluPlan(c, modlu_panel_width(nb, c), smem, True)
+    c = sizes[-1]
+    return ModluPlan(c, modlu_panel_width(nb, c), modlu_smem_bytes(nb, c, False), False)
 
 
 def _check(q_top: torch.Tensor) -> int:
@@ -56,9 +105,12 @@ def modified_lu(q_top: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return modified_lu_plain(q_top)
     _build.require_fp32(q_top)
     n = _check(q_top)
-    lu = q_top.contiguous().clone()
-    d = torch.empty(n, dtype=lu.dtype, device=lu.device)
-    rc = _build.lib().tq_modified_lu(lu.data_ptr(), n, d.data_ptr(), _build.stream())
+    plan = modlu_plan(n)
+    q = q_top.contiguous()
+    lu = torch.empty_like(q)
+    d = torch.empty(n, dtype=q.dtype, device=q.device)
+    rc = _build.lib().tq_modified_lu(q.data_ptr(), lu.data_ptr(), n, d.data_ptr(), plan.ctas,
+                                     plan.smem_bytes, int(plan.resident), _build.stream())
     _build.check(rc, "modified_lu")
     _build.LAUNCHES["modified_lu"] += 1
     return lu, d

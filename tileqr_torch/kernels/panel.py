@@ -57,21 +57,44 @@ def cluster_smem_bytes(nb: int, rows: int, ib: int, ctas: int, resident: bool) -
     return 4 * (small + (big if resident else 0))
 
 
-def cluster_plan(nb: int, rows: int, ib: int) -> ClusterPlan:
+def cluster_plan(nb: int, rows: int, ib: int, rows_per_cta: Optional[int] = None) -> ClusterPlan:
     """The cluster of a K1/K2 launch whose largest couple has ``rows`` rows
     (K1: 2·nb, or nb with no couples; K2: nb + block_rows): the fewest CTAs
-    that hold at most ROWS_PER_CTA rows each (16 at most), grown while the
-    active block does not fit one CTA's shared memory; where it fits at no
-    size, the smallest such cluster with the block in a global workspace."""
+    that hold at most ``rows_per_cta`` rows each (ROWS_PER_CTA by default,
+    16 CTAs at most), grown while the active block does not fit one CTA's
+    shared memory; where it fits at no size, the smallest such cluster with
+    the block in a global workspace."""
     if nb < 1 or ib < 1 or rows < nb:
         raise ValueError(f"cluster_plan: nb={nb}, rows={rows}, ib={ib}")
-    fits = [c for c in CLUSTER_SIZES if -(-rows // c) <= ROWS_PER_CTA]
+    target = ROWS_PER_CTA if rows_per_cta is None else rows_per_cta
+    fits = [c for c in CLUSTER_SIZES if -(-rows // c) <= target]
     c0 = fits[0] if fits else CLUSTER_SIZES[-1]
     for c in CLUSTER_SIZES[CLUSTER_SIZES.index(c0):]:
         smem = cluster_smem_bytes(nb, rows, ib, c, True)
         if smem <= SMEM_LIMIT:
             return ClusterPlan(c, smem, True, -(-rows // c))
     return ClusterPlan(c0, cluster_smem_bytes(nb, rows, ib, c0, False), False, -(-rows // c0))
+
+
+# live rows a CTA the TTQRT plan aims at (its largest block's set of
+# nb + ib rows over C CTAs): 8 CTAs at nb = 256, ib = 128
+TTQRT_ROWS_PER_CTA = 48
+
+
+def ttqrt_rows(nb: int, ib: int) -> int:
+    """Live rows of a TTQRT couple's largest block (``geqrt_cluster.cuh``:
+    ``tri_rows_max``): R1's ib rows of the block and R2's rows above its
+    end, nb + min(ib, nb)."""
+    return nb + min(ib, nb)
+
+
+def ttqrt_plan(nb: int, ib: int) -> ClusterPlan:
+    """The cluster of a TTQRT launch (``csrc/ttqrt.cu``, the cluster routine
+    on each block's live rows), ib ≤ nb: C from the largest live set,
+    ``ttqrt_rows(nb, ib)`` rows, at TTQRT_ROWS_PER_CTA rows a CTA."""
+    if nb < 1 or ib < 1 or ib > nb:
+        raise ValueError(f"ttqrt_plan: nb={nb}, ib={ib}")
+    return cluster_plan(nb, ttqrt_rows(nb, ib), ib, TTQRT_ROWS_PER_CTA)
 
 
 def _cluster_args(nb: int, rows: int, ib: int, kw) -> tuple:

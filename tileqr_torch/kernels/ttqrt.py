@@ -3,11 +3,13 @@
 Counterpart of ``tileqr/kernels/ttqrt.py``. ``ttqrt`` is the QR of the
 couple [R1; R2] of two upper-triangular (nb, nb) tiles: R, V2 (upper
 triangular) and T2. On a CUDA tensor the wrapper launches ``tq_ttqrt``
-(``csrc/ttqrt.cu``); on a CPU tensor it runs ``ttqrt_plain``, the column
+(``csrc/ttqrt.cu``: the thread-block cluster routine of K1/K2 on each
+column block's live rows, R1's rows [s, e) and R2's rows [0, e), sized by
+``panel.ttqrt_plan``); on a CPU tensor it runs ``ttqrt_plain``, the column
 loop with tileqr's row window (``geqrt_in_place``'s ``tri_bottom``: while
 the column block [s, e) is eliminated only the first nb + e rows of the
 couple are live). Both equal TSQRT on the same couple up to the order of
-additions of exact zeros.
+additions of exact zeros and the order of the sums.
 
 ``ttmqr`` applies a TTQRT reflector pair to a tile couple; as in tileqr it
 is ``ssrfb`` (``kernels/ssrfb.py``), which runs K3 with one couple on the
@@ -22,6 +24,7 @@ import torch
 
 from tileqr_torch.kernels import _build
 from tileqr_torch.kernels.geqrt import geqrt_in_place
+from tileqr_torch.kernels.panel import ttqrt_plan, ttqrt_rows
 from tileqr_torch.kernels.ssrfb import ssrfb
 
 # tileqr's ttqrt and tsqrt run the column loop at geqrt_in_refs' default ib
@@ -56,12 +59,16 @@ def ttqrt(r1: torch.Tensor, r2: torch.Tensor,
         return ttqrt_plain(r1, r2, ib)
     _build.require_fp32(r1, r2)
     nb = _check(r1, r2)
+    ib = min(ib, nb)
+    plan = ttqrt_plan(nb, ib)  # before the library loads: a bad geometry raises first
     r1, r2 = r1.contiguous(), r2.contiguous()
     r, v2, t2 = (torch.empty_like(r1) for _ in range(3))
     lib = _build.lib()
-    work = r1.new_empty(lib.tq_geqrt_work_floats(nb, nb, ib))
+    work = r1.new_empty(lib.tq_cluster_work_floats(nb, ttqrt_rows(nb, ib), ib, plan.ctas,
+                                                   int(plan.resident)))
     rc = lib.tq_ttqrt(r1.data_ptr(), r2.data_ptr(), nb, ib, r.data_ptr(), v2.data_ptr(),
-                      t2.data_ptr(), work.data_ptr(), _build.stream())
+                      t2.data_ptr(), work.data_ptr(), plan.ctas, plan.smem_bytes,
+                      int(plan.resident), _build.stream())
     _build.check(rc, "ttqrt")
     _build.LAUNCHES["ttqrt"] += 1
     return r, v2, t2
