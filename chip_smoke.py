@@ -49,13 +49,17 @@ use (one nvcc per source, in parallel), then:
 6. times the hr ``qr_factor``, ``qr`` and ``torch.linalg.qr(mode="r")`` at
    16384²;
 7. the tall-skinny path at BASELINE config 3, a 1048576×512 gaussian A with
-   ``QRConfig(nb=512)``: holds the batched GEQRT kernel against its plain
-   version on the 512 leaves of 2048 rows and on the first tree level's
-   (128, 2048, 512) stack, and times it beside its plain version and
-   ``torch.geqrf`` on the leaf stack; runs ``tsqr(a, "r")`` (auto → tree)
-   with the counts set to 0 just before and read just after (6 launches of
-   the kernel: the leaves and 5 levels; no other kernel, no plain version)
-   and ``tsqr(a, "reduced")``, and checks the relerr ‖QᵀA − [R; 0]‖F/‖A‖F
+   ``QRConfig(nb=512)``: holds the batched GEQRT against its plain version
+   on the 512 leaves of 2048 rows (the one-block kernel) and on each tree
+   level's stack as ``tsqr_factor`` forms it (128 stacks of 2048×512 on the
+   one-block kernel; 32, 8, 2 stacks of 2048×512 and 1 of 1024×512 on the
+   cluster route, ``batched_cluster_plan``'s C printed), and times each
+   beside its plain version and ``torch.geqrf`` (each cluster level also
+   beside the one-block kernel on the same stack); runs ``tsqr(a, "r")``
+   (auto → tree) with the counts set to 0 just before and read just after
+   (each route launched as often as the plans say: the leaves and the
+   first level on the one-block kernel, four levels on the cluster route;
+   no other kernel, no plain version) and ``tsqr(a, "reduced")``, and checks the relerr ‖QᵀA − [R; 0]‖F/‖A‖F
    through ``apply_q`` on the tree's ``TSQRFactors`` ≤ 1e-6, the explicit-Q
    residual ≤ 3e-6, ‖QᵀQ − I‖F ≤ 1e-3, R against ``torch.linalg.qr`` up to
    row signs (printed), bitwise reruns; then ``tsqr(a, "factor")`` (auto →
@@ -67,14 +71,16 @@ use (one nvcc per source, in parallel), then:
    plain version, its bound and ``lu_factor``, with its cluster; ``apply_q`` in "b3" of those factors to A, with the
    counts set to 0 just before and read just after (nb = 512: one launch
    of B7's split instantiation, no plain version; relerr ≤ 1e-4), and B7
-   at that shape against its b3 and "highest" plain versions, timed; times
+   at that shape against its b3 and "highest" plain versions summed in the
+   card's row-block groups (``project_plan``: G = 4 there), its phase 1
+   alone likewise, timed, with each phase's time; times
    ``tsqr`` r (tree), factor (cholqr2), factor + ``apply_q`` on 16 columns
    and ``torch.linalg.qr(mode="r")``;
 8. the batched path at BASELINE config 4, a (4096, 128, 128) gaussian
    stack with the default QRConfig: holds the kernel against its plain
    version at ib = 32 (``qr_batched``'s width) and ib = 128, and ``geqrt``
-   on one 256² tile (the global-workspace variant), each timed beside
-   ``torch.geqrf``; runs ``qr_batched(a)`` with the counts set to 0 just
+   on one 256² tile (B1s: the cluster route; rerun bitwise), each timed
+   beside ``torch.geqrf`` (B1s also beside the one-block kernel); runs ``qr_batched(a)`` with the counts set to 0 just
    before and read just after (one kernel launch, no plain version) and
    checks the max over the batch of ‖A − QR‖F/‖A‖F ≤ 1e-6 and of
    ‖QᵀQ − I‖F ≤ 1e-3 and bitwise reruns; with
@@ -87,7 +93,8 @@ use (one nvcc per source, in parallel), then:
    on the tensor cores, ``csrc/bx_mma.cuh``): K3 and K4 at phase 1's
    shapes, B6 on panels 0 and 48 of a 16384² A and B7 (also in "highest")
    on ``orgqr``'s k = 0 (16384², both trans) and k = 63 (256²) windows,
-   each held against the plain version of its own mode within
+   each held against the plain version of its own mode (its phase 1 summed
+   in the card's row-block groups, ``project_plan``) within
    ``TOL_MODE_KERNEL`` and printed beside its distance to the "highest"
    plain version, which must be larger (the split ran); each timed beside
    that plain version and three bf16 ``torch.matmul`` calls of the same
@@ -236,6 +243,11 @@ KERNEL_INFO = {
     "geqrt_batched": ("tileqr_torch/csrc/geqrt_batched.cu",
                       "tileqr/drivers/tsqr.py:217, tileqr/drivers/batched.py:167, "
                       "tileqr/drivers/batched.py:41, tileqr/kernels/geqrt.py:225"),
+    # the batched GEQRT's cluster route: small stacks (the tsqr tree's
+    # levels of 32, 8, 2, 1 matrices; B1s), one thread-block cluster a matrix
+    "geqrt_batched[cluster]": ("tileqr_torch/csrc/geqrt_batched.cu + "
+                               "tileqr_torch/csrc/geqrt_cluster.cuh",
+                               "tileqr/drivers/tsqr.py:217, tileqr/kernels/geqrt.py:225"),
     "panel_apply": ("tileqr_torch/csrc/panel_apply.cu", "tileqr/kernels/panel_apply.py:112"),
     "ttqrt": ("tileqr_torch/csrc/ttqrt.cu", "tileqr/kernels/ttqrt.py:68"),
     # TPU kernels that the sharded path runs as K1/K3 with counters of their own
@@ -621,8 +633,10 @@ def time_path(a: torch.Tensor, cfg, path: str, card: str, reps: int) -> None:
 
     n = a.shape[0]
     flops = 2.0 * n * n * (n - n / 3.0)
+    tileqr_torch.qr_factor(a, cfg)  # warm, as time_modes does
     ms = cuda_ms(lambda: tileqr_torch.qr_factor(a, cfg), reps)
     print(f"{path} qr_factor {n}x{n}: {ms:.3f} ms, {flops / ms / 1e9:.3f} TFLOP/s [{card}]")
+    tileqr_torch.qr(a, config=cfg)
     ms = cuda_ms(lambda: tileqr_torch.qr(a, config=cfg), reps)
     print(f"{path} tileqr_torch.qr {n}x{n} (factor + R + Q): {ms:.3f} ms [{card}]")
     torch.linalg.qr(a, mode="r")
@@ -654,15 +668,19 @@ def phase4(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
         with square_hr._highest():
             y, t, _ = square_hr.hr_panel(a[s:, s : s + NB])
         m, w = n - s, n - s - NB
+        # phase 1's row-block groups on the card (1 on panel 0, 2 on 48)
+        groups = panel_apply.card_groups(y, a[s:, s + NB :], panel_apply._block(m, NB, 512),
+                                         "highest", fold=True)
         outs = []
-        for fn in (panel_apply.panel_apply_carry, panel_apply.panel_apply_carry_plain):
+        for fn, kw in ((panel_apply.panel_apply_carry, {}),
+                       (panel_apply.panel_apply_carry_plain, {"groups": groups})):
             c = a.clone()
             with square_hr._highest():
-                fn(y, t, c, k, NB, trans=True)
+                fn(y, t, c, k, NB, trans=True, **kw)
             outs.append(c)
         require(torch.equal(outs[0][:s], a[:s]) and torch.equal(outs[0][:, : s + NB], a[:, : s + NB]),
                 "panel_apply_carry wrote outside its window")
-        rec.compare("panel_apply_carry", f"panel {k} window ({m}, {w})",
+        rec.compare("panel_apply_carry", f"panel {k} window ({m}, {w}) G={groups}",
                     [outs[0][s:, s + NB :]], [outs[1][s:, s + NB :]])
         # B6's library call: ormqr with tau = diag(T) applies the same Qᵀ
         tau = torch.diagonal(t).contiguous()
@@ -800,6 +818,58 @@ def geqrt_bound(b: int, m: int, n: int):
     return KernelRecord.bound_of(b * geqrf_flops(m, n), 4.0 * b * (2 * m * n + n * n))
 
 
+# the batched GEQRT's two launch counters: its one-block kernel, its cluster route
+TS_ROUTES = ("geqrt_batched", "geqrt_batched[cluster]")
+
+
+def geqrt_route(b: int, m: int, n: int, ib: int = IB) -> str:
+    """The counter of the route the wrapper takes for a (b, m, n) stack."""
+    from tileqr_torch.kernels import geqrt
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return TS_ROUTES[int(geqrt.batched_cluster_plan(b, m, n, ib, sms).ctas > 1)]
+
+
+def tree_levels(rec: KernelRecord, rs: torch.Tensor, p: int, n: int, lr: int, card: str) -> list:
+    """Each level of the tsqr tree on the stack tsqr_factor forms from the
+    R factors below (rs: the leaves' R), against the plain version, timed
+    beside the one-block kernel on the same stack (the cluster levels) and
+    ``torch.geqrf``; the level of 32 stacks is the cluster route's row.
+    Returns each level's route."""
+    from tileqr_torch.drivers import tsqr as dtsqr
+    from tileqr_torch.kernels import geqrt
+    from tileqr_torch.utils.plan_sweep import geqrt_at
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    routes = []
+    for ncomb, a_l, _, rem in dtsqr._tree_plan(p, n, lr, 8):
+        stack = rs[: ncomb * a_l].reshape(ncomb, a_l * n, n)
+        plan = geqrt.batched_cluster_plan(ncomb, a_l * n, n, IB, sms)
+        key = TS_ROUTES[int(plan.ctas > 1)]
+        routes.append(key)
+        label = f"tsqr level {tuple(stack.shape)} ib={IB} C={plan.ctas}"
+        got = geqrt.geqrt_batched(stack, IB)
+        rec.compare(key, label, got, geqrt.geqrt_batched_plain(stack, IB))
+        bound = geqrt_bound(ncomb, a_l * n, n)
+        if key == TS_ROUTES[1] and ncomb == 32:
+            rec.bound[key] = bound
+            rec.time(key, lambda: geqrt.geqrt_batched(stack, IB),
+                     lambda: geqrt.geqrt_batched_plain(stack, IB), lambda: torch.geqrf(stack),
+                     3, 1, card)
+        else:
+            rec.time(key, lambda: geqrt.geqrt_batched(stack, IB),
+                     lambda: geqrt.geqrt_batched_plain(stack, IB), lambda: torch.geqrf(stack),
+                     3, 1, card, label=label, bound=bound)
+        if key == TS_ROUTES[1]:
+            print(f"time geqrt_batched {label}: the one-block kernel on the same stack "
+                  f"{cuda_ms(lambda: geqrt_at(stack, IB, 1), 2):.4f} ms [{card}]")
+        rnew = torch.triu(got[0][:, :n])
+        rs = torch.cat([rnew, rs[ncomb * a_l :]]) if rem else rnew
+        del got, stack
+    torch.cuda.empty_cache()
+    return routes
+
+
 def tsqr_factor_b3(a: torch.Tensor, f, rf: torch.Tensor, rec: KernelRecord, card: str) -> int:
     """``apply_q`` in "b3" of the tsqr factor's one nb = 512 panel to A's
     512 columns, with the counts set to 0 just before and read just after:
@@ -823,20 +893,37 @@ def tsqr_factor_b3(a: torch.Tensor, f, rf: torch.Tensor, rec: KernelRecord, card
     require(relerr <= TOL_MODE_RELERR["b3"], f"tsqr factor b3 apply_q relerr {relerr:.3e}")
     y, t = f.panels[0]
     nb = y.shape[1]
+    mr = pa._block(m, nb, 1024)
+    groups = pa.card_groups(y, a, mr, "b3", fold=True)
+    tm = t.T.contiguous()
     with _highest():
+        # phase 1 alone: its plan runs the row blocks in G > 1 groups here
+        # (W's 32 tiles leave most SMs idle); held to the plain sums in the
+        # same groups
+        compare_mode(rec, "panel_apply", "b3",
+                     f"tsqr factor phase 1 ({m}, {n}) nb={nb} G={groups}",
+                     pa._launch_project(y, tm, a, mr, "b3"),
+                     tm @ pa._project_plain(y, a, mr, "b3", groups),
+                     tm @ pa._project_plain(y, a, mr, "highest", groups))
         outs = []
         for fn, prec in ((pa.panel_apply, "b3"), (pa.panel_apply_plain, "b3"),
                          (pa.panel_apply_plain, "highest")):
-            outs.append(fn(y, t, a.clone(), trans=True, precision=prec))
+            kw = {} if fn is pa.panel_apply else {"groups": groups}
+            outs.append(fn(y, t, a.clone(), trans=True, precision=prec, **kw))
         compare_mode(rec, "panel_apply", "b3", f"tsqr factor ({m}, {n}) nb={nb}", *outs)
         del outs
         c = a.clone()
         bound = rec.bound_of(2.0 * nb * nb * n, 4 * (m * nb + nb * nb + 2 * m * n),
                              3 * 4.0 * m * nb * n)
         rec.time(b7, lambda: pa.panel_apply(y, t, c, precision="b3"),
-                 lambda: pa.panel_apply_plain(y, t, c, precision="b3"), None, 3, 1, card,
-                 label=f"tsqr factor ({m}, {n}) nb={nb}", bound=bound)
-        del c
+                 lambda: pa.panel_apply_plain(y, t, c, precision="b3", groups=groups), None, 3, 1,
+                 card, label=f"tsqr factor ({m}, {n}) nb={nb}", bound=bound)
+        w = pa._launch_project(y, tm, c, mr, "b3")
+        p1 = cuda_ms(lambda: pa._launch_project(y, tm, c, mr, "b3"), 3)
+        p2 = cuda_ms(lambda: pa._launch_sub(y, w, c, "b3"), 3)
+        print(f"time {b7} tsqr factor ({m}, {n}) nb={nb}: phase 1 (G={groups}) {p1:.4f} ms, "
+              f"phase 2 {p2:.4f} ms [{card}]")
+        del c, w
     torch.cuda.empty_cache()
     return launches[b7]
 
@@ -858,18 +945,17 @@ def phase7(rec: KernelRecord, rng, card: str):
     p = m // lr
     leaves = a.view(p, lr, n)
 
-    # the kernel on the leaves, and on the first level's stack as
-    # tsqr_factor forms it from the leaves' R factors
+    # the kernel on the leaves, and on each level's stack as tsqr_factor
+    # forms it from the R factors below
     got = geqrt.geqrt_batched(leaves, IB)
     want = geqrt.geqrt_batched_plain(leaves, IB)
     rec.compare("geqrt_batched", f"tsqr leaves ({p}, {lr}, {n}) ib={IB}", got, want)
     del want
-    a_l = dtsqr._tree_plan(p, n, lr, 8)[0][1]
-    stack = torch.triu(got[0].view(p, lr, n)[:, :n]).reshape(p // a_l, a_l * n, n)
+    rs = torch.triu(got[0].view(p, lr, n)[:, :n])
     del got
-    rec.compare("geqrt_batched", f"tsqr level 1 {tuple(stack.shape)} ib={IB}",
-                geqrt.geqrt_batched(stack, IB), geqrt.geqrt_batched_plain(stack, IB))
-    del stack
+    torch.cuda.empty_cache()
+    routes = tree_levels(rec, rs, p, n, lr, card)
+    del rs
     torch.cuda.empty_cache()
     rec.bound["geqrt_batched"] = geqrt_bound(p, lr, n)
     rec.time("geqrt_batched", lambda: geqrt.geqrt_batched(leaves, IB),
@@ -877,9 +963,12 @@ def phase7(rec: KernelRecord, rng, card: str):
              2, 1, card)
     torch.cuda.empty_cache()
 
-    # the path: tsqr r (auto → tree)
-    r, launches = run_counted(lambda: tileqr_torch.tsqr(a, "r", cfg), ("geqrt_batched",),
-                              {"geqrt_batched": 1 + len(dtsqr._tree_plan(p, n, lr, 8))},
+    # the path: tsqr r (auto → tree): the leaves and every level, each on
+    # the route its plan picks
+    route_of = geqrt_route(p, lr, n)
+    expect = {k: ([route_of] + routes).count(k) for k in TS_ROUTES}
+    r, launches = run_counted(lambda: tileqr_torch.tsqr(a, "r", cfg),
+                              tuple(k for k in TS_ROUTES if expect[k]), expect,
                               "tsqr r (auto → tree)")
     require(tuple(r.shape) == (n, n) and bool(torch.isfinite(r).all()), "tsqr R shape/finite")
     same = torch.equal(r, tileqr_torch.tsqr(a, "r", cfg))
@@ -945,7 +1034,7 @@ def phase7(rec: KernelRecord, rng, card: str):
         print(f"{label} {m}x{n}: {t:.3f} ms, {flops / t / 1e9:.3f} TFLOP/s [{card}]")
     del a, leaves, c16
     torch.cuda.empty_cache()
-    return launches["geqrt_batched"], b7_launches
+    return {k: launches[k] for k in TS_ROUTES}, b7_launches
 
 
 def batched_gates(a: torch.Tensor, q: torch.Tensor, r: torch.Tensor, what: str, card: str):
@@ -964,6 +1053,7 @@ def phase8(rec: KernelRecord, rng, card: str) -> int:
     import tileqr_torch
     from tileqr_torch.drivers import cholqr
     from tileqr_torch.kernels import geqrt
+    from tileqr_torch.utils.plan_sweep import geqrt_at
 
     b, n = B_BA, N_BA
     hh = tileqr_torch.QRConfig()
@@ -974,13 +1064,21 @@ def phase8(rec: KernelRecord, rng, card: str) -> int:
         rec.time("geqrt_batched", lambda: geqrt.geqrt_batched(a, ib),
                  lambda: geqrt.geqrt_batched_plain(a, ib), lambda: torch.geqrf(a),
                  5, 1, card, label=f"batch ({b}, {n}, {n}) ib={ib}", bound=geqrt_bound(b, n, n))
+    # B1s: geqrt on one 256² tile, the B = 1 stack (the cluster route where
+    # its plan takes one), timed beside the one-block kernel on the same tile
     tile = torch.from_numpy(rng.standard_normal((2 * n, 2 * n), dtype=np.float32)).cuda()
-    rec.compare("geqrt_batched", "geqrt one (256, 256) tile ib=128",
-                geqrt.geqrt(tile), [x[0] for x in geqrt.geqrt_batched_plain(tile[None], IB)])
-    rec.time("geqrt_batched", lambda: geqrt.geqrt(tile),
+    key = geqrt_route(1, 2 * n, 2 * n)
+    label = f"B1s geqrt one (256, 256) tile ib=128 ({key})"
+    got = geqrt.geqrt(tile)
+    rec.compare(key, label, got, [x[0] for x in geqrt.geqrt_batched_plain(tile[None], IB)])
+    same = all(torch.equal(x, y) for x, y in zip(got, geqrt.geqrt(tile)))
+    print(f"kernel {key} {label}: rerun bitwise equal: {same}")
+    require(same, "geqrt reruns differ")
+    rec.time(key, lambda: geqrt.geqrt(tile),
              lambda: geqrt.geqrt_batched_plain(tile[None], IB), lambda: torch.geqrf(tile),
-             10, 2, card, label="geqrt one (256, 256) tile ib=128",
-             bound=geqrt_bound(1, 2 * n, 2 * n))
+             20, 2, card, label=label, bound=geqrt_bound(1, 2 * n, 2 * n))
+    print(f"time geqrt_batched {label}: the one-block kernel on the same tile "
+          f"{cuda_ms(lambda: geqrt_at(tile[None], IB, 1), 10):.4f} ms [{card}]")
 
     (q, r), launches = run_counted(lambda: tileqr_torch.qr_batched(a, config=hh),
                                    ("geqrt_batched",), {"geqrt_batched": 1},
@@ -1066,14 +1164,17 @@ def apply_kernels(a: torch.Tensor, rec: KernelRecord, card: str, mode: str) -> N
                 s = k * NB
                 y, t = panel_pair(a, k)
                 m, w = n - s, n - s - NB
+                groups = pa.card_groups(y, a[s:, s + NB :], pa._block(m, NB, 512), mode,
+                                        fold=True)
                 outs = []
                 for fn, prec in ((pa.panel_apply_carry, mode), (pa.panel_apply_carry_plain, mode),
                                  (pa.panel_apply_carry_plain, "highest")):
                     c = a.clone()
-                    fn(y, t, c, k, NB, trans=True, precision=prec)
+                    kw = {} if fn is pa.panel_apply_carry else {"groups": groups}
+                    fn(y, t, c, k, NB, trans=True, precision=prec, **kw)
                     outs.append(c[s:, s + NB :])
-                compare_mode(rec, "panel_apply_carry", mode, f"panel {k} window ({m}, {w})",
-                             *outs)
+                compare_mode(rec, "panel_apply_carry", mode,
+                             f"panel {k} window ({m}, {w}) G={groups}", *outs)
                 del outs
                 c = a.clone()
                 if k == 0:
@@ -1095,15 +1196,17 @@ def apply_kernels(a: torch.Tensor, rec: KernelRecord, card: str, mode: str) -> N
             s = k * NB
             y, t = panel_pair(a, k)
             m = n - s
+            groups = pa.card_groups(y, a[s:, s:], pa._block(m, NB, 1024), mode, fold=True)
             for trans in trans_list:
                 outs = []
                 for fn, prec in ((pa.panel_apply, mode), (pa.panel_apply_plain, mode),
                                  (pa.panel_apply_plain, "highest")):
                     win = a.clone()[s:, s:]  # a strided window, as orgqr's
-                    fn(y, t, win, trans=trans, precision=prec)
+                    kw = {} if fn is pa.panel_apply else {"groups": groups}
+                    fn(y, t, win, trans=trans, precision=prec, **kw)
                     outs.append(win)
                 compare_mode(rec, "panel_apply", mode,
-                             f"window k={k} ({m}, {m}) trans={trans}", *outs)
+                             f"window k={k} ({m}, {m}) trans={trans} G={groups}", *outs)
                 del outs, win
             c = a.clone()[s:, s:]
             if k == 0:
@@ -1404,9 +1507,11 @@ def sharded_hr_kernels(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
         for mode in ("highest",) + EMULATED_MODES:
             p = passes_of(mode)
             label = f"Y ({m}, {NB}), C ({m}, {n}), mr {pa._block(m, NB, 512)}"
-            compare_mode(rec, "panel_project", mode, label, pa.panel_project(y, c0, mode),
-                         pa.panel_project_plain(y, c0, mode),
-                         pa.panel_project_plain(y, c0, "highest"))
+            groups = pa.card_groups(y, c0, pa._block(m, NB, 512), mode, fold=False)
+            compare_mode(rec, "panel_project", mode, f"{label}, G {groups}",
+                         pa.panel_project(y, c0, mode),
+                         pa.panel_project_plain(y, c0, mode, groups),
+                         pa.panel_project_plain(y, c0, "highest", groups))
             outs = [fn(y, w, c0.clone(), prec) for fn, prec in (
                 (pa.panel_sub, mode), (pa.panel_sub_plain, mode), (pa.panel_sub_plain, "highest"))]
             compare_mode(rec, "panel_sub", mode, label, *outs)
@@ -1778,7 +1883,8 @@ def main() -> int:
     ts, ts_b7 = phase7(rec, rng, card)
     ba = phase8(rec, rng, card)
     print(f"geqrt_batched launches: {ts} in tsqr r, {ba} in qr_batched")
-    launches["geqrt_batched"] = ts + ba
+    launches.update(ts)
+    launches["geqrt_batched"] += ba
 
     # the emulated precisions on both square paths
     launches.update(phase9(rec, rng, card))

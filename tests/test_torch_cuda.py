@@ -1,7 +1,9 @@
 """tileqr_torch's CUDA kernels on the card, against their plain versions,
-both square paths (hh and hr), tsqr and qr_batched end to end, and the
+both square paths (hh and hr), tsqr and qr_batched end to end, the
 split-product instantiations of K3, K4, B6 and B7 in each emulated
-precision mode.
+precision mode, the whole-panel projection at 1, 2 and 3 row-block groups
+(against the plain sums in the same groups) and the batched GEQRT's
+cluster route.
 
 Every test here needs a CUDA device and carries the ``cuda_only`` marker;
 without a device the ``cuda`` fixture skips it. Run them on a machine with
@@ -22,6 +24,7 @@ import torch
 
 import tileqr_torch
 from tileqr_torch.kernels import _build, chain, geqrt, modlu, panel, panel_apply, potrf
+from tileqr_torch.utils.plan_sweep import project_at
 from tileqr_torch.utils.verify import backward_error_f64, residuals_f64
 
 pytestmark = pytest.mark.cuda_only
@@ -372,8 +375,10 @@ def test_tsqr_on_the_card(cuda, strategy, m):
     q, r = tileqr_torch.tsqr(a, "reduced", cfg, strategy=strategy)
     torch.cuda.synchronize()
     assert not any(_build.PLAIN_CALLS.values())
-    own = {"tree": "geqrt_batched", "cholqr2": "potrf_batched", "chain": "panel_factor"}
-    assert _build.LAUNCHES[own[strategy]] > 0
+    # the tree's stacks of 1 and 4 leaves take the batched GEQRT's cluster route
+    own = {"tree": ("geqrt_batched", "geqrt_batched[cluster]"), "cholqr2": ("potrf_batched",),
+           "chain": ("panel_factor",)}
+    assert sum(_build.LAUNCHES[k] for k in own[strategy]) > 0
     res = residuals_f64(a, q, r)
     assert res["relerr"] <= 3e-6 and res["orth"] <= 1e-4
     if strategy != "chain":
@@ -392,8 +397,10 @@ def test_qr_batched_on_the_card(cuda, method):
     q, r = tileqr_torch.qr_batched(a, config=cfg)
     torch.cuda.synchronize()
     assert not any(_build.PLAIN_CALLS.values())
-    own, other = (("geqrt_batched", "potrf_batched") if method == "hh"
-                  else ("potrf_batched", "geqrt_batched"))
+    # 64 matrices of 128² at ib 32 take the cluster route (C = 2)
+    gq = ("geqrt_batched[cluster]" if geqrt.batched_cluster_plan(
+        64, 128, 128, cfg.batched_ib, _build.sm_count(a)).ctas > 1 else "geqrt_batched")
+    own, other = (gq, "potrf_batched") if method == "hh" else ("potrf_batched", gq)
     assert _build.LAUNCHES[own] == 1 and _build.LAUNCHES[other] == 0
     a64, q64, r64 = a.double(), q.double(), r.double()
     res = torch.linalg.norm(a64 - q64 @ r64, dim=(1, 2)) / torch.linalg.norm(a64, dim=(1, 2))
@@ -639,10 +646,107 @@ def test_panel_project_without_t_is_the_bare_sum(cuda, passes):
     c = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32)).to(cuda)
     w = torch.empty((nb, n), device=cuda)
     rc = _build.lib().tq_panel_project(y.data_ptr(), None, c.data_ptr(), c.stride(0), m, n,
-                                       nb, m // 2, w.data_ptr(), passes, _build.stream())
+                                       nb, m // 2, w.data_ptr(), None, 1, passes,
+                                       _build.stream())
     assert rc == 0
     torch.cuda.synchronize()
     assert rel(w, y.double().T @ c.double()) <= (1e-6 if passes == 0 else 1e-5)
+
+
+
+# (m, nb, n, mr, column offset of C in a wider matrix): 3 row blocks at nb
+# 64; 6 at 256 (ragged n in the split modes: 200 = 3 column tiles of 64 and
+# a part); nb 40 with mr 80 (the split kernel's 32-row stages end inside a
+# row block); C at an odd column offset (not 16-byte aligned: 4-byte copies)
+PROJECT_CASES = [(1536, 64, 192, 512, 32), (3072, 256, 512, 512, 32),
+                 (3072, 256, 200, 512, 32), (480, 40, 120, 80, 32), (1536, 64, 192, 512, 1),
+                 (480, 40, 120, 80, 3)]
+# the fp32 instantiation takes nb and n multiples of 32 only
+PROJECT_MODE_CASES = [(case, mode) for case in PROJECT_CASES for mode in ["highest"] + MODES
+                      if mode != "highest" or (case[1] % 32 == 0 and case[2] % 32 == 0)]
+
+
+@pytest.mark.parametrize("case,mode", PROJECT_MODE_CASES,
+                         ids=[f"{'x'.join(map(str, c))}-{m}" for c, m in PROJECT_MODE_CASES])
+@pytest.mark.parametrize("groups", [1, 2, 3])
+@pytest.mark.parametrize("fold", [False, True])
+def test_panel_project_groups_match_plain(cuda, case, mode, groups, fold):
+    """The projection kernel at G = 1, 2, 3 on a strided C (ldc = n + 32),
+    with and without op(T) folded in, against ``_project_plain(groups=G)``
+    of the same mode (nearer it than the "highest" one in the split
+    modes); bitwise reruns."""
+    m, nb, n, mr, off = case
+    rng = np.random.default_rng(m + n + groups)
+    y = torch.from_numpy(rng.standard_normal((m, nb), dtype=np.float32)).to(cuda)
+    big = torch.from_numpy(rng.standard_normal((m, n + 32), dtype=np.float32)).to(cuda)
+    c = big[:, off : off + n]
+    tm = (torch.from_numpy(rng.standard_normal((nb, nb), dtype=np.float32)).to(cuda) / nb
+          if fold else None)
+    got = project_at(y, tm, c, mr, mode, groups)
+    again = project_at(y, tm, c, mr, mode, groups)
+    own = panel_apply._project_plain(y, c, mr, mode, groups=groups)
+    hi = panel_apply._project_plain(y, c, mr, "highest", groups=groups)
+    if fold:
+        own, hi = tm @ own, tm @ hi
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if mode == "highest":
+        assert rel(got, own) <= TOL
+    else:
+        assert nearer_own_mode(got, own, hi, mode)
+
+
+@pytest.mark.parametrize("mode", ["highest", "b3"])
+def test_panel_project_wrapper_takes_the_plan(cuda, mode):
+    """A narrow W over many row blocks (4 tiles, 32 row blocks of 512):
+    the wrapper launches the plan's G > 1 and agrees with the plain version
+    at that G."""
+    m, nb, n = 16384, 256, 256
+    plan = panel_apply.project_plan(m, n, nb, 512, _build.sm_count(torch.empty(1, device=cuda)),
+                                    mode)
+    assert plan.groups > 1
+    rng = np.random.default_rng(11)
+    y = torch.from_numpy(rng.standard_normal((m, nb), dtype=np.float32)).to(cuda)
+    c = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32)).to(cuda)
+    got = panel_apply.panel_project(y, c, mode)
+    want = panel_apply._project_plain(y, c, 512, mode, groups=plan.groups)
+    torch.cuda.synchronize()
+    if mode == "highest":
+        assert rel(got, want) <= TOL
+    else:
+        assert nearer_own_mode(got, want, panel_apply._project_plain(
+            y, c, 512, "highest", groups=plan.groups), mode)
+
+
+@pytest.mark.parametrize("mode", ["highest"] + MODES)
+def test_panel_project_without_rows_is_zero(cuda, mode):
+    """A slice with no rows (m = 0) launches and gives W = 0."""
+    w = panel_apply.panel_project(torch.zeros((0, 64), device=cuda),
+                                  torch.zeros((0, 128), device=cuda), mode)
+    torch.cuda.synchronize()
+    assert torch.equal(w, torch.zeros((64, 128), device=cuda))
+
+
+@pytest.mark.parametrize("b,m,n,ib", [(1, 512, 256, 128), (2, 2048, 512, 128),
+                                      (8, 1024, 128, 64), (1, 256, 256, 128)], ids=str)
+def test_geqrt_batched_cluster_route(cuda, b, m, n, ib):
+    """Stacks of 1, 2 and 8 (m >= n) take the cluster route, one launch
+    counted as ``geqrt_batched[cluster]``, against the plain version;
+    bitwise reruns; the input is read only."""
+    plan = geqrt.batched_cluster_plan(b, m, n, ib, _build.sm_count(torch.empty(1, device=cuda)))
+    assert plan.ctas > 1
+    a = torch.from_numpy(np.random.default_rng(b + m).standard_normal(
+        (b, m, n), dtype=np.float32)).to(cuda)
+    before = a.clone()
+    _build.reset_counts()
+    got = geqrt.geqrt_batched(a, ib)
+    assert _build.LAUNCHES["geqrt_batched[cluster]"] == 1 and _build.LAUNCHES["geqrt_batched"] == 0
+    again = geqrt.geqrt_batched(a, ib)
+    want = geqrt.geqrt_batched_plain(a, ib)
+    torch.cuda.synchronize()
+    assert torch.equal(a, before)
+    for g, h, w in zip(got, again, want):
+        assert torch.equal(g, h) and g.shape == w.shape and rel(g, w) <= TOL
 
 
 # ---- the sharded path: TTQRT, the single-tile entries, B13, B14, a world ----

@@ -39,7 +39,25 @@
 // single couple did: it streams from HBM. Arithmetic is IEEE fp32 FMA on
 // CUDA cores (precision "highest", never TF32). A faster design (several
 // small matrices per block, tensor-core block applies) is later work.
+//
+// The cluster route, for small stacks (kernels/geqrt.py:batched_cluster_plan:
+// m >= n and B stacks of C CTAs fit the card, C >= 2): one thread-block
+// cluster of C CTAs a matrix, B clusters in one launch, each running
+// geqrt_cluster.cuh's geqrt_couple_cluster on its matrix as one fresh couple
+// (FullRows, no R rows: the way K1's step 0 factors its diagonal tile), so
+// a matrix's rows sit in C SMs' shared memory (or a per-CTA global
+// workspace where they do not fit) and a column costs one cluster barrier,
+// instead of one SM walking the matrix through L2. It serves B1s (geqrt, B
+// = 1: a 256^2 tile on C = 8) and the tsqr tree's levels (2048 x 512 stacks
+// of 32, 8, 2, 1 at 1048576 x 512, C = 4, 16, 16, 16), whose few matrices
+// left most SMs idle. Its sums run in another order than the one-block
+// kernel's (a column's partials over C CTAs, added in rank order), so a
+// matrix's bits depend on its C, and C on the stack's size: the two
+// routes agree to rounding, and each is held to the plain version by
+// tolerance. No sharded path calls this kernel, so no rank-replicated value
+// depends on it.
 #include "geqrt.cuh"
+#include "geqrt_cluster.cuh"
 
 namespace {
 
@@ -115,7 +133,48 @@ cudaError_t prepare(int m, int n, int* blocks_per_sm) {
       blocks_per_sm, geqrt_batched_kernel<RESIDENT>, GEQRT_THREADS, smem);
 }
 
+// Cluster k of the grid factors matrix k (m x n, m >= n, kcols = n): its
+// rows are one couple without R rows, read from a, factored into packed
+// (the couple's home) and T; ws floats of workspace a cluster.
+template <bool RES>
+__global__ void __launch_bounds__(cl::CL_THREADS)
+geqrt_cluster_kernel(const float* __restrict__ a, float* packed, float* t_out, float* work,
+                     int m, int n, int ib, long long ws) {
+  extern __shared__ __align__(16) float csm[];
+  const long long k = blockIdx.x / cl::cg::this_cluster().num_blocks();
+  const long long mn = (long long)m * n;
+  const cl::Cta w = cl::carve<RES>(csm, work + k * ws, n, m, ib);
+  cl::Couple cp;
+  cp.nb = n;
+  cp.r_rows = 0;
+  cp.m = m;
+  cp.r_src = nullptr;
+  cp.r_home = nullptr;
+  cp.b_src = a + k * mn;
+  cp.ldb = n;
+  cp.b_home = packed + k * mn;
+  cp.t_out = t_out + k * n * (long long)n;
+  cl::geqrt_couple_cluster<RES>(cp, w);
+}
+
 }  // namespace
+
+// The cluster route: `batch` clusters of `ctas` CTAs, one a matrix (m >= n),
+// with smem and resident from kernels/geqrt.py:batched_cluster_plan and
+// tq_cluster_work_floats(n, m, ib, ctas, resident) floats of work a cluster.
+extern "C" int tq_geqrt_batched_cluster(const float* a, float* packed, float* t, float* work,
+                                        int batch, int m, int n, int ib, int ctas,
+                                        long long smem, int resident, void* stream) {
+  if (m < n || batch < 1 || !cl::smem_matches(n, m, ib, ctas, resident, smem))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long ws = cl::ws_floats(n, m, ib, ctas, resident != 0);
+  if (resident)
+    return cl::launch_clusters(geqrt_cluster_kernel<true>, batch, ctas, (size_t)smem, st, a,
+                               packed, t, work, m, n, ib, ws);
+  return cl::launch_clusters(geqrt_cluster_kernel<false>, batch, ctas, (size_t)smem, st, a,
+                             packed, t, work, m, n, ib, ws);
+}
 
 extern "C" int tq_geqrt_batched_work_floats(int m, int n, int ib, int resident) {
   return static_cast<int>(work_floats(m, n, ib, resident != 0));

@@ -1,5 +1,6 @@
 // GEQRT of a sequence of stacked couples by ONE thread-block cluster: the
-// device routine of K1 (panel.cu), K2 (chain.cu) and TTQRT (ttqrt.cu).
+// device routine of K1 (panel.cu), K2 (chain.cu), TTQRT (ttqrt.cu) and the
+// batched GEQRT's cluster route (geqrt_batched.cu, one cluster a matrix).
 //
 // Replaces, for those kernels, tileqr/kernels/geqrt.py:geqrt_in_refs, the
 // Householder column loop inside tileqr/kernels/panel.py:panel_factor,
@@ -731,13 +732,15 @@ __device__ void geqrt_couple_cluster(const Couple& cp, const Cta& w) {
   }
 }
 
-// Launch `kernel` as one cluster of `ctas` CTAs with `smem` bytes of
-// dynamic shared memory each. A configuration the card refuses returns its
-// error (the wrapper raises); nothing else is launched in its place.
+// Launch `kernel` as `clusters` clusters of `ctas` CTAs each (a grid of
+// clusters x ctas; cluster k is CTAs [k ctas, (k+1) ctas)), with `smem`
+// bytes of dynamic shared memory a CTA. A configuration the card refuses
+// returns its error (the wrapper raises); nothing else is launched in its
+// place.
 template <typename... Exp, typename... Act>
-int launch_cluster(void (*kernel)(Exp...), int ctas, size_t smem, cudaStream_t stream,
-                   Act&&... args) {
-  if (ctas != 1 && ctas != 2 && ctas != 4 && ctas != 8 && ctas != 16)
+int launch_clusters(void (*kernel)(Exp...), int clusters, int ctas, size_t smem,
+                    cudaStream_t stream, Act&&... args) {
+  if ((ctas != 1 && ctas != 2 && ctas != 4 && ctas != 8 && ctas != 16) || clusters < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -752,19 +755,26 @@ int launch_cluster(void (*kernel)(Exp...), int ctas, size_t smem, cudaStream_t s
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas, 1, 1);
+  cfg.gridDim = dim3(clusters * ctas, 1, 1);
   cfg.blockDim = dim3(CL_THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  int active = 0;
+  e = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
   if (e != cudaSuccess) return (int)e;
-  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  if (active < 1) return (int)cudaErrorInvalidConfiguration;
   e = cudaLaunchKernelEx(&cfg, kernel, static_cast<Act&&>(args)...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// one cluster of `ctas` CTAs (K1, K2, TTQRT, B8)
+template <typename... Exp, typename... Act>
+int launch_cluster(void (*kernel)(Exp...), int ctas, size_t smem, cudaStream_t stream,
+                   Act&&... args) {
+  return launch_clusters(kernel, 1, ctas, smem, stream, static_cast<Act&&>(args)...);
 }
 
 #ifdef TQ_CL_STAGES

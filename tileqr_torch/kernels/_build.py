@@ -36,7 +36,9 @@ import torch
 
 HH_KERNELS = ("panel_factor", "panel_chain", "couple_strip", "larfb_strip")
 HR_KERNELS = ("modified_lu", "potrf_batched", "panel_apply_carry")
-TS_KERNELS = ("geqrt_batched",)
+# the batched GEQRT: its one-block kernel and its cluster route (small
+# stacks, one thread-block cluster a matrix), counted apart
+TS_KERNELS = ("geqrt_batched", "geqrt_batched[cluster]")
 # B7, the value-level whole-panel apply of the hr apply_q/orgqr
 APPLY_KERNELS = ("panel_apply",)
 # B15's TTQRT, the combine of the sharded tree
@@ -89,8 +91,9 @@ SIGNATURES = {
     "tq_modified_lu": (_P, _P, _I, _P, _I, _L, _I, _P),
     # r (in place), batch, n, bp, stream
     "tq_potrf_batched": (_P, _I, _I, _I, _P),
-    # y, tm (or NULL), c, ldc, m, n, nb, mr, w, passes, stream
-    "tq_panel_project": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _I, _P),
+    # y, tm (or NULL), c, ldc, m, n, nb, mr, w, work (or NULL), groups, passes,
+    # stream
+    "tq_panel_project": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _I, _I, _P),
     # y, w, c, ldc, m, n, nb, passes, stream
     "tq_panel_sub": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
     # geqrt_batched blocks to launch (or -cudaError): batch, m, n, resident
@@ -99,6 +102,8 @@ SIGNATURES = {
     "tq_geqrt_batched_work_floats": (_I, _I, _I, _I),
     # a, packed, t, work, batch, m, n, kcols, ib, resident, grid, stream
     "tq_geqrt_batched": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
+    # a, packed, t, work, batch, m, n, ib, ctas, smem, resident, stream
+    "tq_geqrt_batched_cluster": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _P),
     # r1, r2, nb, ib, r_out, v2, t2, work, ctas, smem, resident, stream
     "tq_ttqrt": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _L, _I, _P),
 }
@@ -200,6 +205,12 @@ def check(rc: int, name: str) -> None:
 
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """Streaming multiprocessors of the card holding t (the launch plans'
+    ``sms``)."""
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

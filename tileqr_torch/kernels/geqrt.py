@@ -28,13 +28,18 @@ a stack with inner block width ``ib`` (packed reflectors and T):
 ``tileqr/drivers/tsqr.py:tall_geqrt`` (every leaf of a tall matrix, and the
 tree's stacked R factors) and ``tileqr/kernels/geqrt.py:geqrt`` (B = 1).
 On a CUDA tensor it launches ``tq_geqrt_batched``
-(``csrc/geqrt_batched.cu``); on a CPU tensor it runs
-``geqrt_batched_plain``.
+(``csrc/geqrt_batched.cu``, one block a matrix) or, for a stack small
+enough that B clusters fill the card (``batched_cluster_plan``), its
+cluster route ``tq_geqrt_batched_cluster`` (one thread-block cluster a
+matrix, ``csrc/geqrt_cluster.cuh``: B1s at 256² and the tsqr tree's
+levels), counted as ``geqrt_batched[cluster]``; on a CPU tensor it runs
+``geqrt_batched_plain``. The two routes sum in other orders, so a matrix's
+bits depend on the route, which depends on B.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -158,18 +163,50 @@ def geqrt_batched_plain(a: torch.Tensor, ib: int) -> Tuple[torch.Tensor, torch.T
     return _t(at).contiguous(), _t(tt).contiguous()
 
 
-def geqrt_batched(a: torch.Tensor, ib: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """GEQRT of every matrix of a (B, m, n) with inner block width ``ib``,
-    kcols = min(m, n). Returns (packed (B, m, n): R on and above the
-    diagonal, the reflectors below; T (B, n, n)). ``a`` is not written."""
-    if not _build.is_cuda(a):
-        return geqrt_batched_plain(a, ib)
-    _build.require_fp32(a)
-    _check_stack(a, ib)
-    a = a.contiguous()
+# the cluster routine's index math (``geqrt_cluster.cuh``: div_small) takes
+# a CTA's slab entries, rows per CTA × ib, below this
+_CLUSTER_INDEX_MAX = 2 ** 20
+# rows a CTA the cluster route aims at: a 256² tile on 8 CTAs took 0.95-0.97
+# ms on the H100 against 1.04-1.06 on 4 (K1/K2's 80 rows) and 0.98-1.00 on
+# 16 (utils/plan_sweep.py, PERF.md); taller matrices reach 16 CTAs either way
+BATCHED_ROWS_PER_CTA = 32
+
+
+class BatchedClusterPlan(NamedTuple):
+    ctas: int          # C, the CTAs of each matrix's cluster; 1: the one-block kernel
+    ib: int            # the block width the cluster runs, min(ib, n)
+    smem_bytes: int    # dynamic shared memory per CTA (0 when ctas = 1)
+    resident: bool     # a CTA's rows of the active block in its shared memory
+
+
+def batched_cluster_plan(b: int, m: int, n: int, ib: int, sms: int) -> BatchedClusterPlan:
+    """The route of a (b, m, n) stack at inner width ``ib`` on a card of
+    ``sms`` SMs: C = ``cluster_plan``'s for a matrix as one couple of m
+    rows at ``BATCHED_ROWS_PER_CTA`` rows a CTA, halved to the largest
+    power of two with b·C ≤ sms, and its block in the CTAs' shared memory
+    where it fits. C = 1 (the one-block kernel) when m < n, when C falls
+    to 1, or when a CTA's rows × ib reach the cluster routine's index
+    limit."""
+    from tileqr_torch.kernels.panel import SMEM_LIMIT, cluster_plan, cluster_smem_bytes
+
+    if b < 1 or m < 1 or n < 1 or ib < 1 or sms < 1:
+        raise ValueError(f"batched_cluster_plan: b={b}, m={m}, n={n}, ib={ib}, sms={sms}")
+    one = BatchedClusterPlan(1, ib, 0, False)
+    if m < n:
+        return one
+    ibc = min(ib, n)
+    c = cluster_plan(n, m, ibc, BATCHED_ROWS_PER_CTA).ctas
+    while c > 1 and b * c > sms:
+        c //= 2
+    if c == 1 or -(-m // c) * ibc >= _CLUSTER_INDEX_MAX:
+        return one
+    resident = cluster_smem_bytes(n, m, ibc, c, True) <= SMEM_LIMIT
+    return BatchedClusterPlan(c, ibc, cluster_smem_bytes(n, m, ibc, c, resident), resident)
+
+
+def _geqrt_one_block(a: torch.Tensor, ib: int) -> Tuple[torch.Tensor, ...]:
+    """The one-block kernel on a contiguous CUDA stack: (packed, T)."""
     b, m, n = a.shape
-    if m * n >= 2 ** 30:
-        raise ValueError(f"geqrt_batched: a {m}x{n} matrix is past the kernel's int offsets")
     resident = int(4 * (m * n + n * n + m) <= _RESIDENT_MAX_BYTES)
     lib = _build.lib()
     grid = lib.tq_geqrt_batched_grid(b, m, n, resident)
@@ -183,6 +220,38 @@ def geqrt_batched(a: torch.Tensor, ib: int) -> Tuple[torch.Tensor, torch.Tensor]
     _build.check(rc, "geqrt_batched")
     _build.LAUNCHES["geqrt_batched"] += 1
     return packed, t
+
+
+def _geqrt_cluster(a: torch.Tensor, plan: BatchedClusterPlan) -> Tuple[torch.Tensor, ...]:
+    """The cluster route on a contiguous CUDA stack: (packed, T)."""
+    b, m, n = a.shape
+    lib = _build.lib()
+    packed = torch.empty_like(a)
+    t = a.new_empty((b, n, n))
+    work = a.new_empty(b * lib.tq_cluster_work_floats(n, m, plan.ib, plan.ctas,
+                                                      int(plan.resident)))
+    rc = lib.tq_geqrt_batched_cluster(a.data_ptr(), packed.data_ptr(), t.data_ptr(),
+                                      work.data_ptr(), b, m, n, plan.ib, plan.ctas,
+                                      plan.smem_bytes, int(plan.resident), _build.stream())
+    _build.check(rc, "geqrt_batched[cluster]")
+    _build.LAUNCHES["geqrt_batched[cluster]"] += 1
+    return packed, t
+
+
+def geqrt_batched(a: torch.Tensor, ib: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GEQRT of every matrix of a (B, m, n) with inner block width ``ib``,
+    kcols = min(m, n). Returns (packed (B, m, n): R on and above the
+    diagonal, the reflectors below; T (B, n, n)). ``a`` is not written."""
+    if not _build.is_cuda(a):
+        return geqrt_batched_plain(a, ib)
+    _build.require_fp32(a)
+    _check_stack(a, ib)
+    a = a.contiguous()
+    b, m, n = a.shape
+    if m * n >= 2 ** 30:
+        raise ValueError(f"geqrt_batched: a {m}x{n} matrix is past the kernel's int offsets")
+    plan = batched_cluster_plan(b, m, n, ib, _build.sm_count(a))
+    return _geqrt_cluster(a, plan) if plan.ctas > 1 else _geqrt_one_block(a, ib)
 
 
 def geqrt(a: torch.Tensor, ib: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:

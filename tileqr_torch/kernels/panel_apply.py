@@ -31,9 +31,18 @@ reference pins it "highest". On a CUDA tensor the wrappers launch
 ``tq_panel_project`` and ``tq_panel_sub`` (``csrc/panel_apply.cu``), the
 instantiation of the mode; on a CPU tensor they run the plain version, the
 same blocks in torch.
+
+On the card phase 1 runs the row blocks in G contiguous groups where W's
+tiles alone leave the SMs idle (``project_plan``): each group's Kahan pair
+is summed on its own, and the pairs are combined in group order
+(``_project_plain(..., groups=G)`` is the same order in torch). G = 1, the
+reference's single chain, whenever the tiles take more than half the
+card, and always on the CPU.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -68,14 +77,15 @@ def _window(y, t, carry, k: int, nb: int):
 
 
 # the widest panel the split instantiations take (``BX_MAX_NB`` in
-# csrc/panel_apply.cu: W's slab and its compensation fill shared memory)
+# csrc/panel_apply.cu, kept from the earlier phase 1, whose W slab and its
+# compensation filled shared memory there)
 BX_MAX_NB = 768
 
 
 def kernel_takes(nb: int, precision: str = "highest") -> bool:
     """Whether the mode's CUDA instantiation takes panels nb wide: the fp32
-    one holds W in 32-column register tiles of nb ≤ 256 rows, the split
-    ones any nb up to ``BX_MAX_NB`` (and any n)."""
+    one nb a multiple of 32 up to 256 (two 128-row W tiles), the split ones
+    any nb up to ``BX_MAX_NB`` (and any n)."""
     if passes_of(precision):
         return nb <= BX_MAX_NB
     return nb % 32 == 0 and nb <= 256
@@ -93,23 +103,85 @@ def _check_value(y, t, c):
     return m, n, nb
 
 
-def _project_plain(y, c, mr: int, precision: str) -> torch.Tensor:
-    """Phase 1 without op(T) in torch: Σᵢ Yᵢᵀ Cᵢ, Kahan-summed in order."""
+# the W tile a phase-1 block owns (csrc/panel_apply.cu): (W rows, W
+# columns) of the fp32 kernel and of the split ones
+PROJECT_TILES = {"fp32": (128, 128), "split": (128, 64)}
+
+
+class ProjectPlan(NamedTuple):
+    tile: Tuple[int, int]  # (W rows, W columns) a block owns
+    groups: int            # G: contiguous groups of the m / mr row blocks
+    workspace: int         # floats of the (G, 2, nb, n) Kahan pairs (0: W written directly)
+
+
+def _group_size(blocks: int, groups: int) -> int:
+    """Row blocks per group: ceil(blocks / groups) (the last group may be
+    shorter)."""
+    return -(-blocks // groups)
+
+
+def project_plan(m: int, n: int, nb: int, mr: int, sms: int, precision: str = "highest",
+                 fold: bool = False) -> ProjectPlan:
+    """Phase 1's launch on a card of ``sms`` SMs for Y (m, nb), C (m, n)
+    and row blocks of mr rows: the mode's W tile, and G = the SMs the
+    tiles leave, sms // tiles, at most one group per row block and at
+    least 1 (so G = 1 when the tiles take more than half the card), cut to
+    the number of non-empty groups of ceil(rb / G) blocks. ``fold``: op(T)
+    is folded in (B6, B7), which reads the pairs from the workspace at any
+    G. No rows (m = 0) is one empty group: W = 0."""
+    if min(n, nb, mr, sms) < 1 or m < 0 or m % mr:
+        raise ValueError(f"project_plan: m={m}, n={n}, nb={nb}, mr={mr}, sms={sms}")
+    tile = PROJECT_TILES["split" if passes_of(precision) else "fp32"]
+    tiles = -(-nb // tile[0]) * -(-n // tile[1])
+    rb = m // mr
+    groups = max(1, min(rb, sms // tiles))
+    groups = -(-rb // _group_size(rb, groups)) if rb else 1
+    work = 0 if groups == 1 and not fold else groups * 2 * nb * n
+    return ProjectPlan(tile, groups, work)
+
+
+def card_groups(y: torch.Tensor, c: torch.Tensor, mr: int, precision: str,
+                fold: bool) -> int:
+    """The G phase 1 takes on the card for Y, C (``project_plan`` at the
+    card's SM count); the plain versions take it as ``groups`` to sum in the
+    kernel's order."""
+    m, nb = y.shape
+    return project_plan(m, c.shape[1], nb, mr, _build.sm_count(c), precision, fold).groups
+
+
+def _project_plain(y, c, mr: int, precision: str, groups: int = 1) -> torch.Tensor:
+    """Phase 1 without op(T) in torch: Σᵢ Yᵢᵀ Cᵢ, Kahan-summed in order
+    over the row blocks of each of ``groups`` contiguous groups (ceil(rb /
+    groups) blocks each), then the groups' pairs combined in group order:
+    each later group's acc − comp Kahan-added to the running pair. groups
+    = 1 is the reference's single chain."""
+    rb = y.shape[0] // mr
+    per = max(1, _group_size(rb, groups))
     acc = c.new_zeros((y.shape[1], c.shape[1]))
     comp = c.new_zeros(acc.shape)
-    for r0 in range(0, y.shape[0], mr):
-        val = dot_t(y[r0 : r0 + mr], c[r0 : r0 + mr], precision)
-        yk = val - comp
-        tk = acc + yk
-        comp = (tk - acc) - yk
-        acc = tk
+    for b0 in range(0, rb, per):
+        a_g = c.new_zeros(acc.shape)
+        c_g = c.new_zeros(acc.shape)
+        for r0 in range(b0 * mr, min(rb, b0 + per) * mr, mr):
+            val = dot_t(y[r0 : r0 + mr], c[r0 : r0 + mr], precision)
+            yk = val - c_g
+            tk = a_g + yk
+            c_g = (tk - a_g) - yk
+            a_g = tk
+        if b0 == 0:
+            acc, comp = a_g, c_g
+        else:
+            yk = (a_g - c_g) - comp
+            tk = acc + yk
+            comp = (tk - acc) - yk
+            acc = tk
     return acc
 
 
-def _apply_plain(y, t, c, mr: int, trans: bool, precision: str) -> None:
+def _apply_plain(y, t, c, mr: int, trans: bool, precision: str, groups: int = 1) -> None:
     """The two phases in torch, in place on the (m, n) view c."""
     tm = t.T if trans else t
-    c -= dot(y, tm @ _project_plain(y, c, mr, precision), precision)
+    c -= dot(y, tm @ _project_plain(y, c, mr, precision, groups), precision)
 
 
 def _require_kernel(y, c, nb: int, precision: str) -> None:
@@ -124,15 +196,17 @@ def _require_kernel(y, c, nb: int, precision: str) -> None:
             f"<= {BX_MAX_NB} in the split modes; got nb={nb} in {precision!r}")
 
 
-def _launch_project(y, tm, c, mr: int, precision: str) -> torch.Tensor:
+def _launch_project(y, tm: Optional[torch.Tensor], c, mr: int, precision: str) -> torch.Tensor:
     """Phase 1 on the card: W (nb, n) = tm·Σᵢ Yᵢᵀ Cᵢ, or the bare sum when
-    tm is None."""
+    tm is None, at ``project_plan``'s G."""
     m, nb = y.shape
     n = c.shape[1]
+    plan = project_plan(m, n, nb, mr, _build.sm_count(c), precision, fold=tm is not None)
     w = torch.empty((nb, n), dtype=c.dtype, device=c.device)
+    work = torch.empty(plan.workspace, dtype=c.dtype, device=c.device) if plan.workspace else None
     rc = _build.lib().tq_panel_project(y.data_ptr(), _build.ptr(tm), c.data_ptr(), c.stride(0),
-                                       m, n, nb, mr, w.data_ptr(), passes_of(precision),
-                                       _build.stream())
+                                       m, n, nb, mr, w.data_ptr(), _build.ptr(work), plan.groups,
+                                       passes_of(precision), _build.stream())
     _build.check(rc, "panel_project")
     return w
 
@@ -154,12 +228,13 @@ def _apply_kernel(y, t, c, mr: int, trans: bool, precision: str) -> None:
 
 
 def panel_apply_carry_plain(y, t, carry, k: int, nb: int, trans: bool = True,
-                            precision: str = "highest"):
-    """Plain torch B6 (in place on carry)."""
+                            precision: str = "highest", groups: int = 1):
+    """Plain torch B6 (in place on carry); ``groups``: phase 1's row-block
+    groups (``project_plan``; the card's order, to hold the kernel to)."""
     _build.PLAIN_CALLS[counter_key("panel_apply_carry", precision)] += 1
     c, m, n = _window(y, t, carry, k, nb)
     if n > 0:
-        _apply_plain(y, t, c, _block(m, nb, 512), trans, precision)
+        _apply_plain(y, t, c, _block(m, nb, 512), trans, precision, groups)
     return carry
 
 
@@ -180,12 +255,12 @@ def panel_apply_carry(y: torch.Tensor, t: torch.Tensor, carry: torch.Tensor, k: 
     return carry
 
 
-def panel_apply_plain(y, t, c, trans: bool = True, precision: str = "b3"):
-    """Plain torch B7 (in place on c)."""
+def panel_apply_plain(y, t, c, trans: bool = True, precision: str = "b3", groups: int = 1):
+    """Plain torch B7 (in place on c); ``groups`` as for B6."""
     _build.PLAIN_CALLS[counter_key("panel_apply", precision)] += 1
     m, n, nb = _check_value(y, t, c)
     if n > 0:
-        _apply_plain(y, t, c, _block(m, nb, 1024), trans, precision)
+        _apply_plain(y, t, c, _block(m, nb, 1024), trans, precision, groups)
     return c
 
 
@@ -220,11 +295,11 @@ def _check_half(y, c, what: str):
     return m, n, nb
 
 
-def panel_project_plain(y, c, precision: str = "b3") -> torch.Tensor:
-    """Plain torch B7a."""
+def panel_project_plain(y, c, precision: str = "b3", groups: int = 1) -> torch.Tensor:
+    """Plain torch B7a; ``groups`` as for B6."""
     _build.PLAIN_CALLS[counter_key("panel_project", precision)] += 1
     m, _, nb = _check_half(y, c, "panel_project")
-    return _project_plain(y, c, _block(m, nb, 512), precision)
+    return _project_plain(y, c, _block(m, nb, 512), precision, groups)
 
 
 def panel_project(y: torch.Tensor, c: torch.Tensor, precision: str = "b3") -> torch.Tensor:

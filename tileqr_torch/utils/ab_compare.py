@@ -1,0 +1,154 @@
+"""Time the whole-panel apply's phase 1 and the batched GEQRT's paths for
+two checkouts of this repository on one card, in turns, with a hash of
+each output.
+
+    python -m tileqr_torch.utils.ab_compare --parent DIR [--order parent,change,change,parent]
+
+``DIR`` is another checkout's root (e.g. ``git archive <commit>`` unpacked
+into a directory that ``.gitignore`` lists). Each turn is a fresh process
+whose ``PYTHONPATH`` is that checkout's root (``change`` is this one), so
+each imports its own ``tileqr_torch`` and builds its own kernels. A turn
+prints, with its tag: B7a (``panel_project``) in every mode on Y 4096×256,
+C 4096×8192 (the sharded hr path's slice); B6 (``panel_apply_carry``) on
+panel 0 of a gaussian 16384² A in "highest" and "b3", with the hr panel's
+Y, T; hr ``qr_factor`` 16384² "highest" (hashes of panels 0-46, of
+panels 47-62 and of R apart); ``geqrt`` on a 256² tile (B1s); ``tsqr`` r on
+1048576×512 at nb = 512; and B7 in "b3" on that A with the cholqr2
+factor's panel (nb = 512). Times: CUDA events over warm calls, the mean of
+each reading's calls, several readings. Inputs come from
+``numpy.random.default_rng(0)``, the same in every turn, so equal hashes
+mean bitwise equal outputs. Only public entry points both commits have are
+called. The card's name and power limit from nvidia-smi head the output.
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[2]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of fn over reps warm calls."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def readings(fn, reps: int, repeat: int) -> str:
+    return "/".join(f"{cuda_ms(fn, reps):.4f}" for _ in range(repeat)) + " ms"
+
+
+def digest(*tensors: torch.Tensor) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def turn(tag: str) -> None:
+    """One checkout's probes (the package on sys.path is that checkout's)."""
+    import tileqr_torch
+    from tileqr_torch.drivers import square_hr
+    from tileqr_torch.kernels import _build, geqrt
+    from tileqr_torch.kernels import panel_apply as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"{tag}: tileqr_torch from {Path(tileqr_torch.__file__).parent}", flush=True)
+    _build.lib()
+    rng = np.random.default_rng(0)
+
+    y = torch.from_numpy(rng.standard_normal((4096, 256), dtype=np.float32)).cuda() / 64
+    c = torch.from_numpy(rng.standard_normal((4096, 8192), dtype=np.float32)).cuda()
+    for mode in ("highest", "b3", "b4", "default"):
+        w = pa.panel_project(y, c, mode)
+        print(f"{tag} B7a {mode}: {readings(lambda: pa.panel_project(y, c, mode), 20, 3)}, "
+              f"hash {digest(w)}", flush=True)
+    del y, c, w
+
+    n, nb = 16384, 256
+    a = torch.from_numpy(rng.standard_normal((n, n), dtype=np.float32)).cuda()
+    with square_hr._highest():
+        y, t, _ = square_hr.hr_panel(a[:, :nb])
+        for mode in ("highest", "b3"):
+            out = a.clone()
+            pa.panel_apply_carry(y, t, out, 0, nb, precision=mode)
+            h = digest(out[:, nb:])
+            print(f"{tag} B6 panel 0 {mode}: "
+                  f"{readings(lambda: pa.panel_apply_carry(y, t, out, 0, nb, precision=mode), 5, 3)}"
+                  f", hash {h}", flush=True)
+            del out
+        cfg = tileqr_torch.QRConfig(square_method="hr")
+        f = tileqr_torch.qr_factor(a, cfg)
+        hashes = (digest(*[x for p in f.panels[:47] for x in p]),
+                  digest(*[x for p in f.panels[47:] for x in p]), digest(f.r))
+        del f
+        print(f"{tag} hr qr_factor {n}² highest: "
+              f"{readings(lambda: tileqr_torch.qr_factor(a, cfg), 2, 2)}, hash panels 0-46 "
+              f"{hashes[0]}, panels 47-62 {hashes[1]}, R {hashes[2]}", flush=True)
+    del a, y, t
+    torch.cuda.empty_cache()
+
+    tile = torch.from_numpy(rng.standard_normal((256, 256), dtype=np.float32)).cuda()
+    print(f"{tag} B1s geqrt 256²: {readings(lambda: geqrt.geqrt(tile), 20, 3)}, "
+          f"hash {digest(*geqrt.geqrt(tile))}", flush=True)
+
+    a = torch.from_numpy(rng.standard_normal((1048576, 512), dtype=np.float32)).cuda()
+    cfg = tileqr_torch.QRConfig(nb=512)
+    print(f"{tag} tsqr r 1048576×512: {readings(lambda: tileqr_torch.tsqr(a, 'r', cfg), 3, 2)}, "
+          f"hash {digest(tileqr_torch.tsqr(a, 'r', cfg))}", flush=True)
+    y, t = tileqr_torch.tsqr(a, "factor", cfg).panels[0]
+    with square_hr._highest():
+        out = a.clone()
+        print(f"{tag} B7 b3 nb=512 on the tsqr factor's panel: "
+              f"{readings(lambda: pa.panel_apply(y, t, out, precision='b3'), 1, 2)}", flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="the other checkout's root")
+    ap.add_argument("--order", default="parent,change,change,parent")
+    ap.add_argument("--turn", help=argparse.SUPPRESS)  # set for the child processes
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("ab_compare: needs a CUDA device", file=sys.stderr)
+        return 1
+    if args.turn:
+        turn(args.turn)
+        return 0
+    if not args.parent:
+        ap.error("--parent is required")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(card.strip().splitlines()[0], flush=True)
+    roots = {"parent": Path(args.parent).resolve(), "change": ROOT}
+    for tag in args.order.split(","):
+        env = dict(os.environ, PYTHONPATH=str(roots[tag]))
+        # this file run by path with -P (its own directory, which holds a
+        # profile.py, is not put on sys.path): the child imports tileqr_torch
+        # from the turn's checkout only
+        rc = subprocess.run([sys.executable, "-P", str(Path(__file__).resolve()), "--turn", tag],
+                            env=env, cwd=roots[tag]).returncode
+        if rc:
+            print(f"ab_compare: the {tag} turn exited {rc}", file=sys.stderr)
+            return rc
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,21 +1,34 @@
-"""B8 and TTQRT at each cluster size, on the card.
+"""Launch plans at each size they can take, on the card: B8 and TTQRT at
+each cluster size, the batched GEQRT at each cluster size, and the
+whole-panel projection at each number of row-block groups.
 
-    python -m tileqr_torch.utils.plan_sweep [--reps 50] [--repeat 3]
+    python -m tileqr_torch.utils.plan_sweep [--reps 50] [--repeat 3] [--only NAME ...]
 
 B8 (``kernels/modlu.py``) on the top block of an orthonormal (4nb, nb)
 factor at nb = 256 and 512, and TTQRT (``kernels/ttqrt.py``) on two upper-
 triangular gaussian (256, 256) tiles at ib = 128, for every C of
 ``CLUSTER_SIZES`` (a resident plan, or the global-memory one where the
-block does not fit). The wrappers always take their own plan
-(``modlu_plan``, ``ttqrt_plan``); this tool builds the plan of each C
-itself and calls the C functions directly. Each line: the plan, the
-kernel's mean time over ``--reps`` warm launches (CUDA events), taken
+block does not fit). The batched GEQRT (``kernels/geqrt.py``) on a
+gaussian 256² tile (B1s) and on the tsqr tree's 2048 × 512 stacks of 32,
+8, 2 and 1 matrices (1048576 × 512 at nb = 512, ib = 128): the one-block
+kernel (C = 1) and the cluster route at every C with b·C within the card,
+beside the plan ``batched_cluster_plan`` picks. The projection
+(``kernels/panel_apply.py``: phase 1 of B6/B7, and B7a) in each mode at
+every G that divides its row blocks evenly (the tile is fixed by each
+mode's build: 128 × 128 in fp32, 128 × 64 in the split modes), beside
+``project_plan``'s G: B7a at the sharded hr path's slice (Y 4096 × 256, C
+4096 × 8192), B6 panels 0 and 48 of 16384² with op(T) folded in, and the
+tsqr cholqr2 factor's B7 at nb = 512 in b3 (Y 1048576 × 512, C the same).
+The wrappers always take their own plan; this tool builds the plan of
+each size itself and calls the C functions directly. Each line: the plan,
+the kernel's mean time over ``--reps`` warm launches (CUDA events), taken
 ``--repeat`` times, its relative Frobenius difference from the plain
-version (and for B8 whether d is equal), beside the plan the wrappers
-pick, the PyTorch call that computes the same function
-(``lu_factor(Q_top − diag(d), pivot=False)``, ``torch.geqrf``) and, for
-TTQRT, the tsqrt kernel (K2) on the same couple. The card's name and
-power limit from nvidia-smi head the output. Needs a CUDA device.
+version (for the projection: at the same G), beside the plan the
+wrappers pick, the PyTorch call that computes the same function
+(``lu_factor(Q_top − diag(d), pivot=False)``, ``torch.geqrf``, fp32
+``torch.matmul``) and, for TTQRT, the tsqrt kernel (K2) on the same
+couple. The card's name and power limit from nvidia-smi head the output.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -27,7 +40,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from tileqr_torch.kernels import _build
+from tileqr_torch.kernels import _build, geqrt, panel_apply
 from tileqr_torch.kernels.modlu import (ModluPlan, modlu_panel_width, modlu_plan,
                                         modlu_smem_bytes, modified_lu_plain)
 from tileqr_torch.kernels.panel import (CLUSTER_SIZES, SMEM_LIMIT, ClusterPlan, cluster_plan,
@@ -91,6 +104,35 @@ def ttqrt_at(r1: torch.Tensor, r2: torch.Tensor, ib: int,
     return r, v2, t2
 
 
+def geqrt_at(a: torch.Tensor, ib: int, ctas: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One batched GEQRT launch on a contiguous CUDA stack (b, m, n), m >=
+    n: the one-block kernel at ctas = 1, else the cluster route on C =
+    ``ctas`` CTAs a matrix (the block in their shared memory where it
+    fits). (packed, T)."""
+    b, m, n = a.shape
+    if ctas == 1:
+        return geqrt._geqrt_one_block(a, ib)
+    ibc = min(ib, n)
+    resident = cluster_smem_bytes(n, m, ibc, ctas, True) <= SMEM_LIMIT
+    return geqrt._geqrt_cluster(a, geqrt.BatchedClusterPlan(
+        ctas, ibc, cluster_smem_bytes(n, m, ibc, ctas, resident), resident))
+
+
+def project_at(y: torch.Tensor, tm, c: torch.Tensor, mr: int, precision: str,
+               groups: int) -> torch.Tensor:
+    """One projection launch (``tq_panel_project``) at G = ``groups``: W =
+    tm·Σᵢ Yᵢᵀ Cᵢ, or the bare sum when tm is None."""
+    m, nb = y.shape
+    n = c.shape[1]
+    w = torch.empty((nb, n), dtype=c.dtype, device=c.device)
+    work = torch.empty(groups * 2 * nb * n, dtype=c.dtype, device=c.device)
+    _build.check(_build.lib().tq_panel_project(
+        y.data_ptr(), _build.ptr(tm), c.data_ptr(), c.stride(0), m, n, nb, mr, w.data_ptr(),
+        work.data_ptr(), groups, panel_apply.passes_of(precision), _build.stream()),
+        "panel_project")
+    return w
+
+
 def rel(x: torch.Tensor, y: torch.Tensor) -> float:
     return float(torch.linalg.norm((x - y).double()) / torch.linalg.norm(y.double()))
 
@@ -142,10 +184,60 @@ def sweep_ttqrt(nb: int, ib: int, reps: int, repeat: int) -> None:
               f"rel {max(rel(g, w) for g, w in zip(got, want)):.3e}")
 
 
+def sweep_geqrt(b: int, m: int, n: int, ib: int, reps: int, repeat: int) -> None:
+    a = torch.from_numpy(np.random.default_rng(b + m).standard_normal(
+        (b, m, n), dtype=np.float32)).cuda()
+    want = geqrt.geqrt_batched_plain(a, ib)
+    sms = _build.sm_count(a)
+    lib = timed(lambda: torch.geqrf(a), max(1, reps // 5), repeat)
+    print(f"geqrt_batched ({b}, {m}, {n}) ib={ib}: the wrappers' plan "
+          f"{geqrt.batched_cluster_plan(b, m, n, ib, sms)}; torch.geqrf {fmt(lib)}")
+    for c in CLUSTER_SIZES:
+        if b * c > sms:
+            continue
+        got = geqrt_at(a, ib, c)
+        ms = timed(lambda: geqrt_at(a, ib, c), max(1, reps // 5), repeat)
+        print(f"geqrt_batched ({b}, {m}, {n}) C={c}: {fmt(ms)}, "
+              f"rel {max(rel(g, w) for g, w in zip(got, want)):.3e}")
+    del a, want
+    torch.cuda.empty_cache()
+
+
+def sweep_project(label: str, m: int, nb: int, n: int, mr: int, modes, fold: bool, reps: int,
+                  repeat: int) -> None:
+    rng = np.random.default_rng(m + n)
+    y = torch.from_numpy(rng.standard_normal((m, nb), dtype=np.float32)).cuda() / m ** 0.5
+    c = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32)).cuda()
+    tm = (torch.from_numpy(np.triu(rng.standard_normal((nb, nb), dtype=np.float32))).cuda() / nb
+          if fold else None)
+    rb = m // mr
+    mm = timed(lambda: y.T @ c, reps, repeat)
+    print(f"project {label}: Y ({m}, {nb}), C ({m}, {n}), mr {mr}, op(T) folded: {fold}; "
+          f"fp32 torch.matmul Y^T C {fmt(mm)}")
+    for mode in modes:
+        plan = panel_apply.project_plan(m, n, nb, mr, _build.sm_count(c), mode, fold)
+        print(f"project {label} {mode}: the wrappers' plan {plan}")
+        for g in range(1, rb + 1):
+            if rb % g or g > 64:
+                continue
+            got = project_at(y, tm, c, mr, mode, g)
+            want = panel_apply._project_plain(y, c, mr, mode, g)
+            if fold:
+                want = tm @ want
+            ms = timed(lambda: project_at(y, tm, c, mr, mode, g), reps, repeat)
+            print(f"project {label} {mode} G={g}: {fmt(ms)}, rel {rel(got, want):.3e}")
+    del y, c
+    torch.cuda.empty_cache()
+
+
+SWEEPS = ("modlu", "ttqrt", "geqrt", "project")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--repeat", type=int, default=3)
+    ap.add_argument("--only", nargs="*", choices=SWEEPS, default=list(SWEEPS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("plan_sweep: needs a CUDA device")
@@ -154,9 +246,24 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip().splitlines()[0])
     torch.backends.cuda.matmul.allow_tf32 = False
-    for nb in (256, 512):
-        sweep_modlu(nb, args.reps, args.repeat)
-    sweep_ttqrt(256, 128, args.reps, args.repeat)
+    reps, repeat = args.reps, args.repeat
+    if "modlu" in args.only:
+        for nb in (256, 512):
+            sweep_modlu(nb, reps, repeat)
+    if "ttqrt" in args.only:
+        sweep_ttqrt(256, 128, reps, repeat)
+    if "geqrt" in args.only:
+        sweep_geqrt(1, 256, 256, 128, reps, repeat)
+        for b, rows in ((32, 2048), (8, 2048), (2, 2048), (1, 1024)):
+            sweep_geqrt(b, rows, 512, 128, reps, repeat)
+    if "project" in args.only:
+        every = ("highest",) + _build.EMULATED_MODES
+        sweep_project("B7a", 4096, 256, 8192, 512, every, False, reps, repeat)
+        sweep_project("B6 panel 0", 16384, 256, 16128, 512, every, True, max(1, reps // 10),
+                      repeat)
+        sweep_project("B6 panel 48", 4096, 256, 3840, 512, every, True, reps, repeat)
+        sweep_project("tsqr factor B7", 1048576, 512, 512, 1024, ("b3",), True,
+                      max(1, reps // 25), repeat)
     return 0
 
 

@@ -42,7 +42,8 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-# CUDA kernel name fragments of this package's kernels (csrc/*.cu)
+# CUDA kernel name fragments of this package's kernels (csrc/*.cu), matched
+# before the cuBLAS test below, so that no kernel of ours is filed as a GEMM
 OWN = {
     "panel_factor_kernel": "panel_factor",
     "panel_chain_kernel": "panel_chain",
@@ -50,11 +51,13 @@ OWN = {
     "larfb_strip_kernel": "larfb_strip",
     "modlu_kernel": "modified_lu",
     "potrf_kernel": "potrf_batched",
-    "project_kernel": "panel apply B6/B7/B7a (phase 1)",
+    "project_f32_kernel": "panel apply B6/B7/B7a (phase 1)",
+    "project_wg_kernel": "panel apply B6/B7/B7a (phase 1, split product)",
+    "combine_kernel": "panel apply B6/B7 (phase 1's groups combined, op(T) folded in)",
     "apply_kernel": "panel apply B6/B7/B7b (phase 2)",
-    "project_bx_kernel": "panel apply B6/B7/B7a (phase 1, split product)",
     "sub_bx_kernel": "panel apply B6/B7/B7b (phase 2, split product)",
     "geqrt_batched_kernel": "geqrt_batched",
+    "geqrt_cluster_kernel": "geqrt_batched (cluster route)",
     "Memcpy": "copies (Memcpy)",
     "ttqrt_kernel": "ttqrt",
 }
