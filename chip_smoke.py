@@ -9,11 +9,15 @@ use (one nvcc per source, in parallel), then:
 
 1. holds each hh kernel K1-K4 against its plain torch version on the card,
    in fp32, at the hh path's shapes (nb=256, ib=128, head couples of nb
-   rows, chunk couples of 4·nb rows, a strip of 7936 columns = 248 column
-   slabs), and times kernel, plain version and the PyTorch call that
-   computes the same function (``torch.geqrf`` / ``torch.ormqr``); prints
-   the thread-block cluster K1 and K2 run on (``cluster_plan``: CTAs, rows
-   and shared bytes per CTA, whether the active block is resident);
+   rows, chunk couples of 4·nb rows, a strip of 7936 columns), and times
+   kernel, plain version and the PyTorch call that computes the same
+   function (``torch.geqrf`` / ``torch.ormqr``); prints the thread-block
+   cluster K1 and K2 run on (``cluster_plan``: CTAs, rows and shared bytes
+   per CTA, whether the active block is resident) and the plans K3 and K4
+   run on (``strip_plan``: stage 1's tile and row groups G, stage 3's
+   tile), and holds and times K3 at a late panel's width too (one couple
+   of 4·nb rows on 1024 columns, LARFB fused: the small tiles and G = 2,
+   against the plain version summed in the same groups, rerun bitwise);
 2. runs ``tileqr_torch.qr`` at 8192² with the default QRConfig (hh) and
    checks, in float64 on the card: the project's relerr ‖QᵀA−R‖F/‖A‖F (Qᵀ
    applied through the reflectors) ≤ 1e-6; the residual with the explicitly
@@ -31,7 +35,9 @@ use (one nvcc per source, in parallel), then:
    ``torch.linalg.lu_factor(Q_top − diag(d), pivot=False)`` for B8 (d from
    the modified LU), ``torch.linalg.cholesky`` for B9, and for B6
    ``torch.ormqr`` with tau = diag(T) (T is larft's for the compact-WY Y,
-   so it applies the same Qᵀ); B6's three-matmul chain is timed beside it;
+   so it applies the same Qᵀ); B6's three-matmul chain is timed beside it,
+   and its two phases apart, each with its plan (``project_plan``'s G,
+   ``sub_plan``'s tile);
    B8's rerun must be bitwise equal, and its cluster is printed beside its
    time (``modlu_plan``: CTAs, panel width, shared bytes per CTA, whether
    the block is resident in shared memory);
@@ -90,8 +96,10 @@ use (one nvcc per source, in parallel), then:
    one B9 launch, no GEQRT launch, the same gates; times both methods
    beside ``torch.linalg.qr`` on the stack;
 9. the emulated precisions "b3", "b4" and "default" (bf16 split products
-   on the tensor cores, ``csrc/bx_mma.cuh``): K3 and K4 at phase 1's
-   shapes, B6 on panels 0 and 48 of a 16384² A and B7 (also in "highest")
+   on the tensor cores, ``csrc/tile_gemm.cuh``): K3 and K4 at phase 1's
+   shapes (and at the late panel's width, with their plans, and the fp32
+   ``torch.ormqr`` timed beside each), B6 on panels 0 and 48 of a 16384² A
+   (its two phases timed apart) and B7 (also in "highest")
    on ``orgqr``'s k = 0 (16384², both trans) and k = 63 (256²) windows,
    each held against the plain version of its own mode (its phase 1 summed
    in the card's row-block groups, ``project_plan``) within
@@ -232,13 +240,16 @@ KERNEL_INFO = {
     "panel_factor": ("tileqr_torch/csrc/panel.cu", "tileqr/kernels/panel.py:90"),
     "panel_chain": ("tileqr_torch/csrc/chain.cu",
                     "tileqr/kernels/chain.py:83, tileqr/kernels/tsqrt.py:46"),
-    "couple_strip": ("tileqr_torch/csrc/chain.cu",
+    # K3's three stages: strip.cu's projections and chain, panel_apply.cu's
+    # phase 2 over the stacked couples, all on tile_gemm.cuh's routines
+    "couple_strip": ("tileqr_torch/csrc/strip.cu + tileqr_torch/csrc/panel_apply.cu + "
+                     "tileqr_torch/csrc/tile_gemm.cuh",
                      "tileqr/kernels/chain.py:212, tileqr/kernels/update.py:115"),
-    "larfb_strip": ("tileqr_torch/csrc/chain.cu",
+    "larfb_strip": ("tileqr_torch/csrc/strip.cu + tileqr_torch/csrc/tile_gemm.cuh",
                     "tileqr/kernels/chain.py:267, tileqr/kernels/larfb.py:44"),
     "modified_lu": ("tileqr_torch/csrc/modlu.cu", "tileqr/kernels/modlu.py:93"),
     "potrf_batched": ("tileqr_torch/csrc/potrf.cu", "tileqr/drivers/cholqr.py:203"),
-    "panel_apply_carry": ("tileqr_torch/csrc/panel_apply.cu",
+    "panel_apply_carry": ("tileqr_torch/csrc/panel_apply.cu + tileqr_torch/csrc/tile_gemm.cuh",
                           "tileqr/kernels/panel_apply.py:227"),
     "geqrt_batched": ("tileqr_torch/csrc/geqrt_batched.cu",
                       "tileqr/drivers/tsqr.py:217, tileqr/drivers/batched.py:167, "
@@ -248,11 +259,13 @@ KERNEL_INFO = {
     "geqrt_batched[cluster]": ("tileqr_torch/csrc/geqrt_batched.cu + "
                                "tileqr_torch/csrc/geqrt_cluster.cuh",
                                "tileqr/drivers/tsqr.py:217, tileqr/kernels/geqrt.py:225"),
-    "panel_apply": ("tileqr_torch/csrc/panel_apply.cu", "tileqr/kernels/panel_apply.py:112"),
+    "panel_apply": ("tileqr_torch/csrc/panel_apply.cu + tileqr_torch/csrc/tile_gemm.cuh",
+                    "tileqr/kernels/panel_apply.py:112"),
     "ttqrt": ("tileqr_torch/csrc/ttqrt.cu", "tileqr/kernels/ttqrt.py:68"),
     # TPU kernels that the sharded path runs as K1/K3 with counters of their own
     "panel_head": ("tileqr_torch/csrc/panel.cu", "tileqr/drivers/sharded_dyn.py:172"),
-    "ssrfb": ("tileqr_torch/csrc/chain.cu", "tileqr/kernels/ssrfb.py:44"),
+    "ssrfb": ("tileqr_torch/csrc/strip.cu + tileqr_torch/csrc/panel_apply.cu + "
+              "tileqr_torch/csrc/tile_gemm.cuh", "tileqr/kernels/ssrfb.py:44"),
 }
 # the split-product instantiations (the in-kernel _dot_bx of tileqr/kernels/common.py:95)
 KERNEL_INFO.update({
@@ -263,8 +276,8 @@ KERNEL_INFO.update({
 # rows between them in its emulated modes (b3 here; "highest" takes tileqr's
 # plain routes, so the fp32 instantiation is checked and timed but not listed)
 KERNEL_INFO.update({
-    f"{k}[{m}]": ("tileqr_torch/csrc/panel_apply.cu + tileqr_torch/csrc/bx_mma.cuh",
-                  f"tileqr/kernels/panel_apply.py:{line}")
+    f"{k}[{m}]": ("tileqr_torch/csrc/panel_apply.cu + tileqr_torch/csrc/tile_gemm.cuh + "
+                  "tileqr_torch/csrc/bx_mma.cuh", f"tileqr/kernels/panel_apply.py:{line}")
     for k, line in zip(SHARDED_HR_KERNELS, (307, 349)) for m in SH_HR_MODES if m != "highest"
 })
 
@@ -392,13 +405,8 @@ def phase1(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
     # reflectors on the same strip
     head_blk = a[:head_rows, :NB].contiguous()
     chain_blk = torch.cat([r_k, a[br : br * (1 + n_chunks), :NB]]).contiguous()
-    chain_qr = torch.geqrf(chain_blk)
-    tile_qr = torch.geqrf(a[:NB, :NB].contiguous())
-    c_all = torch.cat([a[:NB, NB:], a[br : br * (1 + n_chunks), NB:]]).contiguous()
-    strip_c = a[:NB, NB:].contiguous()
-    strip_kernels(a, rec, card, (v_stack, tg, t2h, v_chunks, t2t), "highest", (
-        lambda: torch.ormqr(chain_qr[0], chain_qr[1], c_all, left=True, transpose=True),
-        lambda: torch.ormqr(tile_qr[0], tile_qr[1], strip_c, left=True, transpose=True)))
+    strip_kernels(a, rec, card, (v_stack, tg, t2h, v_chunks, t2t), "highest",
+                  strip_libraries(a, r_k))
 
     # times at the same shapes
     rec.time("panel_factor", lambda: panel.panel_factor(a, 0, NB, IB, n_head),
@@ -409,6 +417,21 @@ def phase1(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
              lambda: torch.geqrf(chain_blk), 5, 1, card)
     print_cluster("panel_factor", 2 * NB, IB)
     print_cluster("panel_chain", NB + br, IB)
+
+
+def strip_libraries(a: torch.Tensor, r_k: torch.Tensor):
+    """The PyTorch calls that compute K3's and K4's functions at the hh
+    path's panel-0 shapes (yardsticks, never called by the port): ormqr of
+    the chunk couples' and of the diagonal tile's geqrf on the same strip."""
+    mt = a.shape[0] // NB
+    n_head, br = CHUNK - 1, CHUNK * NB
+    n_chunks = (mt - 1 - n_head) // CHUNK
+    chain_qr = torch.geqrf(torch.cat([r_k, a[br : br * (1 + n_chunks), :NB]]).contiguous())
+    tile_qr = torch.geqrf(a[:NB, :NB].contiguous())
+    c_all = torch.cat([a[:NB, NB:], a[br : br * (1 + n_chunks), NB:]]).contiguous()
+    strip_c = a[:NB, NB:].contiguous()
+    return (lambda: torch.ormqr(chain_qr[0], chain_qr[1], c_all, left=True, transpose=True),
+            lambda: torch.ormqr(tile_qr[0], tile_qr[1], strip_c, left=True, transpose=True))
 
 
 def print_cluster(name: str, rows: int, ib: int) -> None:
@@ -444,11 +467,13 @@ def bf16_chain_ms(fn, card: str, what: str) -> None:
 
 
 def strip_kernels(a: torch.Tensor, rec: KernelRecord, card: str, fac, mode: str,
-                  libraries=None) -> None:
+                  libraries) -> None:
     """K3 and K4 in one precision mode at the hh path's shapes, against the
     plain version of the same mode: bounds and times beside that plain
-    version and the library calls (``libraries``, "highest" only) or, in an
-    emulated mode, three bf16 matmuls of the same shapes."""
+    version and the library calls (``libraries``: the library column in
+    "highest", the fp32 call timed beside them in an emulated mode, with
+    three bf16 matmuls of the same shapes); the plans; K3 at a late
+    panel's width (``late_strip``)."""
     from tileqr_torch.kernels import chain
     from tileqr_torch.kernels.common import unit_lower
 
@@ -510,15 +535,30 @@ def strip_kernels(a: torch.Tensor, rec: KernelRecord, card: str, fac, mode: str,
         rec.set_bound(k3, k3_mm + k3_add, k3_bytes)
         rec.set_bound(k4, k4_mm, k4_bytes)
 
+    # the plans these shapes run on (kernels/chain.py:strip_plan; stage 3's
+    # tile is panel_apply.sub_plan's for the stacked couples)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"plan {k3} chunks ({n_chunks} couples of {br} rows, width {width}): "
+          f"{chain.strip_plan(NB, width, br, n_chunks, sms, mode)}")
+    print(f"plan {k3} heads ({n_head} couples of {NB} rows, LARFB fused): "
+          f"{chain.strip_plan(NB, width, NB, n_head, sms, mode, fused=True)}")
+    print(f"plan {k4} (width {width}): {chain.strip_plan(NB, width, 0, 0, sms, mode, fused=True)}")
+    late_strip(a, rec, card, fac, mode)
+
     c = a.clone()
     strip = c[:NB, NB:]
     sargs = (v_chunks, t2t, c, strip, 0, 1, n_chunks, br, NB, 1)
-    lib3, lib4 = libraries if libraries else (None, None)
+    lib3, lib4 = libraries
+    hi = mode == "highest"
     rec.time(k3, lambda: chain.couple_strip(*sargs, trans=True, **pm),
-             lambda: chain.couple_strip_plain(*sargs, trans=True, **pm), lib3, 10, 3, card)
+             lambda: chain.couple_strip_plain(*sargs, trans=True, **pm), lib3 if hi else None,
+             10, 3, card)
     rec.time(k4, lambda: chain.larfb_strip(v_stack[0], tg, strip, NB, **pm),
-             lambda: chain.larfb_strip_plain(v_stack[0], tg, strip, NB, **pm), lib4, 10, 3,
-             card)
+             lambda: chain.larfb_strip_plain(v_stack[0], tg, strip, NB, **pm),
+             lib4 if hi else None, 10, 3, card)
+    if not hi:  # the split product has no library call: the fp32 one beside it
+        fp32_ms(lib3, card, f"{k3} beside torch.ormqr")
+        fp32_ms(lib4, card, f"{k4} beside torch.ormqr")
     if p:
         vb, tb = v_chunks.bfloat16(), t2t.bfloat16()
         cb = c[br : br * (1 + n_chunks), NB:].bfloat16().reshape(n_chunks, br, width)
@@ -533,6 +573,63 @@ def strip_kernels(a: torch.Tensor, rec: KernelRecord, card: str, fac, mode: str,
         bf16_chain_ms(k3_chain, card, k3)
         bf16_chain_ms(lambda: topb - vkb @ (tgb.T @ (vkb.T @ topb)), card, k4)
     del c, strip
+
+
+def late_strip(a: torch.Tensor, rec: KernelRecord, card: str, fac, mode: str) -> None:
+    """K3 at hh panel 27's shape (one couple of 4·nb rows with the LARFB
+    fused, a strip of 1024 columns: its plan takes the small tiles and G =
+    2), against the plain version of its mode summed in the card's groups;
+    bitwise rerun; timed beside the plain version."""
+    from tileqr_torch.kernels import chain
+
+    v_stack, tg, _, v_chunks, t2t = fac
+    br, width = CHUNK * NB, 4 * NB
+    k3 = counter_key("couple_strip", mode)
+    plan = chain.strip_plan(NB, width, br, 1,
+                            torch.cuda.get_device_properties(0).multi_processor_count, mode,
+                            fused=True)
+    groups = plan.groups
+    args = (v_chunks[:1], t2t[:1])
+    geo = dict(trans=True, vkk=v_stack[0], tg=tg, precision=mode)
+    outs = []
+    for fn, prec, kw in ((chain.couple_strip, mode, {}), (chain.couple_strip, mode, {}),
+                         (chain.couple_strip_plain, mode, {"groups": groups}),
+                         (chain.couple_strip_plain, "highest", {"groups": groups})):
+        c = a[: 2 * br, : NB + width].clone()
+        fn(*args, c, c[:NB, NB:], 0, 1, 1, br, NB, 1, **dict(geo, precision=prec), **kw)
+        outs.append(c)
+    require(torch.equal(outs[0], outs[1]), f"{k3} late panel reruns differ")
+    label = f"late panel (1 couple of {br} rows, width {width}, G={groups})"
+    print(f"plan {k3} {label}: {plan}")
+    compare_mode(rec, "couple_strip", mode, label, outs[0], outs[2], outs[3])
+    p = passes_of(mode)
+    mm = 4.0 * br * NB * width + NB * NB * width + 3.0 * NB * NB * width
+    nbytes = 4 * (2 * NB * width + 2 * br * width + br * NB + NB * NB / 2 + NB * NB)
+    bound = rec.bound_of(NB * width, nbytes, p * mm) if p else rec.bound_of(mm + NB * width,
+                                                                           nbytes)
+    c = outs[0]
+    rec.time(k3, lambda: chain.couple_strip(*args, c, c[:NB, NB:], 0, 1, 1, br, NB, 1, **geo),
+             lambda: chain.couple_strip_plain(*args, c, c[:NB, NB:], 0, 1, 1, br, NB, 1, **geo),
+             None, 20, 3, card, label=label, bound=bound)
+    del outs, c
+
+
+def print_phases(y: torch.Tensor, t: torch.Tensor, win: torch.Tensor, mr: int, mode: str,
+                 card: str, label: str) -> None:
+    """The whole-panel apply's two phases timed apart on the window (a
+    scratch copy: phase 2 updates it), with the plans they run on."""
+    from tileqr_torch.kernels import panel_apply as pa
+
+    m, nb = y.shape
+    n = win.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tm = t.T.contiguous()
+    w = pa._launch_project(y, tm, win, mr, mode)
+    t1 = cuda_ms(lambda: pa._launch_project(y, tm, win, mr, mode), 5)
+    pa._launch_sub(y, w, win, mode)
+    t2 = cuda_ms(lambda: pa._launch_sub(y, w, win, mode), 5)
+    print(f"time {label} ({mode}): phase 1 {t1:.4f} ms on {pa.project_plan(m, n, nb, mr, sms, mode, True)}, "
+          f"phase 2 {t2:.4f} ms on {pa.sub_plan(m, n, nb, sms, mode)} [{card}]")
 
 
 def run_path(a: torch.Tensor, cfg, path: str, card: str):
@@ -720,6 +817,8 @@ def phase4(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
             torch.cuda.synchronize()
             print(f"time panel_apply_carry panel {k}: three-torch.matmul chain "
                   f"{cuda_ms(chain3, 5):.4f} ms [{card}]")
+            print_phases(y, t, win, panel_apply._block(m, NB, 512), "highest", card,
+                         f"panel_apply_carry panel {k}")
         del c, win, win_c
 
     with square_hr._highest():
@@ -1187,6 +1286,8 @@ def apply_kernels(a: torch.Tensor, rec: KernelRecord, card: str, mode: str) -> N
                              lambda: pa.panel_apply_carry_plain(y, t, c, k, NB, **pm), None,
                              10, 2, card, label=f"panel {k} ({m}, {w})", bound=bound(b6, m, w))
                 bf16_chain_ms(chain_fn(y, t, c[s:, s + NB :]), card, f"{b6} panel {k}")
+                print_phases(y, t, c[s:, s + NB :], pa._block(m, NB, 512), mode, card,
+                             f"{b6} panel {k}")
                 del c
 
         # B7 on orgqr's windows: k = 0 is (16384, 16384) (also apply_q's
@@ -1321,9 +1422,10 @@ def phase9(rec: KernelRecord, rng, card: str) -> dict:
     n_chunks = (mt - 1 - n_head) // CHUNK
     r_k, v_stack, tg, t2h = panel.panel_factor(a, 0, NB, IB, n_head)
     _, v_chunks, t2t = chain.panel_chain(a, r_k, 0, NB, 1, n_chunks, br, IB)
+    libraries = strip_libraries(a, r_k)
     for mode in EMULATED_MODES:
-        strip_kernels(a, rec, card, (v_stack, tg, t2h, v_chunks, t2t), mode)
-    del r_k, v_stack, tg, t2h, v_chunks, t2t
+        strip_kernels(a, rec, card, (v_stack, tg, t2h, v_chunks, t2t), mode, libraries)
+    del r_k, v_stack, tg, t2h, v_chunks, t2t, libraries
     for mode in EMULATED_MODES:
         add_mode_launches(launches, mode_path(a, "hh", mode, card), mode)
     time_modes(a, "hh", card, 1)

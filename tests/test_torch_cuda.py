@@ -2,8 +2,9 @@
 both square paths (hh and hr), tsqr and qr_batched end to end, the
 split-product instantiations of K3, K4, B6 and B7 in each emulated
 precision mode, the whole-panel projection at 1, 2 and 3 row-block groups
-(against the plain sums in the same groups) and the batched GEQRT's
-cluster route.
+(against the plain sums in the same groups), the batched GEQRT's
+cluster route, and K3's three stages and phase 2 at every tile and G
+their plans can take (against the plain versions in the same groups).
 
 Every test here needs a CUDA device and carries the ``cuda_only`` marker;
 without a device the ``cuda`` fixture skips it. Run them on a machine with
@@ -24,7 +25,7 @@ import torch
 
 import tileqr_torch
 from tileqr_torch.kernels import _build, chain, geqrt, modlu, panel, panel_apply, potrf
-from tileqr_torch.utils.plan_sweep import project_at
+from tileqr_torch.utils.plan_sweep import project_at, strip_at, strip_plan_at, sub_at
 from tileqr_torch.utils.verify import backward_error_f64, residuals_f64
 
 pytestmark = pytest.mark.cuda_only
@@ -998,3 +999,166 @@ def test_sharded_hr_2x1_world_on_one_card(cuda, mode):
     s = np.sign(np.diag(r)) * np.sign(np.diag(r_hr))
     s[s == 0] = 1
     assert np.linalg.norm(r * s[:, None] - r_hr) / np.linalg.norm(r_hr) <= 100 * tol
+
+
+# ---- K3's stages and phase 2 at every plan (strip_plan, sub_plan) ----
+
+ALL_MODES = ["highest"] + MODES
+# (nb, C columns, col_start, block_rows, n_chunks, stage-1 tile size, G,
+# stage-3 tile size): narrow late-panel strips of 256 and 512 columns, a
+# ragged width, G > 1, chunk-1 couples (B14's), large and small tiles
+STRIP_GEOS = {
+    "nb64-ragged-G4-small": (64, 3 * 64 + 40, 1, 128, 2, "small", 4, "small"),
+    "nb256-w256-G2-small": (256, 2 * 256, 1, 512, 2, "small", 2, "large"),
+    "nb256-w512-G1-large": (256, 3 * 256, 1, 512, 2, "large", 1, "small"),
+    "nb64-chunk1-G2": (64, 9 * 64, 1, 64, 4, "large", 2, "large"),
+    "nb64-cs0-w512-G1": (64, 8 * 64, 0, 128, 2, "small", 1, "small"),
+}
+STRIP_VARIANTS_CARD = [(True, False, True), (False, True, True), (True, False, False),
+                       (False, True, False), (True, True, True)]
+
+
+def strip_case(cuda, nb, cols, block_rows, n_chunks, seed=5):
+    """C ((1 + n_chunks)·block_rows, cols) gaussian: its first tile's K1
+    (packed V, T) and K2's n_chunks couples of block_rows rows from row
+    block 1 on, from the plain versions."""
+    rng = np.random.default_rng(seed + nb + cols)
+    a = torch.from_numpy(rng.standard_normal(((1 + n_chunks) * block_rows, cols),
+                                             dtype=np.float32)).to(cuda)
+    col = a[:, :nb].contiguous()
+    k1 = panel.panel_factor_plain(col, 0, nb, nb // 2, 0)
+    k2 = chain.panel_chain_plain(col, k1[0], 0, nb, 1, n_chunks, block_rows, nb // 2)
+    return a, k1, k2
+
+
+@pytest.mark.parametrize("geo", list(STRIP_GEOS), ids=str)
+@pytest.mark.parametrize("trans,reverse,fused", STRIP_VARIANTS_CARD,
+                         ids=["t-fwd-fused", "n-rev-fused", "t-fwd", "n-rev", "t-rev-fused"])
+@pytest.mark.parametrize("mode", ALL_MODES)
+def test_couple_strip_at_every_plan(cuda, geo, trans, reverse, fused, mode):
+    """K3 at a given plan (tiles, G) against the plain version of its mode
+    summed in the same groups (nearer it than the "highest" one in the
+    split modes); bitwise reruns; the rows and columns outside the strip
+    and the couples untouched."""
+    nb, cols, cs, br, nc, ptile, groups, stile = STRIP_GEOS[geo]
+    a, (_, v_stack, tg, _), (_, v_chunks, t2) = strip_case(cuda, nb, cols, br, nc)
+    width = cols - cs * nb
+    large, small = panel_apply.tiles_for(mode)
+    plan = strip_plan_at(nb, width, br, nc, mode, large if ptile == "large" else small,
+                         groups, large if stile == "large" else small, fused)
+    vkk, tgf = (v_stack[0], tg) if fused else (None, None)
+    outs = []
+    for fn, prec in ((strip_at, mode), (strip_at, mode), (chain.couple_strip_plain, mode),
+                     (chain.couple_strip_plain, "highest")):
+        c = a.clone()
+        args = (v_chunks, t2, c, c[:nb, cs * nb :], 0, 1, nc, br, nb, cs, trans, reverse, vkk,
+                tgf, prec)
+        if fn is strip_at:
+            fn(*args, plan)
+        else:
+            fn(*args, groups=plan.groups)
+        outs.append(c)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])  # reruns are bitwise equal
+    assert torch.equal(outs[0][nb:br], a[nb:br]) and torch.equal(outs[0][:, : cs * nb],
+                                                                 a[:, : cs * nb])
+    if mode == "highest":
+        assert rel(outs[0], outs[2]) <= TOL
+    else:
+        assert nearer_own_mode(outs[0], outs[2], outs[3], mode)
+
+
+@pytest.mark.parametrize("width", [256, 512, 200])
+@pytest.mark.parametrize("trans", [True, False])
+@pytest.mark.parametrize("mode", ALL_MODES)
+def test_larfb_strip_at_narrow_widths(cuda, width, trans, mode):
+    """K4 (the chain launch alone) on late-panel and ragged widths in every
+    mode, against the plain version of its mode; bitwise reruns."""
+    nb = 256
+    a, (_, v_stack, tg, _), _ = strip_case(cuda, nb, width + nb, nb, 1)
+    outs = []
+    for fn, prec in ((chain.larfb_strip, mode), (chain.larfb_strip, mode),
+                     (chain.larfb_strip_plain, mode), (chain.larfb_strip_plain, "highest")):
+        s = a[:nb, nb:].clone()
+        fn(v_stack[0], tg, s, nb, trans=trans, precision=prec)
+        outs.append(s)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    if mode == "highest":
+        assert rel(outs[0], outs[2]) <= TOL
+    else:
+        assert nearer_own_mode(outs[0], outs[2], outs[3], mode)
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+def test_couple_strip_wrapper_counts_one_launch(cuda, mode):
+    """A K3 call launches three kernels and counts once, under its mode's
+    key (and under ``counter``)."""
+    nb = 64
+    a, (_, v_stack, tg, _), (_, v_chunks, t2) = factors(cuda, nb)
+    _build.reset_counts()
+    c = a.clone()
+    chain.couple_strip(v_chunks, t2, c, c[:nb, nb:], 0, 1, 2, 2 * nb, nb, 1, vkk=v_stack[0],
+                       tg=tg, precision=mode)
+    chain.couple_strip(v_chunks, t2, c, c[:nb, nb:], 0, 1, 2, 2 * nb, nb, 1, precision=mode,
+                       counter="ssrfb")
+    chain.larfb_strip(v_stack[0], tg, c[:nb, nb:], nb, precision=mode)
+    torch.cuda.synchronize()
+    key = {"highest": "", "b3": "[b3]", "b4": "[b4]", "default": "[default]"}[mode]
+    assert _build.LAUNCHES[f"couple_strip{key}"] == 1 == _build.LAUNCHES[f"ssrfb{key}"]
+    assert _build.LAUNCHES[f"larfb_strip{key}"] == 1
+    assert not any(_build.PLAIN_CALLS.values())
+
+
+@pytest.mark.parametrize("nb", [40, 512, 768])
+@pytest.mark.parametrize("tile", ["large", "small"])
+@pytest.mark.parametrize("mode", ALL_MODES)
+def test_phase2_at_any_nb_and_tile(cuda, nb, tile, mode):
+    """Phase 2 (``tq_panel_sub``) at nb 40/512/768 on a ragged n, a strided
+    C at an odd column offset (4-byte copies) and a Y and W at misaligned
+    addresses, on each tile of its route: against the plain C − Y·W of its
+    mode; bitwise reruns; C untouched outside the window."""
+    rng = np.random.default_rng(nb + len(tile))
+    m, n = 2 * max(nb, 512) + 64, 2 * nb + 13  # neither a multiple of any tile
+    flat = torch.from_numpy(rng.standard_normal(m * nb + nb * n + 2, dtype=np.float32)).to(cuda)
+    y = flat[1 : 1 + m * nb].view(m, nb)            # 4 bytes past a 16-byte boundary
+    w = flat[2 + m * nb : 2 + m * nb + nb * n].view(nb, n)
+    big = torch.from_numpy(rng.standard_normal((m, n + 37), dtype=np.float32)).to(cuda)
+    large, small = panel_apply.tiles_for(mode)
+    t = large if tile == "large" else small
+    outs = []
+    for _ in range(2):
+        b = big.clone()
+        sub_at(y, w, b[:, 3 : 3 + n], mode, t)
+        outs.append(b)
+    own = big.clone()
+    own[:, 3 : 3 + n] -= panel_apply.dot(y, w, mode)
+    hi = big.clone()
+    hi[:, 3 : 3 + n] -= y @ w
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0][:, :3], big[:, :3]) and torch.equal(outs[0][:, 3 + n :],
+                                                                    big[:, 3 + n :])
+    if mode == "highest":
+        assert rel(outs[0], own) <= TOL
+    else:
+        assert nearer_own_mode(outs[0], own, hi, mode)
+
+
+def test_plans_refuse_what_their_layouts_lack(cuda):
+    """A tile no route has, a split tile in "highest", an fp32 tile in b3,
+    and a G whose groups are not whole (3 groups of a 128-row couple) are
+    refused by the C entries; nothing falls back."""
+    y = torch.zeros((256, 64), device=cuda)
+    w = torch.zeros((64, 128), device=cuda)
+    c = torch.zeros((256, 128), device=cuda)
+    for mode, tile in (("highest", (32, 32)), ("highest", (128, 64)), ("b3", (128, 128)),
+                       ("b3", (64, 128))):
+        with pytest.raises(RuntimeError, match="panel_sub"):
+            sub_at(y, w, c, mode, tile)
+    nb = 64
+    a, (_, v_stack, tg, _), (_, v_chunks, t2) = factors(cuda, nb)
+    bad = chain.StripPlan((128, 128), 3, 64, (128, 128), 64, 2 * 4 * nb * 2 * nb)
+    with pytest.raises(RuntimeError, match="couple_strip"):
+        strip_at(v_chunks, t2, a.clone(), a.clone()[:nb, nb:], 0, 1, 2, 2 * nb, nb, 1, True,
+                 False, None, None, "highest", bad)

@@ -64,84 +64,44 @@
 //     (+ ll).
 //   - The library is built without fast math, so the Kahan (t - acc) - y
 //     is kept as written.
-// Phase 2 (tq_panel_sub) is the earlier kernel: apply_kernel, a SIMT GEMM of
-// 64 x 64 C tiles in fp32; sub_bx_kernel, bx::gemm32's split product on
-// 128 x 32 C tiles (mma.sync through WMMA), any n.
+// Phase 2 (tq_panel_sub), C -= Y W, is a GEMM over 2-D tiles of C with the
+// contraction over nb. What bounds it on the H100: 2 m nb n flops at 67
+// TFLOP/s in fp32 (0.256 ms for Y 4096 x 256, C 4096 x 8192), C's bytes read
+// and written (2 m n 4, 0.080 ms there) in the split modes. The design
+// (tile_gemm.cuh): a block owns a C tile, 128 x 128 (fp32) or 128 x 64
+// (split), or 64 x 64 where the large tiles leave the card idle
+// (kernels/panel_apply.py:sub_plan, from the shapes and the SM count; the
+// entry refuses any other tile); fp32: f32_tile, 8 x 8 entries a thread,
+// Y and W 16 deep through a 3-stage cp.async ring, each C entry's product
+// one fmaf chain over k ascending from 0 and then x - acc, the order of the
+// 64 x 64 kernel this replaces, so its bits; split modes: wg_tile on
+// wgmma, Y's rows (K-major as they lie) and W split once a stage. The same
+// kernels take a batch (grid z) of independent products: K3's stage 3
+// (strip.cu) runs all of a strip's couples C_bot_q -= V2_q W2_q in one
+// launch through tq_sub_launch.
 #include <stdint.h>
 
-#include "bx_mma.cuh"
+#include "tile_gemm.cuh"
 
 namespace {
 
+using tg::ceil_div;
+using tg::core_off;
+using tg::CORE_LBO;
+using tg::CORE_SBO;
+using tg::cp_async16;
+using tg::cp_async4;
+using tg::cp_commit;
+using tg::cp_wait;
+using tg::fence_proxy_async;
+using tg::fence_reg;
+using tg::smem_desc;
+using tg::wg_commit;
+using tg::wg_fence;
+using tg::wg_wait;
+using tg::wgmma64;
+
 constexpr int PA_THREADS = 256;
-
-__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-// ---- cp.async, wgmma and proxy fences (sm_90a) ----
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// generic-proxy stores to shared memory made visible to wgmma's reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// the compiler may not move accesses of r across this point (the
-// accumulators are written asynchronously until wg_wait)
-__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-
-// Shared-memory matrix descriptor of a K-major bf16 operand without swizzle:
-// 8 x 8 core matrices (8 rows of 16 bytes, contiguous), LBO bytes between
-// the two core matrices of a row group along K, SBO bytes between row groups.
-__device__ __forceinline__ uint64_t smem_desc(unsigned addr, unsigned lbo, unsigned sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
-}
-
-// D (64 x 64 fp32, 32 registers a thread) += A (64 x 16) B (16 x 64), both
-// bf16 K-major in shared memory.
-__device__ __forceinline__ void wgmma64(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
 
 // ---- phase 1, fp32 ----
 
@@ -284,39 +244,6 @@ constexpr int A_BYTES = (WK / 16) * A_CHUNK, B_BYTES = (WK / 16) * B_CHUNK;
 constexpr int SPLIT_BYTES = 2 * A_BYTES + 2 * B_BYTES;
 constexpr int RAW_FLOATS = WK * (WM + WN);
 constexpr size_t WG_SMEM = 2 * (size_t)SPLIT_BYTES + sizeof(float) * WSTAGES * RAW_FLOATS;
-constexpr unsigned CORE_LBO = 128, CORE_SBO = 256;  // bytes: along K, between row groups
-
-// byte offset of the 8 consecutive k (kg-th group of 8 in the stage) of
-// operand row r in a split stage's K-major layout
-__device__ __forceinline__ int core_off(int r, int kg, int chunk_bytes) {
-  return (kg >> 1) * chunk_bytes + (r >> 3) * CORE_SBO + (kg & 1) * CORE_LBO + (r & 7) * 16;
-}
-
-__device__ __forceinline__ unsigned bits_of(__nv_bfloat162 v) {
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// the 8 values x[q * ld] ~ hi + lo, each rounded to nearest (bx_mma.cuh's
-// split_store: lo = bf16_rn(x - float(hi))), two at a time (one cvt a
-// pair), stored as 16 bytes each
-template <int P>
-__device__ __forceinline__ void split8(const float* x, int ld, unsigned char* hi,
-                                       unsigned char* lo) {
-  unsigned h[4], l[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float a = x[2 * q * ld], b = x[(2 * q + 1) * ld];
-    const __nv_bfloat162 hb = __floats2bfloat162_rn(a, b);  // .x = a at the lower address
-    h[q] = bits_of(hb);
-    if (P > 1) {
-      const float2 hf = __bfloat1622float2(hb);
-      l[q] = bits_of(__floats2bfloat162_rn(a - hf.x, b - hf.y));
-    }
-  }
-  *reinterpret_cast<uint4*>(hi) = make_uint4(h[0], h[1], h[2], h[3]);
-  if (P > 1) *reinterpret_cast<uint4*>(lo) = make_uint4(l[0], l[1], l[2], l[3]);
-}
-
 // Block (x, y, z) = (row tile, column tile, group): W rows 128x.. (warpgroup
 // g: 64g..), columns 64y.., row blocks [z per, min(rb, (z+1) per)), each of
 // mr rows in stages of WK (the last stage of a row block zero-filled past
@@ -398,13 +325,13 @@ project_wg_kernel(const float* __restrict__ y, const float* __restrict__ c, long
     for (int h = 0; h < (WK / 8) * WM / PA_THREADS; ++h) {
       const int p = tid + h * PA_THREADS, r = p % WM, kg = p / WM;
       const int off = core_off(r, kg, A_CHUNK);
-      split8<P>(ys + kg * 8 * WM + r, WM, st + off, st + A_BYTES + off);
+      bx::split8<P>(ys + kg * 8 * WM + r, WM, st + off, st + A_BYTES + off);
     }
 #pragma unroll
     for (int h = 0; h < (WK / 8) * WN / PA_THREADS; ++h) {
       const int p = tid + h * PA_THREADS, r = p % WN, kg = p / WN;
       const int off = core_off(r, kg, B_CHUNK);
-      split8<P>(cs + kg * 8 * WN + r, WN, st + 2 * A_BYTES + off,
+      bx::split8<P>(cs + kg * 8 * WN + r, WN, st + 2 * A_BYTES + off,
                 st + 2 * A_BYTES + B_BYTES + off);
     }
   };
@@ -561,100 +488,40 @@ int set_smem(K kernel, size_t smem) {
                                    (int)smem);
 }
 
-// ---- phase 2 ----
+// ---- phase 2 (and K3's stage 3): C_z -= Y_z W_z ----
 
-constexpr int BM = 64, BN = 64, BK = 16;
-
-// Phase 2: C (m x n) -= Y (m x nb) W (nb x n). Block (x, y) = (row tile,
-// column tile); thread (ty, tx) = (tid / 16, tid % 16) owns a 4 x 4 tile.
-__global__ void __launch_bounds__(PA_THREADS)
-apply_kernel(const float* __restrict__ y, const float* __restrict__ w, float* c,
-             long long ldc, int m, int n, int nb) {
-  __shared__ __align__(16) float as[BK][BM + 4];
-  __shared__ __align__(16) float bs[BK][BN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < nb; k0 += BK) {
-#pragma unroll
-    for (int q = 0; q < (BM * BK) / PA_THREADS; ++q) {
-      const int idx = tid + q * PA_THREADS;
-      const int r = idx / BK, kk = idx % BK;
-      as[kk][r] = (row0 + r < m) ? y[(long long)(row0 + r) * nb + k0 + kk] : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < (BK * BN) / PA_THREADS; ++q) {
-      const int idx = tid + q * PA_THREADS;
-      const int kk = idx / BN, cc = idx % BN;
-      bs[kk][cc] = (col0 + cc < n) ? w[(long long)(k0 + kk) * n + col0 + cc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int cc = col0 + tx * 4 + j;
-      if (cc < n) {
-        float* x = c + (long long)r * ldc + cc;
-        *x = *x - acc[i][j];
-      }
-    }
-  }
+// Block (x, y, z): C_z rows BM x.., columns BN y..; Y_z K-major (the rows
+// of Y), W_z N-major.
+template <int BM, int BN>
+__global__ void __launch_bounds__(tg::F_THREADS, 2)
+sub_f32_kernel(const float* y, long long ys, const float* w, long long ldw, long long ws, float* c,
+               long long ldc, long long cs, int m, int n, int nb, int vec) {
+  extern __shared__ __align__(16) float smf[];
+  const int z = blockIdx.z;
+  float* cz = c + z * cs;
+  tg::f32_tile<BM, BN, true>(smf, {y + z * ys, nb}, {w + z * ws, ldw}, m, n, 0, nb,
+                             blockIdx.x * BM, blockIdx.y * BN, vec, false, tg::Sub{cz, ldc});
 }
 
-// Phase 2 at P passes: block (x, y) updates C rows 128x .. +128, columns
-// 32y .. +32 (those below n when RAGGED): C -= Y W. RAGGED (n not a
-// multiple of 32) is a template flag so that the common case keeps its
-// staging loops free of the test.
-template <int P, bool RAGGED>
-__global__ void __launch_bounds__(bx::BX_THREADS)
-sub_bx_kernel(const float* __restrict__ y, const float* __restrict__ w, float* c,
-              long long ldc, int m, int n, int nb) {
-  extern __shared__ __align__(128) float smb[];
-  const bx::Smem S = bx::carve(smb);
-  const long long r0 = (long long)blockIdx.x * bx::MT;
-  const int col0 = blockIdx.y * bx::NC;
-  const int rows = min((long long)bx::MT, m - r0);
-  bx::gemm32<P, true>(
-      S, rows, nb, [&](int i, int k) { return y[(r0 + i) * nb + k]; },
-      [&](int k, int cc) {
-        return !RAGGED || col0 + cc < n ? w[(long long)k * n + col0 + cc] : 0.f;
-      },
-      [&](int i, int cc, float v) {
-        if (RAGGED && col0 + cc >= n) return;
-        float* x = c + (r0 + i) * ldc + col0 + cc;
-        *x = *x - v;
-      });
+template <int P, int BM>
+__global__ void __launch_bounds__(2 * BM, 1)
+sub_wg_kernel(const float* y, long long ys, const float* w, long long ldw, long long ws, float* c,
+              long long ldc, long long cs, int m, int n, int nb, int vec) {
+  extern __shared__ __align__(128) unsigned char smw[];
+  const int z = blockIdx.z;
+  float* cz = c + z * cs;
+  tg::wg_tile<P, BM, true>(smw, {y + z * ys, nb}, {w + z * ws, ldw}, m, n, 0, nb,
+                           blockIdx.x * BM, blockIdx.y * tg::WBN, vec, false, tg::Sub{cz, ldc});
 }
 
-template <int P>
-int launch_sub_bx(const float* y, const float* w, float* c, long long ldc, int m, int n,
-                  int nb, cudaStream_t stream) {
-  const dim3 grid((m + bx::MT - 1) / bx::MT, (n + bx::NC - 1) / bx::NC);
-  if (n % bx::NC)
-    sub_bx_kernel<P, true><<<grid, bx::BX_THREADS, bx::SMEM_BYTES, stream>>>(y, w, c, ldc, m, n,
-                                                                            nb);
-  else
-    sub_bx_kernel<P, false><<<grid, bx::BX_THREADS, bx::SMEM_BYTES, stream>>>(y, w, c, ldc, m, n,
-                                                                             nb);
+template <class K>
+int launch_sub(K kernel, size_t smem, int threads, int tm, int tn, const float* y, long long ys,
+               const float* w, long long ldw, long long ws, float* c, long long ldc,
+               long long cs, int m, int n, int nb, int batch, int vec, cudaStream_t stream) {
+  const int e = set_smem(kernel, smem);
+  if (e != 0) return e;
+  const dim3 grid(ceil_div(m, tm), ceil_div(n, tn), batch);
+  kernel<<<grid, threads, smem, stream>>>(y, ys, w, ldw, ws, c, ldc, cs, m, n, nb, vec);
   return (int)cudaGetLastError();
 }
 
@@ -736,19 +603,39 @@ extern "C" int tq_panel_project(const float* y, const float* tm, const float* c,
   return (int)cudaGetLastError();
 }
 
-// Phase 2: C (m x n, row stride ldc) -= Y (m x nb) W (nb x n), in place.
-extern "C" int tq_panel_sub(const float* y, const float* w, float* c, long long ldc, int m,
-                            int n, int nb, int passes, void* stream_) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+int tq_sub_launch(const float* y, long long ys, const float* w, long long ldw, long long ws,
+                  float* c, long long ldc, long long cs, int m, int n, int nb, int batch,
+                  int tile_m, int tile_n, int passes, cudaStream_t stream) {
+  if (m < 1 || n < 1 || nb < 1 || batch < 1 || batch > 65535 || !tq_tile_ok(tile_m, tile_n, passes))
+    return (int)cudaErrorInvalidValue;
+  const int vec = tg::aligned16(y) && tg::aligned16(w) && nb % 4 == 0 && ldw % 4 == 0 &&
+                  n % 4 == 0 && ys % 4 == 0 && ws % 4 == 0;
+#define TQ_SUB(K, SMEM, THREADS) \
+  launch_sub(K, SMEM, THREADS, tile_m, tile_n, y, ys, w, ldw, ws, c, ldc, cs, m, n, nb, batch, vec, stream)
+  const bool big = tile_m == 128;
   switch (passes) {
-    case 0: {
-      const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
-      apply_kernel<<<grid, PA_THREADS, 0, stream>>>(y, w, c, ldc, m, n, nb);
-      return (int)cudaGetLastError();
-    }
-    case 1: return launch_sub_bx<1>(y, w, c, ldc, m, n, nb, stream);
-    case 3: return launch_sub_bx<3>(y, w, c, ldc, m, n, nb, stream);
-    case 4: return launch_sub_bx<4>(y, w, c, ldc, m, n, nb, stream);
+    case 0:
+      return big ? TQ_SUB((sub_f32_kernel<128, 128>), (tg::f32_smem<128, 128, true>()), 256)
+                 : TQ_SUB((sub_f32_kernel<64, 64>), (tg::f32_smem<64, 64, true>()), 256);
+    case 1:
+      return big ? TQ_SUB((sub_wg_kernel<1, 128>), tg::wg_smem<128>(), 256)
+                 : TQ_SUB((sub_wg_kernel<1, 64>), tg::wg_smem<64>(), 128);
+    case 3:
+      return big ? TQ_SUB((sub_wg_kernel<3, 128>), tg::wg_smem<128>(), 256)
+                 : TQ_SUB((sub_wg_kernel<3, 64>), tg::wg_smem<64>(), 128);
+    case 4:
+      return big ? TQ_SUB((sub_wg_kernel<4, 128>), tg::wg_smem<128>(), 256)
+                 : TQ_SUB((sub_wg_kernel<4, 64>), tg::wg_smem<64>(), 128);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef TQ_SUB
+}
+
+// Phase 2: C (m x n, row stride ldc) -= Y (m x nb) W (nb x n), in place, on
+// C tiles of tile_m x tile_n (kernels/panel_apply.py:sub_plan); any m, n,
+// nb >= 1; passes 0 ("highest"), 1, 3 or 4.
+extern "C" int tq_panel_sub(const float* y, const float* w, float* c, long long ldc, int m,
+                            int n, int nb, int tile_m, int tile_n, int passes, void* stream) {
+  return tq_sub_launch(y, 0, w, n, 0, c, ldc, 0, m, n, nb, 1, tile_m, tile_n, passes,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -81,12 +81,14 @@ SIGNATURES = {
     "tq_cluster_work_floats": (_I, _I, _I, _I, _I),
     # v_stack, t2_stack, c, ldc, strip, lds, width, stack_base, base_block,
     # n_chunks, block_rows, nb, col_start, trans, reverse, vkk, tg, passes,
-    # stream
+    # work, the plan (proj tile rows, columns, groups, sub tile rows,
+    # columns: kernels/chain.py:strip_plan), stream
     "tq_couple_strip": (
-        _P, _P, _P, _L, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P,
+        _P, _P, _P, _L, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+        _P, _I, _I, _I, _I, _I, _P,
     ),
-    # vkk, tg, strip, lds, width, nb, trans, passes, stream
-    "tq_larfb_strip": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # vkk, tg, strip, lds, width, nb, trans, passes, work, stream
+    "tq_larfb_strip": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _P),
     # q, lu, n, d, ctas, smem, resident, stream
     "tq_modified_lu": (_P, _P, _I, _P, _I, _L, _I, _P),
     # r (in place), batch, n, bp, stream
@@ -94,8 +96,9 @@ SIGNATURES = {
     # y, tm (or NULL), c, ldc, m, n, nb, mr, w, work (or NULL), groups, passes,
     # stream
     "tq_panel_project": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _I, _I, _P),
-    # y, w, c, ldc, m, n, nb, passes, stream
-    "tq_panel_sub": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # y, w, c, ldc, m, n, nb, tile rows, tile columns
+    # (kernels/panel_apply.py:sub_plan), passes, stream
+    "tq_panel_sub": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
     # geqrt_batched blocks to launch (or -cudaError): batch, m, n, resident
     "tq_geqrt_batched_grid": (_L, _I, _I, _I),
     # geqrt_batched workspace floats per block: m, n, ib, resident

@@ -10,27 +10,38 @@ Counterparts of ``tileqr/kernels/chain.py``:
 - ``larfb_strip`` (K4): the diagonal LARFB alone, for a panel with no
   couples.
 
-On a CUDA tensor each wrapper launches its CUDA kernel (``csrc/chain.cu``;
-K2 as one thread-block cluster, sized by ``panel.cluster_plan``);
-on a CPU tensor it runs the plain version beside it. K3 and K4 update C and
-the strip IN PLACE (the JAX kernels alias C to their output): the strip may
-be a view of C's row strip, which the couple rows never touch. K3 and K4
-take ``precision`` (``kernels/common.py``): their three products run in the
-mode's product, the kernel's instantiation for it on the card; K2 is fp32
-in every mode, as in ``tileqr``.
+On a CUDA tensor each wrapper launches its CUDA kernels (``csrc/chain.cu``
+for K2, as one thread-block cluster sized by ``panel.cluster_plan``;
+``csrc/strip.cu`` for K3 and K4); on a CPU tensor it runs the plain version
+beside it. K3 and K4 update C and the strip IN PLACE (the JAX kernels alias
+C to their output): the strip may be a view of C's row strip, which the
+couple rows never touch. K3 and K4 take ``precision``
+(``kernels/common.py``): their three products run in the mode's product,
+the kernels' instantiation for it on the card; K2 is fp32 in every mode,
+as in ``tileqr``.
+
+On the card a K3 call is three launches (one count): every couple's
+projection V2ᵀ·C_bot at once, its rows cut into G groups where the strip
+is narrow (``strip_plan``); the chain through the strip, which also runs
+the fused LARFB; every couple's C_bot −= V2·W2 at once (the whole-panel
+apply's phase 2). K4 is the second launch alone. The plain K3 takes
+``groups=G`` (``strip_plan(...).groups`` at the card's SM count) to sum
+the projections in the kernel's order; the CPU path runs G = 1, tileqr's
+order.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from tileqr_torch.kernels import _build
-from tileqr_torch.kernels.common import counter_key, passes_of
+from tileqr_torch.kernels.common import counter_key, dot, dot_t, passes_of
 from tileqr_torch.kernels.geqrt import geqrt_in_place
 from tileqr_torch.kernels.larfb import larfb_body
 from tileqr_torch.kernels.panel import _cluster_args
+from tileqr_torch.kernels.panel_apply import sub_plan, tile_count, tiles_for
 from tileqr_torch.kernels.ssrfb import ssrfb_body
 
 
@@ -106,14 +117,93 @@ def _check_strip(v_stack, t2_stack, c, strip, stack_base, base_block, n_chunks,
         raise ValueError("couple_strip: pass both vkk and tg, or neither")
 
 
+# stage 2's strip columns a block (csrc/strip.cu: SC); stage 1's row groups
+# are whole stages of GROUP_ALIGN rows and, where G > 1, at least
+# GROUP_MIN_ROWS rows each
+SLAB_COLS = 64
+GROUP_ALIGN = 32
+GROUP_MIN_ROWS = 128
+
+
+class StripPlan(NamedTuple):
+    proj_tile: Tuple[int, int]  # stage 1: (P rows, P columns) a block
+    groups: int                 # G: row groups of each couple in stage 1
+    group_rows: int             # rows of each group (the last may be shorter)
+    sub_tile: Tuple[int, int]   # stage 3: (C rows, C columns) a block
+    slab_cols: int              # stage 2: strip columns a block
+    workspace: int              # floats: partials, W2, the fused LARFB's W and W2
+
+
+def group_rows(rows: int, groups: int) -> int:
+    """Rows of each of stage 1's ``groups`` groups of a couple's ``rows``:
+    ceil(rows / groups) rounded up to whole 32-row stages."""
+    per = -(-rows // groups)
+    return -(-per // GROUP_ALIGN) * GROUP_ALIGN
+
+
+def strip_workspace(nb: int, width: int, couples: int, groups: int, fused: bool) -> int:
+    """Floats of K3's workspace: couples·G partials and couples W2 of (nb,
+    width), and the fused LARFB's W and W2."""
+    return (couples * (groups + 1) + (2 if fused else 0)) * nb * width
+
+
+def strip_plan(nb: int, width: int, rows: int, couples: int, sms: int,
+               precision: str = "highest", fused: bool = False) -> StripPlan:
+    """K3's launches on a card of ``sms`` SMs for ``couples`` couples of
+    ``rows`` rows on an (nb, width) strip (K4: no couples, ``fused``), from
+    the shapes and the SM count only, so that every rank of a world picks
+    alike. Stage 1 takes the mode's large tile where its blocks over all
+    couples fill the card, else the small one; its G = the SMs those tiles
+    leave (sms // tiles), at most rows // GROUP_MIN_ROWS and at least 1 (so
+    G = 1 when the tiles take more than half the card), cut to the
+    non-empty groups of ``group_rows`` rows. Stage 3 takes ``sub_plan``'s
+    tile for the stacked couples. The workspace: couples·G partials and
+    couples W2 of (nb, width) floats, and two more for the fused LARFB."""
+    if min(nb, width, sms) < 1 or couples < 0 or (couples and rows < 1):
+        raise ValueError(f"strip_plan: nb={nb}, width={width}, rows={rows}, "
+                         f"couples={couples}, sms={sms}")
+    large, small = tiles_for(precision)
+    if couples == 0:
+        return StripPlan(large, 1, rows, large, SLAB_COLS,
+                         strip_workspace(nb, width, 0, 1, fused))
+    tile = large if tile_count(nb, width, large, couples) >= sms else small
+    groups = max(1, min(rows // GROUP_MIN_ROWS, sms // tile_count(nb, width, tile, couples)))
+    gr = group_rows(rows, groups)
+    groups = -(-rows // gr)
+    return StripPlan(tile, groups, gr, sub_plan(rows, width, nb, sms, precision, couples).tile,
+                     SLAB_COLS, strip_workspace(nb, width, couples, groups, fused))
+
+
+def _ssrfb_grouped(v2, t2, c_top, c_bot, trans: bool, precision: str, groups: int):
+    """``ssrfb_body`` with the projection V2ᵀ·C_bot summed over ``groups``
+    groups of ``group_rows`` rows, the partials added in group order and
+    then to C_top (stage 1 and 2's order); groups = 1 is ssrfb_body."""
+    if groups == 1:
+        return ssrfb_body(v2, t2, c_top, c_bot, trans, precision)
+    rows = v2.shape[0]
+    gr = group_rows(rows, groups)
+    proj = None
+    for r0 in range(0, rows, gr):
+        part = dot_t(v2[r0 : r0 + gr], c_bot[r0 : r0 + gr], precision)
+        proj = part if proj is None else proj + part
+    w = c_top + proj
+    w = dot_t(t2, w, precision) if trans else dot(t2, w, precision)
+    return c_top - w, c_bot - dot(v2, w, precision)
+
+
 def couple_strip_plain(v_stack, t2_stack, c, strip, stack_base: int, base_block: int,
                        n_chunks: int, block_rows: int, nb: int, col_start: int,
                        trans: bool = True, reverse: bool = False, vkk=None, tg=None,
-                       precision: str = "highest", counter: str = "couple_strip"):
-    """Plain torch K3 (in place on C and the strip)."""
+                       precision: str = "highest", counter: str = "couple_strip",
+                       groups: int = 1):
+    """Plain torch K3 (in place on C and the strip); ``groups``: stage 1's
+    row groups of each couple (``strip_plan``; the card's order, to hold
+    the kernel to)."""
     _build.PLAIN_CALLS[counter_key(counter, precision)] += 1
     _check_strip(v_stack, t2_stack, c, strip, stack_base, base_block, n_chunks,
                  block_rows, nb, col_start, vkk, tg)
+    if groups < 1:
+        raise ValueError(f"couple_strip_plain: groups={groups}")
     c0 = col_start * nb
     s = strip
     if vkk is not None and not reverse:
@@ -122,8 +212,8 @@ def couple_strip_plain(v_stack, t2_stack, c, strip, stack_base: int, base_block:
     for ii in order:
         r0 = (base_block + ii) * block_rows
         bot = c[r0 : r0 + block_rows, c0:]
-        s, new_bot = ssrfb_body(v_stack[stack_base + ii], t2_stack[stack_base + ii],
-                                s, bot, trans, precision)
+        s, new_bot = _ssrfb_grouped(v_stack[stack_base + ii], t2_stack[stack_base + ii],
+                                    s, bot, trans, precision, groups)
         bot.copy_(new_bot)
     if vkk is not None and reverse:
         s = larfb_body(vkk, tg, s, trans, precision)
@@ -159,13 +249,18 @@ def couple_strip(v_stack, t2_stack, c, strip, stack_base: int, base_block: int,
     _build.require_row_major(c=c, strip=strip)
     _check_strip(v_stack, t2_stack, c, strip, stack_base, base_block, n_chunks,
                  block_rows, nb, col_start, vkk, tg)
-    if strip.shape[1] == 0:
+    width = strip.shape[1]
+    if width == 0 or (n_chunks == 0 and vkk is None):
         return c, strip
+    plan = strip_plan(nb, width, block_rows, n_chunks, _build.sm_count(c), precision,
+                      fused=vkk is not None)
+    work = torch.empty(plan.workspace, dtype=c.dtype, device=c.device)
     rc = _build.lib().tq_couple_strip(
         v_stack.data_ptr(), t2_stack.data_ptr(), c.data_ptr(), c.stride(0),
-        strip.data_ptr(), strip.stride(0), strip.shape[1], stack_base, base_block,
+        strip.data_ptr(), strip.stride(0), width, stack_base, base_block,
         n_chunks, block_rows, nb, col_start, int(trans), int(reverse),
-        _build.ptr(vkk), _build.ptr(tg), passes, _build.stream(),
+        _build.ptr(vkk), _build.ptr(tg), passes, work.data_ptr(), *plan.proj_tile,
+        plan.groups, *plan.sub_tile, _build.stream(),
     )
     _build.check(rc, "couple_strip")
     _build.LAUNCHES[counter_key(counter, precision)] += 1
@@ -194,9 +289,11 @@ def larfb_strip(vkk, tg, strip, nb: int, trans: bool = True,
     _build.require_row_major(strip=strip)
     if strip.shape[1] == 0:
         return strip
+    plan = strip_plan(nb, strip.shape[1], 0, 0, _build.sm_count(strip), precision, fused=True)
+    work = torch.empty(plan.workspace, dtype=strip.dtype, device=strip.device)
     rc = _build.lib().tq_larfb_strip(
         vkk.data_ptr(), tg.data_ptr(), strip.data_ptr(), strip.stride(0),
-        strip.shape[1], nb, int(trans), passes, _build.stream(),
+        strip.shape[1], nb, int(trans), passes, work.data_ptr(), _build.stream(),
     )
     _build.check(rc, "larfb_strip")
     _build.LAUNCHES[counter_key("larfb_strip", precision)] += 1

@@ -12,7 +12,8 @@ The precision modes (``QRConfig.precision``; the table is in
 take ``PASSES[mode]`` bf16 products, each exact in fp32, accumulated in
 fp32 (``dot_bx``). Any mode on float64 operands is the exact product, as
 ``tileqr``'s ``dot``/``dot_t`` fall back to HIGHEST there. The CUDA kernels
-compute the same products on the tensor cores (``csrc/bx_mma.cuh``) and are
+compute the same products on the tensor cores (``csrc/bx_mma.cuh``'s split on
+``csrc/tile_gemm.cuh``'s wgmma routine) and are
 held to these by tolerance.
 """
 

@@ -1,7 +1,7 @@
 """LARFB: block-reflector application.
 
 Counterpart of ``tileqr/kernels/larfb.py``. ``larfb_body`` is the plain
-torch body; the CUDA kernels that apply it (``csrc/chain.cu``) carry it
+torch body; the CUDA kernels that apply it (``csrc/strip.cu``) carry it
 fused into the strip sweep. ``larfb`` is the single-tile entry (tileqr's
 ``larfb``, B15): K4 (``kernels/chain.py:larfb_strip``) on a copy of C.
 """

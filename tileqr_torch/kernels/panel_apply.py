@@ -140,6 +140,40 @@ def project_plan(m: int, n: int, nb: int, mr: int, sms: int, precision: str = "h
     return ProjectPlan(tile, groups, work)
 
 
+# phase 2's C tiles (csrc/panel_apply.cu, tile_gemm.cuh): the large and the
+# small tile of the fp32 route and of the split ones; K3's stages take the
+# same tiles (kernels/chain.py:strip_plan)
+SUB_TILES = {"fp32": ((128, 128), (64, 64)), "split": ((128, 64), (64, 64))}
+
+
+class SubPlan(NamedTuple):
+    tile: Tuple[int, int]  # (C rows, C columns) a block owns
+
+
+def tiles_for(precision: str) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """(large, small) tile of the mode's route."""
+    return SUB_TILES["split" if passes_of(precision) else "fp32"]
+
+
+def tile_count(m: int, n: int, tile: Tuple[int, int], batch: int = 1) -> int:
+    """Blocks of a (m, n) output (``batch`` of them) cut into ``tile``s."""
+    return batch * -(-m // tile[0]) * -(-n // tile[1])
+
+
+def sub_plan(m: int, n: int, nb: int, sms: int, precision: str = "highest",
+             batch: int = 1) -> SubPlan:
+    """Phase 2's launch on a card of ``sms`` SMs for C (m, n) −= Y (m, nb)
+    W (nb, n) (``batch`` such products in one launch, K3's stage 3): the
+    mode's large C tile wherever its blocks fill the card at least once,
+    else the small one (late hr panels, narrow late strips), from the
+    shapes and the SM count only, so that every rank of a world picks
+    alike. The tile does not change a C entry's sum."""
+    if min(m, n, nb, sms, batch) < 1:
+        raise ValueError(f"sub_plan: m={m}, n={n}, nb={nb}, sms={sms}, batch={batch}")
+    large, small = tiles_for(precision)
+    return SubPlan(large if tile_count(m, n, large, batch) >= sms else small)
+
+
 def card_groups(y: torch.Tensor, c: torch.Tensor, mr: int, precision: str,
                 fold: bool) -> int:
     """The G phase 1 takes on the card for Y, C (``project_plan`` at the
@@ -212,10 +246,14 @@ def _launch_project(y, tm: Optional[torch.Tensor], c, mr: int, precision: str) -
 
 
 def _launch_sub(y, w, c, precision: str) -> None:
-    """Phase 2 on the card: C −= Y·W in place."""
+    """Phase 2 on the card: C −= Y·W in place, on ``sub_plan``'s tile."""
     m, nb = y.shape
-    rc = _build.lib().tq_panel_sub(y.data_ptr(), w.data_ptr(), c.data_ptr(), c.stride(0), m,
-                                   c.shape[1], nb, passes_of(precision), _build.stream())
+    n = c.shape[1]
+    if m == 0 or n == 0:
+        return
+    tm, tn = sub_plan(m, n, nb, _build.sm_count(c), precision).tile
+    rc = _build.lib().tq_panel_sub(y.data_ptr(), w.data_ptr(), c.data_ptr(), c.stride(0), m, n,
+                                   nb, tm, tn, passes_of(precision), _build.stream())
     _build.check(rc, "panel_sub")
 
 

@@ -4,7 +4,7 @@ Counterpart of ``tileqr/kernels/ssrfb.py``. ``ssrfb_body`` is the plain
 torch body: W = T2^{T?}(C_top + V2ᵀC_bot); C_top −= W; C_bot −= V2·W, the
 three products in the precision mode's product. ``ssrfb`` is the
 single-couple entry (tileqr's ``ssrfb``, B15) and the sharded strip tree's
-TTMQR: K3 (``kernels/chain.py:couple_strip``, ``csrc/chain.cu`` on a CUDA
+TTMQR: K3 (``kernels/chain.py:couple_strip``, ``csrc/strip.cu`` on a CUDA
 tensor, its plain version on a CPU tensor) with one couple of V2's rows and
 no LARFB, counted as ``ssrfb``.
 """

@@ -1,6 +1,6 @@
-"""Time the whole-panel apply's phase 1 and the batched GEQRT's paths for
-two checkouts of this repository on one card, in turns, with a hash of
-each output.
+"""Time the whole-panel apply's two phases, the strip apply K3/K4, the hh
+and hr factors and the batched GEQRT's paths for two checkouts of this
+repository on one card, in turns, with a hash of each output.
 
     python -m tileqr_torch.utils.ab_compare --parent DIR [--order parent,change,change,parent]
 
@@ -8,8 +8,12 @@ each output.
 into a directory that ``.gitignore`` lists). Each turn is a fresh process
 whose ``PYTHONPATH`` is that checkout's root (``change`` is this one), so
 each imports its own ``tileqr_torch`` and builds its own kernels. A turn
-prints, with its tag: B7a (``panel_project``) in every mode on Y 4096×256,
-C 4096×8192 (the sharded hr path's slice); B6 (``panel_apply_carry``) on
+prints, with its tag: B7a (``panel_project``) and B7b (``panel_sub``) in
+every mode on Y 4096×256, C 4096×8192 (the sharded hr path's slice); K3
+(``couple_strip``) at the hh path's panel 0 of 8192² (7 couples of 1024
+rows, 7936 columns) in every mode, and with the LARFB fused in the Q-apply
+order in "highest"; K4 (``larfb_strip``) on that strip in every mode; hh
+``qr_factor`` 8192² "highest" (a hash of its factors); B6 (``panel_apply_carry``) on
 panel 0 of a gaussian 16384² A in "highest" and "b3", with the hr panel's
 Y, T; hr ``qr_factor`` 16384² "highest" (hashes of panels 0-46, of
 panels 47-62 and of R apart); ``geqrt`` on a 256² tile (B1s); ``tsqr`` r on
@@ -79,7 +83,48 @@ def turn(tag: str) -> None:
         w = pa.panel_project(y, c, mode)
         print(f"{tag} B7a {mode}: {readings(lambda: pa.panel_project(y, c, mode), 20, 3)}, "
               f"hash {digest(w)}", flush=True)
-    del y, c, w
+    w = torch.from_numpy(rng.standard_normal((256, 8192), dtype=np.float32)).cuda()
+    for mode in ("highest", "b3", "b4", "default"):
+        out = pa.panel_sub(y, w, c.clone(), mode)
+        cw = c.clone()
+        print(f"{tag} B7b {mode}: {readings(lambda: pa.panel_sub(y, w, cw, mode), 20, 3)}, "
+              f"hash {digest(out)}", flush=True)
+    del y, c, w, out, cw
+
+    from tileqr_torch.kernels import chain, panel
+
+    n, nb = 8192, 256
+    a = torch.from_numpy(rng.standard_normal((n, n), dtype=np.float32)).cuda()
+    r, v_stack, tg, _ = panel.panel_factor(a, 0, nb, 128, 3)
+    _, v_chunks, t2 = chain.panel_chain(a, r, 0, nb, 1, 7, 4 * nb, 128)
+    for mode, rev in (("highest", False), ("highest", True), ("b3", False), ("b4", False),
+                      ("default", False)):
+        kw = dict(trans=not rev, reverse=rev, precision=mode)
+        if rev:
+            kw.update(vkk=v_stack[0], tg=tg)
+        out = a.clone()
+        chain.couple_strip(v_chunks, t2, out, out[:nb, nb:], 0, 1, 7, 4 * nb, nb, 1, **kw)
+        h = digest(out)
+        cw = a.clone()
+        ms = readings(lambda: chain.couple_strip(v_chunks, t2, cw, cw[:nb, nb:], 0, 1, 7, 4 * nb,
+                                                 nb, 1, **kw), 10, 3)
+        print(f"{tag} K3 panel 0 {mode}{' reverse fused' if rev else ''}: {ms}, hash {h}",
+              flush=True)
+        del out, cw
+    for mode in ("highest", "b3", "b4", "default"):
+        s = a[:nb, nb:].clone()
+        chain.larfb_strip(v_stack[0], tg, s, nb, precision=mode)
+        h = digest(s)
+        print(f"{tag} K4 {mode}: "
+              f"{readings(lambda: chain.larfb_strip(v_stack[0], tg, s, nb, precision=mode), 20, 3)}"
+              f", hash {h}", flush=True)
+    f = tileqr_torch.qr_factor(a)
+    h = digest(f.packed, f.r_diag, f.t_geqrt)
+    del f
+    print(f"{tag} hh qr_factor {n}² highest: {readings(lambda: tileqr_torch.qr_factor(a), 2, 3)}"
+          f", hash {h}", flush=True)
+    del a, r, v_stack, tg, v_chunks, t2, s
+    torch.cuda.empty_cache()
 
     n, nb = 16384, 256
     a = torch.from_numpy(rng.standard_normal((n, n), dtype=np.float32)).cuda()

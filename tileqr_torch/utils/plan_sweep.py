@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from tileqr_torch.kernels import _build, geqrt, panel_apply
+from tileqr_torch.kernels.chain import SLAB_COLS, StripPlan, group_rows, strip_workspace
 from tileqr_torch.kernels.modlu import (ModluPlan, modlu_panel_width, modlu_plan,
                                         modlu_smem_bytes, modified_lu_plain)
 from tileqr_torch.kernels.panel import (CLUSTER_SIZES, SMEM_LIMIT, ClusterPlan, cluster_plan,
@@ -131,6 +132,43 @@ def project_at(y: torch.Tensor, tm, c: torch.Tensor, mr: int, precision: str,
         work.data_ptr(), groups, panel_apply.passes_of(precision), _build.stream()),
         "panel_project")
     return w
+
+
+def sub_at(y: torch.Tensor, w: torch.Tensor, c: torch.Tensor, precision: str,
+           tile: Tuple[int, int]) -> torch.Tensor:
+    """One phase-2 launch (``tq_panel_sub``) on C tiles of ``tile``: C −= Y·W
+    in place on any (m, n) view c with unit column stride (Y (m, nb) and W
+    (nb, n) contiguous)."""
+    m, nb = y.shape
+    _build.check(_build.lib().tq_panel_sub(
+        y.data_ptr(), w.data_ptr(), c.data_ptr(), c.stride(0), m, c.shape[1], nb, *tile,
+        panel_apply.passes_of(precision), _build.stream()), "panel_sub")
+    return c
+
+
+def strip_at(v_stack, t2_stack, c, strip, stack_base: int, base_block: int, n_chunks: int,
+             block_rows: int, nb: int, col_start: int, trans: bool, reverse: bool, vkk, tg,
+             precision: str, plan: StripPlan):
+    """One K3 call (``tq_couple_strip``) at ``plan`` (tiles and G of any
+    ``strip_plan``), in place on (c, strip)."""
+    work = c.new_empty(plan.workspace)
+    _build.check(_build.lib().tq_couple_strip(
+        v_stack.data_ptr(), t2_stack.data_ptr(), c.data_ptr(), c.stride(0), strip.data_ptr(),
+        strip.stride(0), strip.shape[1], stack_base, base_block, n_chunks, block_rows, nb,
+        col_start, int(trans), int(reverse), _build.ptr(vkk), _build.ptr(tg),
+        panel_apply.passes_of(precision), work.data_ptr(), *plan.proj_tile, plan.groups,
+        *plan.sub_tile, _build.stream()), "couple_strip")
+    return c, strip
+
+
+def strip_plan_at(nb: int, width: int, rows: int, couples: int, precision: str,
+                  proj_tile: Tuple[int, int], groups: int, sub_tile: Tuple[int, int],
+                  fused: bool) -> StripPlan:
+    """K3's plan with the given tiles and G (G cut to its non-empty groups)."""
+    gr = group_rows(rows, groups)
+    groups = -(-rows // gr)
+    return StripPlan(proj_tile, groups, gr, sub_tile, SLAB_COLS,
+                     strip_workspace(nb, width, couples, groups, fused))
 
 
 def rel(x: torch.Tensor, y: torch.Tensor) -> float:
@@ -230,7 +268,70 @@ def sweep_project(label: str, m: int, nb: int, n: int, mr: int, modes, fold: boo
     torch.cuda.empty_cache()
 
 
-SWEEPS = ("modlu", "ttqrt", "geqrt", "project")
+def sweep_sub(label: str, m: int, n: int, nb: int, modes, reps: int, repeat: int) -> None:
+    """Phase 2 (C −= Y·W) on each tile of each mode, beside fp32 addmm."""
+    rng = np.random.default_rng(m + n + nb)
+    y = torch.from_numpy(rng.standard_normal((m, nb), dtype=np.float32)).cuda() / nb ** 0.5
+    w = torch.from_numpy(rng.standard_normal((nb, n), dtype=np.float32)).cuda()
+    c0 = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32)).cuda()
+    lib = timed(lambda: torch.addmm(c0, y, w, alpha=-1.0), reps, repeat)
+    print(f"sub {label}: Y ({m}, {nb}), C ({m}, {n}); fp32 torch.addmm {fmt(lib)}")
+    c = c0.clone()
+    for mode in modes:
+        plan = panel_apply.sub_plan(m, n, nb, _build.sm_count(c), mode)
+        want = c0 - panel_apply.dot(y, w, mode)
+        for tile in panel_apply.tiles_for(mode):
+            got = sub_at(y, w, c0.clone(), mode, tile)
+            ms = timed(lambda: sub_at(y, w, c, mode, tile), reps, repeat)
+            pick = " (the wrappers' plan)" if tile == plan.tile else ""
+            print(f"sub {label} {mode} tile {tile}{pick}: {fmt(ms)}, rel {rel(got, want):.3e}")
+        del want
+    del y, w, c0, c
+    torch.cuda.empty_cache()
+
+
+def sweep_strip(label: str, nb: int, width: int, rows: int, couples: int, modes, reps: int,
+                repeat: int) -> None:
+    """K3 (forward, trans, no LARFB) at each stage-1 tile and G, beside the
+    plan the wrapper picks; stage 3 on the plan's tile."""
+    from tileqr_torch.kernels import chain
+
+    rng = np.random.default_rng(nb + width + rows)
+    v = torch.from_numpy(rng.standard_normal((couples, rows, nb), dtype=np.float32)).cuda()
+    v /= rows ** 0.5
+    t2 = torch.from_numpy(np.triu(rng.standard_normal((couples, nb, nb), dtype=np.float32)))
+    t2 = t2.cuda() / nb
+    c0 = torch.from_numpy(rng.standard_normal(((1 + couples) * rows, width + nb),
+                                              dtype=np.float32)).cuda()
+    args = (v, t2)
+    geo = (0, 1, couples, rows, nb, 1, True, False, None, None)
+    sms = _build.sm_count(c0)
+    for mode in modes:
+        plan = chain.strip_plan(nb, width, rows, couples, sms, mode)
+        print(f"strip {label} {mode}: nb {nb}, width {width}, {couples} couples of {rows} "
+              f"rows; the wrappers' plan {plan}")
+        for tile in panel_apply.tiles_for(mode):
+            for g in (1, 2, 4, 8):
+                if g > 1 and rows // g < chain.GROUP_MIN_ROWS:
+                    continue
+                p = strip_plan_at(nb, width, rows, couples, mode, tile, g, plan.sub_tile, False)
+                if p.groups != g:
+                    continue
+                c = c0.clone()
+                got = strip_at(*args, c, c[:nb, nb:], *geo, mode, p)
+                want = c0.clone()
+                chain.couple_strip_plain(*args, want, want[:nb, nb:], *geo, mode, groups=g)
+                c = c0.clone()
+                ms = timed(lambda: strip_at(*args, c, c[:nb, nb:], *geo, mode, p), reps, repeat)
+                pick = " (the wrappers' plan)" if (tile, g) == (plan.proj_tile, plan.groups) else ""
+                print(f"strip {label} {mode} tile {tile} G={g}{pick}: {fmt(ms)}, "
+                      f"rel {rel(got[0], want):.3e}")
+                del got, want, c
+    del v, t2, c0
+    torch.cuda.empty_cache()
+
+
+SWEEPS = ("modlu", "ttqrt", "geqrt", "project", "sub", "strip")
 
 
 def main() -> int:
@@ -247,6 +348,7 @@ def main() -> int:
     print(card.strip().splitlines()[0])
     torch.backends.cuda.matmul.allow_tf32 = False
     reps, repeat = args.reps, args.repeat
+    every = ("highest",) + _build.EMULATED_MODES
     if "modlu" in args.only:
         for nb in (256, 512):
             sweep_modlu(nb, reps, repeat)
@@ -257,13 +359,23 @@ def main() -> int:
         for b, rows in ((32, 2048), (8, 2048), (2, 2048), (1, 1024)):
             sweep_geqrt(b, rows, 512, 128, reps, repeat)
     if "project" in args.only:
-        every = ("highest",) + _build.EMULATED_MODES
         sweep_project("B7a", 4096, 256, 8192, 512, every, False, reps, repeat)
         sweep_project("B6 panel 0", 16384, 256, 16128, 512, every, True, max(1, reps // 10),
                       repeat)
         sweep_project("B6 panel 48", 4096, 256, 3840, 512, every, True, reps, repeat)
         sweep_project("tsqr factor B7", 1048576, 512, 512, 1024, ("b3",), True,
                       max(1, reps // 25), repeat)
+    if "sub" in args.only:
+        sweep_sub("B7b", 4096, 8192, 256, every, reps, repeat)
+        sweep_sub("B6 panel 0", 16384, 16128, 256, ("highest", "b3"), max(1, reps // 10),
+                  repeat)
+        sweep_sub("B6 panel 60", 1024, 768, 256, ("highest", "b3"), reps, repeat)
+        sweep_sub("tsqr factor B7", 1048576, 512, 512, ("b3",), max(1, reps // 25), repeat)
+    if "strip" in args.only:
+        sweep_strip("hh panel 0", 256, 7936, 1024, 7, every, reps, repeat)
+        sweep_strip("hh panel 27", 256, 1024, 1024, 1, ("highest", "b3"), reps, repeat)
+        sweep_strip("hh panel 29", 256, 512, 256, 2, ("highest", "b3"), reps, repeat)
+        sweep_strip("B14", 256, 8448, 256, 16, ("highest",), reps, repeat)
     return 0
 
 

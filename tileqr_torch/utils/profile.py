@@ -47,15 +47,16 @@ import torch
 OWN = {
     "panel_factor_kernel": "panel_factor",
     "panel_chain_kernel": "panel_chain",
-    "couple_strip_kernel": "couple_strip",
-    "larfb_strip_kernel": "larfb_strip",
+    "proj_f32_kernel": "couple_strip (K3 stage 1, projections)",
+    "proj_wg_kernel": "couple_strip (K3 stage 1, projections, split product)",
+    "chain_kernel": "couple_strip/larfb_strip (K3 stage 2 and K4, the chain)",
     "modlu_kernel": "modified_lu",
     "potrf_kernel": "potrf_batched",
     "project_f32_kernel": "panel apply B6/B7/B7a (phase 1)",
     "project_wg_kernel": "panel apply B6/B7/B7a (phase 1, split product)",
     "combine_kernel": "panel apply B6/B7 (phase 1's groups combined, op(T) folded in)",
-    "apply_kernel": "panel apply B6/B7/B7b (phase 2)",
-    "sub_bx_kernel": "panel apply B6/B7/B7b (phase 2, split product)",
+    "sub_f32_kernel": "C -= Y W: B6/B7/B7b phase 2 and K3 stage 3",
+    "sub_wg_kernel": "C -= Y W: B6/B7/B7b phase 2 and K3 stage 3 (split product)",
     "geqrt_batched_kernel": "geqrt_batched",
     "geqrt_cluster_kernel": "geqrt_batched (cluster route)",
     "Memcpy": "copies (Memcpy)",
