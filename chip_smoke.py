@@ -38,9 +38,11 @@ use (one nvcc per source, in parallel), then:
    so it applies the same Qᵀ); B6's three-matmul chain is timed beside it,
    and its two phases apart, each with its plan (``project_plan``'s G,
    ``sub_plan``'s tile);
-   B8's rerun must be bitwise equal, and its cluster is printed beside its
-   time (``modlu_plan``: CTAs, panel width, shared bytes per CTA, whether
-   the block is resident in shared memory);
+   B8's and B9's reruns must be bitwise equal (B9's R zero below its
+   diagonal), and their clusters are printed beside their times
+   (``modlu_plan``: CTAs, panel width, shared bytes per CTA, whether the
+   block is resident in shared memory; ``potrf_plan``: CTAs a matrix,
+   shared bytes, whether the 16-row blocks are resident);
 5. runs ``tileqr_torch.qr`` with ``square_method="hr"`` at 16384² (64
    panels) and checks the same metrics, that the health is ≤ hr_guard_tau
    with no guard warning, that B6, B8, B9 and B7 (``orgqr``'s windows
@@ -72,9 +74,10 @@ use (one nvcc per source, in parallel), then:
    cholqr2 → ``HRFactors``): health ≤ hr_guard_tau with no guard warning,
    B9 and B8 launched at n = 512, the relerr with Qᵀ applied in float64
    ≤ 1e-6, and the fp32 ``apply_q`` relerr printed (held to 3e-6 when above
-   1e-6, as for hr); B8 at nb = 512 on that panel's Q_top against its
-   plain version (d bitwise equal), rerun bitwise, and timed beside its
-   plain version, its bound and ``lu_factor``, with its cluster; ``apply_q`` in "b3" of those factors to A, with the
+   1e-6, as for hr); B9 on that panel's gram (1, 512, 512) and B8 at
+   nb = 512 on its Q_top against their plain versions (d bitwise equal),
+   rerun bitwise, and timed beside their plain versions, bounds,
+   ``torch.linalg.cholesky`` and ``lu_factor``, with their clusters; ``apply_q`` in "b3" of those factors to A, with the
    counts set to 0 just before and read just after (nb = 512: one launch
    of B7's split instantiation, no plain version; relerr ≤ 1e-4), and B7
    at that shape against its b3 and "highest" plain versions summed in the
@@ -83,17 +86,22 @@ use (one nvcc per source, in parallel), then:
    ``tsqr`` r (tree), factor (cholqr2), factor + ``apply_q`` on 16 columns
    and ``torch.linalg.qr(mode="r")``;
 8. the batched path at BASELINE config 4, a (4096, 128, 128) gaussian
-   stack with the default QRConfig: holds the kernel against its plain
-   version at ib = 32 (``qr_batched``'s width) and ib = 128, and ``geqrt``
-   on one 256² tile (B1s: the cluster route; rerun bitwise), each timed
-   beside ``torch.geqrf`` (B1s also beside the one-block kernel); runs ``qr_batched(a)`` with the counts set to 0 just
-   before and read just after (one kernel launch, no plain version) and
+   stack with the default QRConfig: holds the small route (B11 at ib = 32,
+   ``qr_batched``'s width, and B16 at ib = 128; the route, its threads,
+   shared bytes and CTAs an SM printed) against its plain version, rerun
+   bitwise, each ib block's T against ``t_from_gram`` of the kernel's own
+   reflectors, and ``geqrt`` on one 256² tile (B1s: the cluster route;
+   rerun bitwise), each timed beside ``torch.geqrf`` (B1s also beside the
+   one-block kernel); runs ``qr_batched(a)`` with the counts set to 0 just
+   before and read just after (one small-route launch, no plain version) and
    checks the max over the batch of ‖A − QR‖F/‖A‖F ≤ 1e-6 and of
    ‖QᵀQ − I‖F ≤ 1e-3 and bitwise reruns; with
    ``batched_method="cholqr2"`` the guard must trip on the gaussian stack
    (its ill-conditioned tail) and the fallback meet the same gates, and on
    a well-conditioned stack (G + 4·√128·I) must not trip: health ≤ tau,
-   one B9 launch, no GEQRT launch, the same gates; times both methods
+   one B9 launch, no GEQRT launch, the same gates; B9 on that stack's gram
+   (4096, 128, 128: a CTA a matrix) against its plain version, rerun
+   bitwise, timed beside ``torch.linalg.cholesky``; times both methods
    beside ``torch.linalg.qr`` on the stack;
 9. the emulated precisions "b3", "b4" and "default" (bf16 split products
    on the tensor cores, ``csrc/tile_gemm.cuh``): K3 and K4 at phase 1's
@@ -191,7 +199,8 @@ import warnings
 import numpy as np
 import torch
 
-from tileqr_torch.kernels._build import EMULATED_MODES, MODE_KERNELS, SHARDED_HR_KERNELS
+from tileqr_torch.kernels._build import (EMULATED_MODES, MODE_KERNELS, SHARDED_HR_KERNELS,
+                                         TS_KERNELS)
 from tileqr_torch.kernels.common import counter_key, passes_of
 
 NB, IB, CHUNK = 256, 128, 4
@@ -251,14 +260,19 @@ KERNEL_INFO = {
     "potrf_batched": ("tileqr_torch/csrc/potrf.cu", "tileqr/drivers/cholqr.py:203"),
     "panel_apply_carry": ("tileqr_torch/csrc/panel_apply.cu + tileqr_torch/csrc/tile_gemm.cuh",
                           "tileqr/kernels/panel_apply.py:227"),
-    "geqrt_batched": ("tileqr_torch/csrc/geqrt_batched.cu",
-                      "tileqr/drivers/tsqr.py:217, tileqr/drivers/batched.py:167, "
-                      "tileqr/drivers/batched.py:41, tileqr/kernels/geqrt.py:225"),
+    # the batched GEQRT's one-block kernel: tall tiles in global memory (the
+    # tsqr leaves and the tree's level of 128 stacks)
+    "geqrt_batched": ("tileqr_torch/csrc/geqrt_batched.cu + tileqr_torch/csrc/geqrt.cuh",
+                      "tileqr/drivers/tsqr.py:217"),
     # the batched GEQRT's cluster route: small stacks (the tsqr tree's
     # levels of 32, 8, 2, 1 matrices; B1s), one thread-block cluster a matrix
     "geqrt_batched[cluster]": ("tileqr_torch/csrc/geqrt_batched.cu + "
                                "tileqr_torch/csrc/geqrt_cluster.cuh",
                                "tileqr/drivers/tsqr.py:217, tileqr/kernels/geqrt.py:225"),
+    # its small route: a matrix a CTA, several an SM (qr_batched's stacks:
+    # B11 at ib 32 on the path, B16 at ib 128)
+    "geqrt_batched[small]": ("tileqr_torch/csrc/geqrt_small.cu",
+                             "tileqr/drivers/batched.py:167, tileqr/drivers/batched.py:41"),
     "panel_apply": ("tileqr_torch/csrc/panel_apply.cu + tileqr_torch/csrc/tile_gemm.cuh",
                     "tileqr/kernels/panel_apply.py:112"),
     "ttqrt": ("tileqr_torch/csrc/ttqrt.cu", "tileqr/kernels/ttqrt.py:68"),
@@ -753,8 +767,7 @@ def phase4(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
     g, q_top = parts["gram"], parts["q_top"]
     del parts
 
-    rec.compare("potrf_batched", "panel 0 gram (1, 256, 256)",
-                [potrf.potrf_batched(g)], [potrf.potrf_batched_plain(g)])
+    check_potrf(g, rec, "panel 0 gram (1, 256, 256)")
     shifted = check_modlu(q_top, rec, f"panel 0 Q_top ({NB}, {NB})")
 
     n = a.shape[0]
@@ -831,6 +844,30 @@ def phase4(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
     print_modlu_plan(NB)
 
 
+def check_potrf(g: torch.Tensor, rec: KernelRecord, label: str) -> None:
+    """B9 on g against its plain version (the same per-entry operations),
+    zeros below the diagonal, rerun bitwise; prints its cluster."""
+    from tileqr_torch.kernels import potrf
+
+    got, want = potrf.potrf_batched(g), potrf.potrf_batched_plain(g)
+    rec.compare("potrf_batched", label, [got], [want])
+    same = torch.equal(got, potrf.potrf_batched(g))
+    print(f"kernel potrf_batched {label}: rerun bitwise equal: {same}, "
+          f"zeros below the diagonal: {not bool(torch.tril(got, -1).any())}")
+    require(same and not torch.tril(got, -1).any(), f"potrf_batched reruns or zeros ({label})")
+    b, n, _ = g.shape
+    plan = potrf.potrf_plan(b, n, torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"cluster potrf_batched ({b}, {n}, {n}): C={plan.ctas} CTAs a matrix, blocks of 16 rows "
+          f"dealt cyclically, {plan.smem_bytes} shared bytes per CTA, blocks resident in shared "
+          f"memory: {plan.resident}")
+
+
+def potrf_bound(b: int, n: int):
+    """(ms, binds) of B9 on a (b, n, n) stack: n³/3 FMA-pairs each, read G,
+    write R."""
+    return KernelRecord.bound_of(b * n ** 3 / 3.0, 4.0 * 2 * b * n * n)
+
+
 def check_modlu(q_top: torch.Tensor, rec: KernelRecord, label: str) -> torch.Tensor:
     """B8 on q_top against its plain version (d bitwise equal), rerun
     bitwise; returns Q_top − diag(d), the input of its library call."""
@@ -864,15 +901,25 @@ def print_modlu_plan(nb: int) -> None:
 
 
 def modlu_nb512(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
-    """B8 on the tsqr factor's one panel's Q_top (nb = 512), as
-    ``hr_panel`` hands it over: against its plain version, timed beside it,
-    its bound and ``lu_factor``."""
+    """B9 on the tsqr factor's one panel's gram and B8 on its Q_top (nb =
+    512), as ``hr_panel`` hands them over: against their plain versions,
+    timed beside them, their bounds and ``torch.linalg.cholesky`` and
+    ``lu_factor``."""
     from tileqr_torch.drivers import square_hr
     from tileqr_torch.kernels import modlu
 
+    from tileqr_torch.kernels import potrf
+
     with square_hr._highest():
-        q_top = square_hr.hr_panel_parts(a)["q_top"]
+        parts = square_hr.hr_panel_parts(a)
+        q_top, g = parts["q_top"], parts["gram"]
+        del parts
         nb = q_top.shape[0]
+        check_potrf(g, rec, f"tsqr factor gram (1, {nb}, {nb})")
+        rec.time("potrf_batched", lambda: potrf.potrf_batched(g),
+                 lambda: potrf.potrf_batched_plain(g),
+                 lambda: torch.linalg.cholesky(g, upper=True), 20, 1, card,
+                 label=f"(1, {nb}, {nb}) (tsqr cholqr2 factor's gram)", bound=potrf_bound(1, nb))
         shifted = check_modlu(q_top, rec, f"tsqr factor Q_top ({nb}, {nb})")
         rec.time("modified_lu", lambda: modlu.modified_lu(q_top),
                  lambda: modlu.modified_lu_plain(q_top),
@@ -917,16 +964,12 @@ def geqrt_bound(b: int, m: int, n: int):
     return KernelRecord.bound_of(b * geqrf_flops(m, n), 4.0 * b * (2 * m * n + n * n))
 
 
-# the batched GEQRT's two launch counters: its one-block kernel, its cluster route
-TS_ROUTES = ("geqrt_batched", "geqrt_batched[cluster]")
-
-
 def geqrt_route(b: int, m: int, n: int, ib: int = IB) -> str:
     """The counter of the route the wrapper takes for a (b, m, n) stack."""
     from tileqr_torch.kernels import geqrt
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return TS_ROUTES[int(geqrt.batched_cluster_plan(b, m, n, ib, sms).ctas > 1)]
+    return geqrt.ROUTE_KEYS[geqrt.batched_plan(b, m, n, ib, sms).route]
 
 
 def tree_levels(rec: KernelRecord, rs: torch.Tensor, p: int, n: int, lr: int, card: str) -> list:
@@ -943,14 +986,14 @@ def tree_levels(rec: KernelRecord, rs: torch.Tensor, p: int, n: int, lr: int, ca
     routes = []
     for ncomb, a_l, _, rem in dtsqr._tree_plan(p, n, lr, 8):
         stack = rs[: ncomb * a_l].reshape(ncomb, a_l * n, n)
-        plan = geqrt.batched_cluster_plan(ncomb, a_l * n, n, IB, sms)
-        key = TS_ROUTES[int(plan.ctas > 1)]
+        plan = geqrt.batched_plan(ncomb, a_l * n, n, IB, sms)
+        key = geqrt.ROUTE_KEYS[plan.route]
         routes.append(key)
         label = f"tsqr level {tuple(stack.shape)} ib={IB} C={plan.ctas}"
         got = geqrt.geqrt_batched(stack, IB)
         rec.compare(key, label, got, geqrt.geqrt_batched_plain(stack, IB))
         bound = geqrt_bound(ncomb, a_l * n, n)
-        if key == TS_ROUTES[1] and ncomb == 32:
+        if plan.route == "cluster" and ncomb == 32:
             rec.bound[key] = bound
             rec.time(key, lambda: geqrt.geqrt_batched(stack, IB),
                      lambda: geqrt.geqrt_batched_plain(stack, IB), lambda: torch.geqrf(stack),
@@ -959,7 +1002,7 @@ def tree_levels(rec: KernelRecord, rs: torch.Tensor, p: int, n: int, lr: int, ca
             rec.time(key, lambda: geqrt.geqrt_batched(stack, IB),
                      lambda: geqrt.geqrt_batched_plain(stack, IB), lambda: torch.geqrf(stack),
                      3, 1, card, label=label, bound=bound)
-        if key == TS_ROUTES[1]:
+        if plan.route == "cluster":
             print(f"time geqrt_batched {label}: the one-block kernel on the same stack "
                   f"{cuda_ms(lambda: geqrt_at(stack, IB, 1), 2):.4f} ms [{card}]")
         rnew = torch.triu(got[0][:, :n])
@@ -1065,9 +1108,9 @@ def phase7(rec: KernelRecord, rng, card: str):
     # the path: tsqr r (auto → tree): the leaves and every level, each on
     # the route its plan picks
     route_of = geqrt_route(p, lr, n)
-    expect = {k: ([route_of] + routes).count(k) for k in TS_ROUTES}
+    expect = {k: ([route_of] + routes).count(k) for k in TS_KERNELS}
     r, launches = run_counted(lambda: tileqr_torch.tsqr(a, "r", cfg),
-                              tuple(k for k in TS_ROUTES if expect[k]), expect,
+                              tuple(k for k in TS_KERNELS if expect[k]), expect,
                               "tsqr r (auto → tree)")
     require(tuple(r.shape) == (n, n) and bool(torch.isfinite(r).all()), "tsqr R shape/finite")
     same = torch.equal(r, tileqr_torch.tsqr(a, "r", cfg))
@@ -1133,7 +1176,7 @@ def phase7(rec: KernelRecord, rng, card: str):
         print(f"{label} {m}x{n}: {t:.3f} ms, {flops / t / 1e9:.3f} TFLOP/s [{card}]")
     del a, leaves, c16
     torch.cuda.empty_cache()
-    return {k: launches[k] for k in TS_ROUTES}, b7_launches
+    return {k: launches[k] for k in TS_KERNELS}, b7_launches
 
 
 def batched_gates(a: torch.Tensor, q: torch.Tensor, r: torch.Tensor, what: str, card: str):
@@ -1147,22 +1190,50 @@ def batched_gates(a: torch.Tensor, q: torch.Tensor, r: torch.Tensor, what: str, 
 
 
 def phase8(rec: KernelRecord, rng, card: str) -> int:
-    """The batched path at config 4; returns the kernel's launches in its
-    ``qr_batched`` run."""
+    """The batched path at config 4; returns the small route's launches in
+    its ``qr_batched`` run."""
     import tileqr_torch
     from tileqr_torch.drivers import cholqr
-    from tileqr_torch.kernels import geqrt
+    from tileqr_torch.kernels import _build, geqrt, potrf
     from tileqr_torch.utils.plan_sweep import geqrt_at
 
     b, n = B_BA, N_BA
     hh = tileqr_torch.QRConfig()
     a = torch.from_numpy(rng.standard_normal((b, n, n), dtype=np.float32)).cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # B11 (ib 32, the path's) and B16 (ib 128) on the small route, a CTA a
+    # matrix: against the plain version, rerun bitwise, each block's T
+    # against the recurrence (t_from_gram) on the kernel's own reflectors
+    rec.bound["geqrt_batched[small]"] = geqrt_bound(b, n, n)
     for ib in (hh.batched_ib, IB):
-        rec.compare("geqrt_batched", f"batch ({b}, {n}, {n}) ib={ib}",
-                    geqrt.geqrt_batched(a, ib), geqrt.geqrt_batched_plain(a, ib))
-        rec.time("geqrt_batched", lambda: geqrt.geqrt_batched(a, ib),
+        plan = geqrt.batched_plan(b, n, n, ib, sms)
+        key = geqrt.ROUTE_KEYS[plan.route]
+        label = f"batch ({b}, {n}, {n}) ib={ib}"
+        print(f"route geqrt_batched {label}: {plan.route} ({key}), {plan.threads} threads a CTA, "
+              f"{plan.smem_bytes} shared bytes, "
+              f"{_build.lib().tq_geqrt_small_per_sm(n, n, ib, plan.threads)} CTAs an SM")
+        require(key == "geqrt_batched[small]", f"{label} takes the {plan.route} route")
+        got = geqrt.geqrt_batched(a, ib)
+        rec.compare(key, label, got, geqrt.geqrt_batched_plain(a, ib))
+        same = all(torch.equal(x, y) for x, y in zip(got, geqrt.geqrt_batched(a, ib)))
+        print(f"kernel {key} {label}: rerun bitwise equal: {same}")
+        require(same, f"{key} reruns differ ({label})")
+        v = (torch.tril(got[0], -1) + torch.eye(n, device=a.device)).double()
+        worst = 0.0
+        for s0 in range(0, n, ib):
+            e0 = min(s0 + ib, n)
+            vb = v[:, :, s0:e0]
+            tau = torch.diagonal(got[1][:, s0:e0, s0:e0], dim1=1, dim2=2).double()
+            worst = max(worst, rel(got[1][:, s0:e0, s0:e0],
+                                   geqrt.t_from_gram(vb.transpose(1, 2) @ vb, tau)))
+        print(f"kernel {key} {label}: T blocks vs t_from_gram of its reflectors: "
+              f"rel_fro={worst:.3e}")
+        require(worst <= TOL_KERNEL, f"{key} T blocks differ from the recurrence: {worst:.3e}")
+        del got, v
+        kw = {} if ib == hh.batched_ib else {"label": label, "bound": geqrt_bound(b, n, n)}
+        rec.time(key, lambda: geqrt.geqrt_batched(a, ib),
                  lambda: geqrt.geqrt_batched_plain(a, ib), lambda: torch.geqrf(a),
-                 5, 1, card, label=f"batch ({b}, {n}, {n}) ib={ib}", bound=geqrt_bound(b, n, n))
+                 5, 1, card, **kw)
     # B1s: geqrt on one 256² tile, the B = 1 stack (the cluster route where
     # its plan takes one), timed beside the one-block kernel on the same tile
     tile = torch.from_numpy(rng.standard_normal((2 * n, 2 * n), dtype=np.float32)).cuda()
@@ -1180,7 +1251,7 @@ def phase8(rec: KernelRecord, rng, card: str) -> int:
           f"{cuda_ms(lambda: geqrt_at(tile[None], IB, 1), 10):.4f} ms [{card}]")
 
     (q, r), launches = run_counted(lambda: tileqr_torch.qr_batched(a, config=hh),
-                                   ("geqrt_batched",), {"geqrt_batched": 1},
+                                   ("geqrt_batched[small]",), {"geqrt_batched[small]": 1},
                                    "qr_batched (hh)")
     batched_gates(a, q, r, f"qr_batched hh ({b}, {n}, {n})", card)
     q2, r2 = tileqr_torch.qr_batched(a, config=hh)
@@ -1204,6 +1275,17 @@ def phase8(rec: KernelRecord, rng, card: str) -> int:
     h = float(cholqr.cholqr2_batched(wc, mode="r", stats=True)[1])
     print(f"cholqr2 on G + 4*sqrt({n})*I: health {h:.3e} (tau {ch.hr_guard_tau})")
     require(h <= ch.hr_guard_tau, f"well-conditioned stack health {h:.3e}")
+    # B9 on that stack's gram, as cholqr2_batched hands it over: C = 1, a
+    # matrix a CTA
+    with cholqr._highest():
+        g = cholqr.bdot_pair_rows(wc, wc)
+    check_potrf(g, rec, f"qr_batched cholqr2 gram ({b}, {n}, {n})")
+    with cholqr._highest():
+        rec.time("potrf_batched", lambda: potrf.potrf_batched(g),
+                 lambda: potrf.potrf_batched_plain(g),
+                 lambda: torch.linalg.cholesky(g, upper=True), 10, 1, card,
+                 label=f"({b}, {n}, {n}) (qr_batched cholqr2 gram)", bound=potrf_bound(b, n))
+    del g
     (q, r), _ = run_counted(lambda: tileqr_torch.qr_batched(wc, config=ch), ("potrf_batched",),
                             {"potrf_batched": 1}, "qr_batched (cholqr2, well-conditioned)")
     batched_gates(wc, q, r, "qr_batched cholqr2 (well-conditioned)", card)
@@ -1222,7 +1304,7 @@ def phase8(rec: KernelRecord, rng, card: str) -> int:
         print(f"{label} ({b}, {n}, {n}): {t:.3f} ms, {flops / t / 1e9:.3f} TFLOP/s [{card}]")
     del a, wc, tile
     torch.cuda.empty_cache()
-    return launches["geqrt_batched"]
+    return launches["geqrt_batched[small]"]
 
 
 def panel_pair(a: torch.Tensor, k: int):
@@ -1986,7 +2068,7 @@ def main() -> int:
     ba = phase8(rec, rng, card)
     print(f"geqrt_batched launches: {ts} in tsqr r, {ba} in qr_batched")
     launches.update(ts)
-    launches["geqrt_batched"] += ba
+    launches["geqrt_batched[small]"] += ba
 
     # the emulated precisions on both square paths
     launches.update(phase9(rec, rng, card))

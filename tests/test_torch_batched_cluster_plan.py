@@ -126,3 +126,58 @@ def test_plain_version_at_a_cluster_shape_matches_tileqr(dt, tol):
     for g, w in zip(got, want):
         w = np.asarray(w, np.float64)
         assert np.linalg.norm(g.numpy() - w) / np.linalg.norm(w) <= tol
+
+
+# ---- the three routes (batched_plan): small, cluster, one-block global ----
+
+# (b, m, n, ib) → (route, C)
+ROUTE_CASES = {
+    "b11-4096x128-ib32": ((4096, 128, 128, 32), ("small", 1)),
+    "b16-4096x128-ib128": ((4096, 128, 128, 128), ("small", 1)),
+    "tsqr-leaves": ((512, 2048, 512, 128), ("global", 1)),
+    "tsqr-level-128": ((128, 2048, 512, 128), ("global", 1)),
+    "tsqr-level-32": ((32, 2048, 512, 128), ("cluster", 4)),
+    "b1s-256": ((1, 256, 256, 128), ("cluster", 8)),
+    "wide-small": ((3, 32, 48, 16), ("small", 1)),
+    "wide-large": ((2, 300, 400, 32), ("global", 1)),
+    # both routes take it: the small route (a matrix a CTA) is picked
+    "64x128-ib32": ((64, 128, 128, 32), ("small", 1)),
+    "n8-leaves": ((2, 131072, 8, 8), ("cluster", 16)),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES), ids=str)
+def test_batched_plan_routes(case):
+    (b, m, n, ib), (route, ctas) = ROUTE_CASES[case]
+    plan = geqrt.batched_plan(b, m, n, ib, H100_SMS)
+    assert (plan.route, plan.ctas) == (route, ctas)
+    if route == "small":
+        assert plan.smem_bytes == geqrt.small_smem_bytes(m, n, ib)
+        assert plan.threads == (512 if m >= n and ib >= n else 256)
+    elif route == "cluster":
+        assert plan[1:5] == geqrt.batched_cluster_plan(b, m, n, ib, H100_SMS)
+    else:
+        assert plan.smem_bytes == 0 and plan.threads == geqrt.GLOBAL_THREADS
+
+
+@pytest.mark.parametrize("n", [8, 40, 128, 159, 226])
+def test_batched_plan_small_is_the_shared_memory_shapes(n):
+    """The small route takes exactly the shapes whose tile, T and reflector
+    fit 200 KiB (4(mn + n² + m)), whatever b and the SM count; the others
+    go to the cluster or the one-block kernel as batched_cluster_plan says."""
+    for m in (1, n // 2 + 1, n, 2 * n, 8 * n):
+        for b in (1, 7, 4096):
+            for sms in (16, 132):
+                plan = geqrt.batched_plan(b, m, n, 32, sms)
+                small = 4 * (m * n + n * n + m) <= 200 * 1024
+                assert (plan.route == "small") == small
+                if not small:
+                    c = geqrt.batched_cluster_plan(b, m, n, 32, sms).ctas
+                    assert plan.route == ("cluster" if c > 1 else "global")
+
+
+@pytest.mark.parametrize("args", [(0, 8, 8, 8, 132), (1, 8, 8, 0, 132), (1, 8, 8, 8, 0)],
+                         ids=["no-batch", "no-ib", "no-sms"])
+def test_batched_plan_raises(args):
+    with pytest.raises(ValueError, match="batched_plan"):
+        geqrt.batched_plan(*args)

@@ -211,6 +211,48 @@ def test_potrf_and_modlu_match_plain(cuda, nb):
     assert rel(lu, lu_p) <= TOL and torch.equal(d, d_p)
 
 
+# B9 as a blocked Cholesky on a thread-block cluster a matrix (csrc/potrf.cu),
+# (B, n) at the plan's C: n = 16 on one CTA, 100 on 2 (a last block of 4
+# rows), 256 on 4, 512 on 8, 768 on 16, for one matrix and for three; a
+# stack of 4096 on one CTA a matrix
+POTRF_CASES = [(1, 16), (3, 16), (4096, 16), (1, 100), (3, 100), (4096, 100), (1, 256),
+               (3, 256), (4096, 256), (1, 512), (3, 512), (1, 768), (3, 768)]
+
+
+@pytest.mark.parametrize("b,n", POTRF_CASES, ids=str)
+def test_potrf_cluster_matches_plain(cuda, b, n):
+    """B9 on its plan's cluster against the plain version (the same
+    per-entry operations, so far inside TOL), zeros below the diagonal,
+    reruns bitwise equal, one launch."""
+    x = torch.from_numpy(np.random.default_rng(n + b).standard_normal(
+        (b, 2 * n, n), dtype=np.float32)).to(cuda)
+    g = x.transpose(1, 2) @ x
+    del x
+    _build.reset_counts()
+    got = potrf.potrf_batched(g)
+    again = potrf.potrf_batched(g)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["potrf_batched"] == 2 and sum(_build.LAUNCHES.values()) == 2
+    assert torch.equal(got, again)
+    assert not torch.tril(got, -1).any()
+    assert rel(got, potrf.potrf_batched_plain(g)) <= TOL
+
+
+def test_potrf_singular_gram_is_not_an_exception(cuda):
+    """A singular G (zero, and rank-deficient): the clamped pivot gives huge
+    or non-finite rows (or, on a zero G, zeros) where the plain version
+    does, and no raise."""
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 40, 256), dtype=np.float32)).to(cuda)
+    for g in (torch.zeros((1, 256, 256), device=cuda), x.transpose(1, 2) @ x):
+        got = potrf.potrf_batched(g)
+        want = potrf.potrf_batched_plain(g)
+        torch.cuda.synchronize()
+        broken = lambda r: bool((~torch.isfinite(r)).any() or r.abs().max() > 1e10  # noqa: E731
+                                or not r.any())
+        assert broken(got) and broken(want)
+
+
 # B8 as a blocked LU on a thread-block cluster (csrc/modlu.cu), panels of
 # 16: the plan's cluster at nb 32/40/64 (C = 1), 96/100 (2), 256 (4), 512
 # (8), 600 (16, more rows than threads) and 1024 (16, the block in global
@@ -334,11 +376,15 @@ def test_hr_pins_ieee_fp32_and_numpy_input_runs_on_the_card(cuda):
     assert residuals_f64(torch.from_numpy(a).to(cuda), q, r)["relerr"] <= 3e-6
 
 
-# (B, m, n, ib): the shared-memory variant (up to 4(mn + n² + m) <= 200 KiB,
-# m < n included) and the global-workspace one (a tall leaf, a 256² tile,
-# and n = 8 leaves of 131072 rows whose reflector is past shared memory)
+# (B, m, n, ib): the small route (a CTA a matrix, 4(mn + n² + m) <= 200
+# KiB: odd B, m < n, n not a multiple of ib, a last block narrower than ib,
+# two lanes a reflector index at ib 64, a matrix wider than ib = 128) and
+# the one-block kernel (a tall leaf, a 256² tile, n = 8 leaves of 131072
+# rows whose reflector is past shared memory); each launch counted under
+# its route's key
 GEQRT_CASES = [(64, 128, 128, 32), (16, 128, 128, 128), (5, 72, 40, 32), (3, 32, 48, 16),
-               (3, 2048, 64, 64), (2, 256, 256, 128), (2, 131072, 8, 8)]
+               (7, 100, 100, 32), (3, 100, 60, 64), (5, 159, 159, 128), (3, 40, 200, 16),
+               (3, 300, 64, 32), (3, 2048, 64, 64), (2, 256, 256, 128), (2, 131072, 8, 8)]
 
 
 @pytest.mark.parametrize("b,m,n,ib", GEQRT_CASES,
@@ -347,14 +393,36 @@ def test_geqrt_batched_matches_plain(cuda, b, m, n, ib):
     a = torch.from_numpy(np.random.default_rng(m + n).standard_normal(
         (b, m, n), dtype=np.float32)).to(cuda)
     before = a.clone()
+    key = geqrt.ROUTE_KEYS[geqrt.batched_plan(b, m, n, ib, _build.sm_count(a)).route]
+    _build.reset_counts()
     got = geqrt.geqrt_batched(a, ib)
     again = geqrt.geqrt_batched(a, ib)
-    want = geqrt.geqrt_batched_plain(a, ib)
     torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == 2 and sum(_build.LAUNCHES.values()) == 2
+    want = geqrt.geqrt_batched_plain(a, ib)
     assert torch.equal(a, before)  # the input is read only
     for g, h, w in zip(got, again, want):
         assert torch.equal(g, h)  # reruns are bitwise equal
         assert g.shape == w.shape and rel(g, w) <= TOL
+
+
+@pytest.mark.parametrize("b,m,n,ib", [(64, 128, 128, 32), (16, 128, 128, 128), (7, 100, 100, 32)],
+                         ids=str)
+def test_geqrt_small_t_blocks_are_the_recurrence(cuda, b, m, n, ib):
+    """The small route's diagonal T blocks against ``t_from_gram`` of its own
+    reflectors (the same recurrence, the gram in float64): only the rounding
+    of G and of the recurrence differ."""
+    a = torch.from_numpy(np.random.default_rng(b + m).standard_normal(
+        (b, m, n), dtype=np.float32)).to(cuda)
+    assert geqrt.batched_plan(b, m, n, ib, _build.sm_count(a)).route == "small"
+    packed, t = geqrt.geqrt_batched(a, ib)
+    v = (torch.tril(packed, -1) + torch.eye(m, n, device=cuda)).double()
+    for s in range(0, min(m, n), ib):
+        e = min(s + ib, m, n)
+        vb = v[:, :, s:e]
+        tau = torch.diagonal(t[:, s:e, s:e], dim1=1, dim2=2).double()
+        want = geqrt.t_from_gram(vb.transpose(1, 2) @ vb, tau)
+        assert rel(t[:, s:e, s:e], want) <= TOL
 
 
 def test_geqrt_batched_raises_on_float64(cuda):
@@ -376,8 +444,8 @@ def test_tsqr_on_the_card(cuda, strategy, m):
     q, r = tileqr_torch.tsqr(a, "reduced", cfg, strategy=strategy)
     torch.cuda.synchronize()
     assert not any(_build.PLAIN_CALLS.values())
-    # the tree's stacks of 1 and 4 leaves take the batched GEQRT's cluster route
-    own = {"tree": ("geqrt_batched", "geqrt_batched[cluster]"), "cholqr2": ("potrf_batched",),
+    # the tree's leaves and levels take the batched GEQRT's routes
+    own = {"tree": _build.TS_KERNELS, "cholqr2": ("potrf_batched",),
            "chain": ("panel_factor",)}
     assert sum(_build.LAUNCHES[k] for k in own[strategy]) > 0
     res = residuals_f64(a, q, r)
@@ -398,9 +466,10 @@ def test_qr_batched_on_the_card(cuda, method):
     q, r = tileqr_torch.qr_batched(a, config=cfg)
     torch.cuda.synchronize()
     assert not any(_build.PLAIN_CALLS.values())
-    # 64 matrices of 128² at ib 32 take the cluster route (C = 2)
-    gq = ("geqrt_batched[cluster]" if geqrt.batched_cluster_plan(
-        64, 128, 128, cfg.batched_ib, _build.sm_count(a)).ctas > 1 else "geqrt_batched")
+    # 64 matrices of 128² at ib 32 take the small route (a CTA a matrix)
+    gq = geqrt.ROUTE_KEYS[geqrt.batched_plan(64, 128, 128, cfg.batched_ib,
+                                              _build.sm_count(a)).route]
+    assert gq == "geqrt_batched[small]"
     own, other = (gq, "potrf_batched") if method == "hh" else ("potrf_batched", gq)
     assert _build.LAUNCHES[own] == 1 and _build.LAUNCHES[other] == 0
     a64, q64, r64 = a.double(), q.double(), r.double()

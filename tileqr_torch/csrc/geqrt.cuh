@@ -2,9 +2,10 @@
 //
 // Replaces tileqr/kernels/geqrt.py:geqrt_in_refs, the Householder column
 // loop inside the TPU kernels, for the kernel that runs it on ONE block:
-// the batched GEQRT (geqrt_batched.cu). K1, K2 and TTQRT (panel.cu,
-// chain.cu, ttqrt.cu) run the same contract on a thread-block cluster
-// (geqrt_cluster.cuh). Contract, step by step as the JAX body
+// the batched GEQRT's one-block kernel (geqrt_batched.cu: the tsqr leaves).
+// K1, K2 and TTQRT (panel.cu, chain.cu, ttqrt.cu) run the same contract on
+// a thread-block cluster (geqrt_cluster.cuh), the batched GEQRT's small
+// route (geqrt_small.cu) on one CTA a matrix. Contract, step by step as the JAX body
 // (and its plain torch version, tileqr_torch/kernels/geqrt.py):
 //   - the couple is held transposed: row j of `at` (n rows of m floats) is
 //     column j of the (m x n) couple [R; B];
@@ -24,12 +25,10 @@
 // shared memory is streamed from L2.
 // What the design does about it: one block of 1024 threads; the couple and
 // small work matrices live in a global workspace that stays in the 50 MB
-// L2 (or in shared memory, where the batched GEQRT's tile fits); shared
-// memory holds the current reflector v, the reduction partials and the
-// tiles of the block-wide fp32 FMA GEMM below. In the rank-1 phase each
-// warp owns whole columns, so it needs no barrier inside. Arithmetic is
-// IEEE fp32 FMA on CUDA cores (precision "highest", never TF32). The
-// cluster routine is the faster design for TTQRT too (a later PR).
+// L2; shared memory holds the current reflector v, the reduction partials
+// and the tiles of the block-wide fp32 FMA GEMM below. In the rank-1 phase
+// each warp owns whole columns, so it needs no barrier inside. Arithmetic
+// is IEEE fp32 FMA on CUDA cores (precision "highest", never TF32).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -11,34 +11,31 @@
 //     matrix, i.e. the stack a.view(p, leaf_rows, n), and the tree levels'
 //     stacked R factors; its staging DMA only fitted a 16 MB VMEM);
 //   - tileqr/kernels/geqrt.py:geqrt (B = 1).
-// Each matrix is factored by geqrt_couple (geqrt.cuh), B1's algebra step by
-// step, so the column loop stays in one place for every kernel.
+// Three routes, picked by kernels/geqrt.py:batched_plan from the shapes and
+// the SM count: a matrix whose transposed tile fits one CTA's shared memory
+// takes the small route (geqrt_small.cu, several matrices an SM); a stack
+// small enough that one thread-block cluster a matrix fits the card takes
+// the cluster route (below); any other stack this file's one-block kernel.
 //
-// Design: one thread block of GEQRT_THREADS (1024) threads per matrix; the
-// TPU's sequential grid and B11's G-per-step grouping become the CUDA grid.
-// The grid is capped at the blocks the card holds at once and each block
-// walks the batch with stride gridDim.x, so the workspace is bounded by the
-// card, not by B; which block takes a matrix changes no result (no atomics,
-// reruns are bitwise equal). Two variants of one kernel:
-//   - resident: the transposed tile, T^T and the reflector live in dynamic
-//     shared memory (4(mn + n^2 + m) bytes; 128x128 takes 128.5 KiB, above
-//     the 48 KB default, hence cudaFuncSetAttribute); only geqrt_couple's
-//     small work matrices are in global memory. The tile is loaded
-//     transposed once and written back once.
-//   - global: the transposed tile and T^T live in a per-block global
-//     workspace (K1's design), for tall leaves (2048 x 512 = 4 MiB at
-//     1048576 x 512) and larger tiles. The reflector v (m floats) is in
-//     shared memory up to V_SHARED_MAX floats and in the workspace beyond,
-//     since auto_leaf_rows makes 131072-row leaves at n = 8.
-// Loads and stores go through a 32 x 33 shared tile, coalesced both ways.
+// The one-block kernel: one thread block of GEQRT_THREADS (1024) threads
+// per matrix, each matrix factored by geqrt_couple (geqrt.cuh), B1's algebra
+// step by step; the TPU's sequential grid becomes the CUDA grid. The grid
+// is capped at the blocks the card holds at once and each block walks the
+// batch with stride gridDim.x, so the workspace is bounded by the card, not
+// by B; which block takes a matrix changes no result (no atomics, reruns
+// are bitwise equal). The transposed tile and T^T live in a per-block
+// global workspace (K1's design), for tall leaves (2048 x 512 = 4 MiB at
+// 1048576 x 512) and larger tiles. The reflector v (m floats) is in shared
+// memory up to V_SHARED_MAX floats and in the workspace beyond, since
+// auto_leaf_rows makes 131072-row leaves at n = 8. Loads and stores go
+// through a 32 x 33 shared tile, coalesced both ways.
 //
 // What bounds it on the H100: latency of the serial column loop (two
 // block-wide reductions and barriers per column) on each SM, and the
-// block GEMMs' fp32 FMA issue. At 132 leaves of 4 MiB in flight the global
-// variant's working set (528 MB) no longer stays in the 50 MB L2, as K1's
-// single couple did: it streams from HBM. Arithmetic is IEEE fp32 FMA on
-// CUDA cores (precision "highest", never TF32). A faster design (several
-// small matrices per block, tensor-core block applies) is later work.
+// block GEMMs' fp32 FMA issue. At 132 leaves of 4 MiB in flight the
+// working set (528 MB) no longer stays in the 50 MB L2, as K1's single
+// couple did: it streams from HBM. Arithmetic is IEEE fp32 FMA on CUDA
+// cores (precision "highest", never TF32).
 //
 // The cluster route, for small stacks (kernels/geqrt.py:batched_cluster_plan:
 // m >= n and B stacks of C CTAs fit the card, C >= 2): one thread-block
@@ -52,8 +49,8 @@
 // of 32, 8, 2, 1 at 1048576 x 512, C = 4, 16, 16, 16), whose few matrices
 // left most SMs idle. Its sums run in another order than the one-block
 // kernel's (a column's partials over C CTAs, added in rank order), so a
-// matrix's bits depend on its C, and C on the stack's size: the two
-// routes agree to rounding, and each is held to the plain version by
+// matrix's bits depend on its route, and the route on the stack's size:
+// the routes agree to rounding, and each is held to the plain version by
 // tolerance. No sharded path calls this kernel, so no rank-replicated value
 // depends on it.
 #include "geqrt.cuh"
@@ -83,36 +80,21 @@ __device__ void block_transpose(const float* src, long long sld, int rows, int c
 
 __host__ __device__ inline bool v_in_shared(int m) { return m <= V_SHARED_MAX; }
 
-__host__ __device__ inline long long work_floats(int m, int n, int ib, bool resident) {
-  const long long ws = geqrt_ws_floats(n, ib);
-  if (resident) return ws;
-  return (long long)m * n + (long long)n * n + ws + (v_in_shared(m) ? 0 : m);
+__host__ __device__ inline long long work_floats(int m, int n, int ib) {
+  return (long long)m * n + (long long)n * n + geqrt_ws_floats(n, ib) + (v_in_shared(m) ? 0 : m);
 }
 
-__host__ inline size_t smem_bytes(int m, int n, bool resident) {
-  if (resident) return sizeof(float) * ((size_t)m * n + (size_t)n * n + m);
-  return v_in_shared(m) ? sizeof(float) * m : 0;
-}
+__host__ inline size_t smem_bytes(int m) { return v_in_shared(m) ? sizeof(float) * m : 0; }
 
-template <bool RESIDENT>
 __global__ void __launch_bounds__(GEQRT_THREADS)
 geqrt_batched_kernel(const float* __restrict__ a, float* packed, float* t_out, float* work,
                      long long batch, int m, int n, int kcols, int ib) {
   extern __shared__ float sh[];
   const long long mn = (long long)m * n, nn = (long long)n * n;
-  float* wb = work + blockIdx.x * work_floats(m, n, ib, RESIDENT);
-  float *at, *tt, *v, *ws;
-  if (RESIDENT) {
-    at = sh;
-    tt = sh + mn;
-    v = tt + nn;
-    ws = wb;
-  } else {
-    at = wb;
-    tt = at + mn;
-    ws = tt + nn;
-    v = v_in_shared(m) ? sh : ws + geqrt_ws_floats(n, ib);
-  }
+  float* at = work + blockIdx.x * work_floats(m, n, ib);
+  float* tt = at + mn;
+  float* ws = tt + nn;
+  float* v = v_in_shared(m) ? sh : ws + geqrt_ws_floats(n, ib);
   for (long long b = blockIdx.x; b < batch; b += gridDim.x) {
     block_transpose(a + b * mn, n, m, n, at, m);
     for (long long idx = threadIdx.x; idx < nn; idx += blockDim.x) tt[idx] = 0.f;
@@ -123,14 +105,13 @@ geqrt_batched_kernel(const float* __restrict__ a, float* packed, float* t_out, f
   }
 }
 
-template <bool RESIDENT>
-cudaError_t prepare(int m, int n, int* blocks_per_sm) {
-  const size_t smem = smem_bytes(m, n, RESIDENT);
-  cudaError_t e = cudaFuncSetAttribute(geqrt_batched_kernel<RESIDENT>,
+cudaError_t prepare(int m, int* blocks_per_sm) {
+  const size_t smem = smem_bytes(m);
+  cudaError_t e = cudaFuncSetAttribute(geqrt_batched_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess || blocks_per_sm == nullptr) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, geqrt_batched_kernel<RESIDENT>, GEQRT_THREADS, smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, geqrt_batched_kernel,
+                                                       GEQRT_THREADS, smem);
 }
 
 // Cluster k of the grid factors matrix k (m x n, m >= n, kcols = n): its
@@ -176,15 +157,15 @@ extern "C" int tq_geqrt_batched_cluster(const float* a, float* packed, float* t,
                              packed, t, work, m, n, ib, ws);
 }
 
-extern "C" int tq_geqrt_batched_work_floats(int m, int n, int ib, int resident) {
-  return static_cast<int>(work_floats(m, n, ib, resident != 0));
+extern "C" int tq_geqrt_batched_work_floats(int m, int n, int ib) {
+  return static_cast<int>(work_floats(m, n, ib));
 }
 
 // Blocks to launch: min(batch, blocks the card holds at once), or the
 // negated CUDA error.
-extern "C" int tq_geqrt_batched_grid(long long batch, int m, int n, int resident) {
+extern "C" int tq_geqrt_batched_grid(long long batch, int m) {
   int per_sm = 0, dev = 0, sms = 0;
-  cudaError_t e = resident ? prepare<true>(m, n, &per_sm) : prepare<false>(m, n, &per_sm);
+  cudaError_t e = prepare(m, &per_sm);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return -(int)e;
@@ -194,20 +175,11 @@ extern "C" int tq_geqrt_batched_grid(long long batch, int m, int n, int resident
 }
 
 extern "C" int tq_geqrt_batched(const float* a, float* packed, float* t, float* work,
-                                long long batch, int m, int n, int kcols, int ib,
-                                int resident, int grid, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (resident) {
-    e = prepare<true>(m, n, nullptr);
-    if (e != cudaSuccess) return (int)e;
-    geqrt_batched_kernel<true><<<grid, GEQRT_THREADS, smem_bytes(m, n, true), s>>>(
-        a, packed, t, work, batch, m, n, kcols, ib);
-  } else {
-    e = prepare<false>(m, n, nullptr);
-    if (e != cudaSuccess) return (int)e;
-    geqrt_batched_kernel<false><<<grid, GEQRT_THREADS, smem_bytes(m, n, false), s>>>(
-        a, packed, t, work, batch, m, n, kcols, ib);
-  }
+                                long long batch, int m, int n, int kcols, int ib, int grid,
+                                void* stream) {
+  const cudaError_t e = prepare(m, nullptr);
+  if (e != cudaSuccess) return (int)e;
+  geqrt_batched_kernel<<<grid, GEQRT_THREADS, smem_bytes(m), static_cast<cudaStream_t>(stream)>>>(
+      a, packed, t, work, batch, m, n, kcols, ib);
   return (int)cudaGetLastError();
 }

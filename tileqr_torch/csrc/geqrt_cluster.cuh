@@ -732,14 +732,14 @@ __device__ void geqrt_couple_cluster(const Couple& cp, const Cta& w) {
   }
 }
 
-// Launch `kernel` as `clusters` clusters of `ctas` CTAs each (a grid of
-// clusters x ctas; cluster k is CTAs [k ctas, (k+1) ctas)), with `smem`
-// bytes of dynamic shared memory a CTA. A configuration the card refuses
-// returns its error (the wrapper raises); nothing else is launched in its
-// place.
+// Launch `kernel` as `clusters` clusters of `ctas` CTAs of `threads`
+// threads each (a grid of clusters x ctas; cluster k is CTAs [k ctas,
+// (k+1) ctas)), with `smem` bytes of dynamic shared memory a CTA. A
+// configuration the card refuses returns its error (the wrapper raises);
+// nothing else is launched in its place.
 template <typename... Exp, typename... Act>
-int launch_clusters(void (*kernel)(Exp...), int clusters, int ctas, size_t smem,
-                    cudaStream_t stream, Act&&... args) {
+int launch_clusters_of(void (*kernel)(Exp...), int clusters, int ctas, int threads, size_t smem,
+                       cudaStream_t stream, Act&&... args) {
   if ((ctas != 1 && ctas != 2 && ctas != 4 && ctas != 8 && ctas != 16) || clusters < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t e =
@@ -756,7 +756,7 @@ int launch_clusters(void (*kernel)(Exp...), int clusters, int ctas, size_t smem,
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(clusters * ctas, 1, 1);
-  cfg.blockDim = dim3(CL_THREADS, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
@@ -768,6 +768,15 @@ int launch_clusters(void (*kernel)(Exp...), int clusters, int ctas, size_t smem,
   e = cudaLaunchKernelEx(&cfg, kernel, static_cast<Act&&>(args)...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// the same with CL_THREADS threads a CTA (K1, K2, TTQRT, B8, the batched
+// GEQRT's cluster route)
+template <typename... Exp, typename... Act>
+int launch_clusters(void (*kernel)(Exp...), int clusters, int ctas, size_t smem,
+                    cudaStream_t stream, Act&&... args) {
+  return launch_clusters_of(kernel, clusters, ctas, CL_THREADS, smem, stream,
+                            static_cast<Act&&>(args)...);
 }
 
 // one cluster of `ctas` CTAs (K1, K2, TTQRT, B8)

@@ -36,9 +36,10 @@ import torch
 
 HH_KERNELS = ("panel_factor", "panel_chain", "couple_strip", "larfb_strip")
 HR_KERNELS = ("modified_lu", "potrf_batched", "panel_apply_carry")
-# the batched GEQRT: its one-block kernel and its cluster route (small
-# stacks, one thread-block cluster a matrix), counted apart
-TS_KERNELS = ("geqrt_batched", "geqrt_batched[cluster]")
+# the batched GEQRT's three routes, counted apart: the one-block kernel
+# (tall tiles in global memory), the cluster route (small stacks, one
+# thread-block cluster a matrix) and the small route (a matrix a CTA)
+TS_KERNELS = ("geqrt_batched", "geqrt_batched[cluster]", "geqrt_batched[small]")
 # B7, the value-level whole-panel apply of the hr apply_q/orgqr
 APPLY_KERNELS = ("panel_apply",)
 # B15's TTQRT, the combine of the sharded tree
@@ -91,20 +92,25 @@ SIGNATURES = {
     "tq_larfb_strip": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _P),
     # q, lu, n, d, ctas, smem, resident, stream
     "tq_modified_lu": (_P, _P, _I, _P, _I, _L, _I, _P),
-    # r (in place), batch, n, bp, stream
-    "tq_potrf_batched": (_P, _I, _I, _I, _P),
+    # g, r, batch, n, bp, ctas, threads, smem, resident (kernels/potrf.py:potrf_plan),
+    # stream
+    "tq_potrf_batched": (_P, _P, _I, _I, _I, _I, _I, _L, _I, _P),
     # y, tm (or NULL), c, ldc, m, n, nb, mr, w, work (or NULL), groups, passes,
     # stream
     "tq_panel_project": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _I, _I, _P),
     # y, w, c, ldc, m, n, nb, tile rows, tile columns
     # (kernels/panel_apply.py:sub_plan), passes, stream
     "tq_panel_sub": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
-    # geqrt_batched blocks to launch (or -cudaError): batch, m, n, resident
-    "tq_geqrt_batched_grid": (_L, _I, _I, _I),
-    # geqrt_batched workspace floats per block: m, n, ib, resident
-    "tq_geqrt_batched_work_floats": (_I, _I, _I, _I),
-    # a, packed, t, work, batch, m, n, kcols, ib, resident, grid, stream
-    "tq_geqrt_batched": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
+    # geqrt_batched blocks to launch (or -cudaError): batch, m
+    "tq_geqrt_batched_grid": (_L, _I),
+    # geqrt_batched workspace floats per block: m, n, ib
+    "tq_geqrt_batched_work_floats": (_I, _I, _I),
+    # a, packed, t, work, batch, m, n, kcols, ib, grid, stream
+    "tq_geqrt_batched": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
+    # the small route: a, packed, t, batch, m, n, ib, threads, smem, stream
+    "tq_geqrt_small": (_P, _P, _P, _I, _I, _I, _I, _I, _L, _P),
+    # small-route CTAs an SM holds (or -cudaError): m, n, ib, threads
+    "tq_geqrt_small_per_sm": (_I, _I, _I, _I),
     # a, packed, t, work, batch, m, n, ib, ctas, smem, resident, stream
     "tq_geqrt_batched_cluster": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _P),
     # r1, r2, nb, ib, r_out, v2, t2, work, ctas, smem, resident, stream

@@ -27,14 +27,21 @@ a stack with inner block width ``ib`` (packed reflectors and T):
 ``batched.py:geqrt_batched_grouped`` (G matrices per grid step),
 ``tileqr/drivers/tsqr.py:tall_geqrt`` (every leaf of a tall matrix, and the
 tree's stacked R factors) and ``tileqr/kernels/geqrt.py:geqrt`` (B = 1).
-On a CUDA tensor it launches ``tq_geqrt_batched``
-(``csrc/geqrt_batched.cu``, one block a matrix) or, for a stack small
-enough that B clusters fill the card (``batched_cluster_plan``), its
-cluster route ``tq_geqrt_batched_cluster`` (one thread-block cluster a
-matrix, ``csrc/geqrt_cluster.cuh``: B1s at 256² and the tsqr tree's
-levels), counted as ``geqrt_batched[cluster]``; on a CPU tensor it runs
-``geqrt_batched_plain``. The two routes sum in other orders, so a matrix's
-bits depend on the route, which depends on B.
+On a CUDA tensor it takes one of three routes, which ``batched_plan``
+picks from the shapes and the SM count: a matrix whose tile fits one
+CTA's shared memory the small route ``tq_geqrt_small``
+(``csrc/geqrt_small.cu``, a CTA a matrix, several an SM: ``qr_batched``'s
+stacks, B11 and B16), counted as ``geqrt_batched[small]``; a stack small
+enough that B clusters fill the card the cluster route
+``tq_geqrt_batched_cluster`` (one thread-block cluster a matrix,
+``csrc/geqrt_cluster.cuh``: B1s at 256² and the tsqr tree's levels),
+counted as ``geqrt_batched[cluster]``; any other stack ``tq_geqrt_batched``
+(``csrc/geqrt_batched.cu``, one block a matrix, its tile in global
+memory: the tsqr leaves). On a CPU tensor it runs ``geqrt_batched_plain``.
+The routes sum in other orders, so a matrix's bits depend on the route,
+which depends on B. The small route builds each block's T by the column
+recurrence (``t_from_gram``) where the plain version doubles: the two agree
+to rounding.
 """
 
 from __future__ import annotations
@@ -45,9 +52,16 @@ import torch
 
 from tileqr_torch.kernels import _build
 
-# a tile whose transposed copy, Tᵀ and reflector (4·(m·n + n·n + m) bytes)
-# fit this is factored in shared memory; larger ones in a global workspace
-_RESIDENT_MAX_BYTES = 200 * 1024
+# a matrix of 4·(m·n + n·n + m) bytes up to this takes the small route (its
+# tile, T and a few columns in one CTA's shared memory)
+_SMALL_MAX_BYTES = 200 * 1024
+# threads of a small-route CTA (one a matrix; small_threads), and of the
+# one-block kernel's block (csrc/geqrt.cuh: GEQRT_THREADS)
+SMALL_THREADS = 256
+GLOBAL_THREADS = 1024
+# the launch counter of each route
+ROUTE_KEYS = {"small": "geqrt_batched[small]", "cluster": "geqrt_batched[cluster]",
+              "global": "geqrt_batched"}
 
 
 def _recon_vt(rows: torch.Tensor, row0: int, lane_r: torch.Tensor) -> torch.Tensor:
@@ -163,6 +177,23 @@ def geqrt_batched_plain(a: torch.Tensor, ib: int) -> Tuple[torch.Tensor, torch.T
     return _t(at).contiguous(), _t(tt).contiguous()
 
 
+def t_from_gram(g: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """T (..., k, k) of a block of k reflectors from their gram G = VᵀV
+    (..., k, k; only its strict upper triangle is read) and their taus
+    (..., k), by LAPACK's column recurrence (larft):
+    T[0:j, j] = −τ_j · T[0:j, 0:j] · G[0:j, j], T[j, j] = τ_j. In exact
+    arithmetic T is unique given V and τ, so this is the T that
+    ``geqrt_in_place`` builds by doubling; the small route
+    (``csrc/geqrt_small.cu``) builds each block's T this way."""
+    k = tau.shape[-1]
+    t = torch.zeros(g.shape, dtype=g.dtype, device=g.device)
+    for j in range(k):
+        t[..., j, j] = tau[..., j]
+        if j:
+            t[..., :j, j] = -tau[..., j, None] * (t[..., :j, :j] @ g[..., :j, j, None])[..., 0]
+    return t
+
+
 # the cluster routine's index math (``geqrt_cluster.cuh``: div_small) takes
 # a CTA's slab entries, rows per CTA × ib, below this
 _CLUSTER_INDEX_MAX = 2 ** 20
@@ -204,26 +235,106 @@ def batched_cluster_plan(b: int, m: int, n: int, ib: int, sms: int) -> BatchedCl
     return BatchedClusterPlan(c, ibc, cluster_smem_bytes(n, m, ibc, c, resident), resident)
 
 
+def small_tile_ld(m: int) -> int:
+    """The small route's tile row stride (``csrc/geqrt_small.cu``:
+    ``tile_ld``): a multiple of 4 floats ≥ max(m, 128) whose quarter is
+    odd."""
+    return 4 * ((-(-max(m, 128) // 4)) | 1)
+
+
+# T is built a sub-block of this many columns at a time (csrc/geqrt_small.cu:
+# TB), each from its own G = V_qᵀV_q (its strict upper triangle kept)
+SMALL_T_SUB = 32
+
+
+def small_smem_bytes(m: int, n: int, ib: int) -> int:
+    """Shared bytes of a small-route CTA (``csrc/geqrt_small.cu``:
+    ``smem_floats``): the transposed tile (n rows of ``small_tile_ld(m)``
+    floats), T packed as its upper triangle (kc(kc + 1)/2, kc = min(m, n)),
+    each T sub-block's G (its strict upper triangle, 32·31/2 floats, for
+    each of the ceil(min(ib, kc)/32) sub-blocks of a block) and two LARFG
+    triples (beta, tau, scale)."""
+    kc = min(m, n)
+    g = -(-min(ib, kc) // SMALL_T_SUB) * (SMALL_T_SUB * (SMALL_T_SUB - 1) // 2)
+    return 4 * (n * small_tile_ld(m) + kc * (kc + 1) // 2 + g + 6)
+
+
+def small_threads(m: int, n: int, ib: int) -> int:
+    """Threads of a small-route CTA: 512 where the matrix is one block (m ≥ n,
+    ib ≥ n: no block apply, so two CTAs an SM fit in registers), else 256."""
+    return 512 if m >= n and ib >= n else SMALL_THREADS
+
+
+def takes_small(m: int, n: int) -> bool:
+    """Whether an (m, n) matrix takes the small route."""
+    return 4 * (m * n + n * n + m) <= _SMALL_MAX_BYTES
+
+
+class BatchedPlan(NamedTuple):
+    route: str         # "small", "cluster" or "global" (the one-block kernel)
+    ctas: int          # the cluster route's C; 1 on the others
+    ib: int            # the block width the kernel runs
+    smem_bytes: int    # dynamic shared memory per CTA (0 on the global route)
+    resident: bool     # cluster route: a CTA's rows of the active block in shared memory
+    threads: int       # threads a CTA
+
+
+def batched_plan(b: int, m: int, n: int, ib: int, sms: int) -> BatchedPlan:
+    """The route of a (b, m, n) stack at inner width ``ib`` on a card of
+    ``sms`` SMs: the small route where the matrix takes it (m < n
+    included; on the H100 it beat the cluster route at 5 of the 6 stacks
+    both take that ``utils/plan_sweep.py --only small`` times, losing 10% at
+    8 × 256×64, a shape no path runs), else ``batched_cluster_plan``'s
+    cluster where C > 1, else the one-block kernel on its tile in global
+    memory."""
+    if b < 1 or m < 1 or n < 1 or ib < 1 or sms < 1:
+        raise ValueError(f"batched_plan: b={b}, m={m}, n={n}, ib={ib}, sms={sms}")
+    if takes_small(m, n):
+        return BatchedPlan("small", 1, ib, small_smem_bytes(m, n, ib), True,
+                           small_threads(m, n, ib))
+    cl = batched_cluster_plan(b, m, n, ib, sms)
+    if cl.ctas > 1:
+        from tileqr_torch.kernels.panel import CL_THREADS
+
+        return BatchedPlan("cluster", cl.ctas, cl.ib, cl.smem_bytes, cl.resident, CL_THREADS)
+    return BatchedPlan("global", 1, ib, 0, False, GLOBAL_THREADS)
+
+
+def _geqrt_small(a: torch.Tensor, ib: int, threads: int = 0) -> Tuple[torch.Tensor, ...]:
+    """The small route on a contiguous CUDA stack at ``threads`` a CTA
+    (default: ``small_threads``): (packed, T)."""
+    b, m, n = a.shape
+    threads = threads or small_threads(m, n, ib)
+    packed = torch.empty_like(a)
+    t = a.new_empty((b, n, n))
+    rc = _build.lib().tq_geqrt_small(a.data_ptr(), packed.data_ptr(), t.data_ptr(), b, m, n, ib,
+                                     threads, small_smem_bytes(m, n, ib), _build.stream())
+    _build.check(rc, "geqrt_batched[small]")
+    _build.LAUNCHES["geqrt_batched[small]"] += 1
+    return packed, t
+
+
 def _geqrt_one_block(a: torch.Tensor, ib: int) -> Tuple[torch.Tensor, ...]:
     """The one-block kernel on a contiguous CUDA stack: (packed, T)."""
     b, m, n = a.shape
-    resident = int(4 * (m * n + n * n + m) <= _RESIDENT_MAX_BYTES)
     lib = _build.lib()
-    grid = lib.tq_geqrt_batched_grid(b, m, n, resident)
+    grid = lib.tq_geqrt_batched_grid(b, m)
     if grid <= 0:
         _build.check(-grid, "geqrt_batched")
     packed = torch.empty_like(a)
     t = a.new_empty((b, n, n))
-    work = a.new_empty(grid * lib.tq_geqrt_batched_work_floats(m, n, ib, resident))
+    work = a.new_empty(grid * lib.tq_geqrt_batched_work_floats(m, n, ib))
     rc = lib.tq_geqrt_batched(a.data_ptr(), packed.data_ptr(), t.data_ptr(), work.data_ptr(),
-                              b, m, n, min(m, n), ib, resident, grid, _build.stream())
+                              b, m, n, min(m, n), ib, grid, _build.stream())
     _build.check(rc, "geqrt_batched")
     _build.LAUNCHES["geqrt_batched"] += 1
     return packed, t
 
 
-def _geqrt_cluster(a: torch.Tensor, plan: BatchedClusterPlan) -> Tuple[torch.Tensor, ...]:
-    """The cluster route on a contiguous CUDA stack: (packed, T)."""
+def _geqrt_cluster(a: torch.Tensor, plan) -> Tuple[torch.Tensor, ...]:
+    """The cluster route on a contiguous CUDA stack at ``plan`` (a
+    ``BatchedClusterPlan`` or the cluster route's ``BatchedPlan``): (packed,
+    T)."""
     b, m, n = a.shape
     lib = _build.lib()
     packed = torch.empty_like(a)
@@ -250,8 +361,12 @@ def geqrt_batched(a: torch.Tensor, ib: int) -> Tuple[torch.Tensor, torch.Tensor]
     b, m, n = a.shape
     if m * n >= 2 ** 30:
         raise ValueError(f"geqrt_batched: a {m}x{n} matrix is past the kernel's int offsets")
-    plan = batched_cluster_plan(b, m, n, ib, _build.sm_count(a))
-    return _geqrt_cluster(a, plan) if plan.ctas > 1 else _geqrt_one_block(a, ib)
+    plan = batched_plan(b, m, n, ib, _build.sm_count(a))
+    if plan.route == "small":
+        return _geqrt_small(a, ib)
+    if plan.route == "cluster":
+        return _geqrt_cluster(a, plan)
+    return _geqrt_one_block(a, ib)
 
 
 def geqrt(a: torch.Tensor, ib: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -10,21 +10,80 @@ hr health scalar instead of an exception. Zeros are written left of the
 diagonal.
 
 On a CUDA tensor the wrapper launches ``tq_potrf_batched``
-(``csrc/potrf.cu``, one thread block per matrix); on a CPU tensor it runs
-the plain version, which keeps the JAX kernel's bp-row panels and its
-symmetric trailing update, so float64 parity is at rounding level. The
-reference's ``group`` (matrices per TPU grid step) has no counterpart: the
-CUDA grid is the batch.
+(``csrc/potrf.cu``: a blocked Cholesky on one thread-block cluster a
+matrix, its bp-row blocks dealt cyclically to the CTAs' shared memory,
+sized by ``potrf_plan``); on a CPU tensor it runs the plain version, which
+keeps the JAX kernel's bp-row panels and its symmetric trailing update, so
+float64 parity is at rounding level. The reference's ``group`` (matrices
+per TPU grid step) has no counterpart: the CUDA grid is the batch.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from tileqr_torch.kernels import _build
+from tileqr_torch.kernels.panel import CLUSTER_SIZES, SMEM_LIMIT
 
-# the CUDA kernel keeps one bp-row panel (bp·n floats) in shared memory
-_MAX_PANEL_BYTES = 200 * 1024
+# rows a CTA the plan aims at: C = 4 at n = 256 (the hr panel's gram), 8 at
+# 512 (the tsqr cholqr2 factor's)
+POTRF_ROWS_PER_CTA = 64
+# the kernel's largest panel (csrc/potrf.cu: BP, its rows in registers), and
+# its widest matrix (8 columns a thread of 512 in a row step)
+POTRF_BP_MAX = 16
+POTRF_N_MAX = 4096
+
+
+class PotrfPlan(NamedTuple):
+    ctas: int          # C, the CTAs of each matrix's cluster; block k on CTA k mod C
+    smem_bytes: int    # dynamic shared memory per CTA
+    resident: bool     # the blocks in shared memory (else in the output, L2)
+    threads: int       # threads a CTA (potrf_threads)
+
+
+def _round4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def potrf_smem_bytes(n: int, ctas: int, resident: bool, bp: int = 16) -> int:
+    """Shared bytes per CTA of a B9 launch (``csrc/potrf.cu``:
+    ``smem_floats``): a panel's pivot columns and reciprocal roots (16 × 16
+    + 16 floats), and when resident CTA 0's blocks (blocks 0, C, 2C, …: bp rows each,
+    from the block's first column on, row stride rounded up to 4) and, on
+    a cluster (C > 1), the copy of a panel (bp × round4(n))."""
+    bp = min(bp, n)
+    piv = POTRF_BP_MAX * POTRF_BP_MAX + POTRF_BP_MAX
+    if not resident:
+        return 4 * piv
+    nblk = -(-n // bp)
+    own = sum(bp * _round4(n - k * bp) for k in range(0, nblk, ctas))
+    copy = bp * _round4(n) if ctas > 1 else 0
+    return 4 * (piv + own + copy)
+
+
+def potrf_threads(n: int) -> int:
+    """Threads of a B9 CTA: the fewest of 128, 256 and 512 that hold a
+    panel row at two columns a thread (a row step's work) where n allows;
+    512 past 1024 columns (the global route, up to 8 a thread)."""
+    return 128 if n <= 128 else 256 if n <= 512 else 512
+
+
+def potrf_plan(b: int, n: int, sms: int, bp: int = 16) -> PotrfPlan:
+    """The cluster of a B9 launch on a (b, n, n) stack on a card of ``sms``
+    SMs: the fewest CTAs (16 at most) that hold at most POTRF_ROWS_PER_CTA
+    rows each, halved while b·C exceeds the SMs (C = 1: a matrix a CTA,
+    several CTAs an SM); the blocks in the CTAs' shared memory where they
+    fit, else the same code on the output in global memory."""
+    if b < 1 or n < 1 or sms < 1 or bp < 1:
+        raise ValueError(f"potrf_plan: b={b}, n={n}, sms={sms}, bp={bp}")
+    fits = [c for c in CLUSTER_SIZES if -(-n // c) <= POTRF_ROWS_PER_CTA]
+    c = fits[0] if fits else CLUSTER_SIZES[-1]
+    while c > 1 and b * c > sms:
+        c //= 2
+    resident = potrf_smem_bytes(n, c, True, bp) <= SMEM_LIMIT
+    return PotrfPlan(c, potrf_smem_bytes(n, c, resident, bp), resident, potrf_threads(n))
 
 
 def _check(g: torch.Tensor, bp: int) -> None:
@@ -64,10 +123,18 @@ def potrf_batched(g: torch.Tensor, bp: int = 16) -> torch.Tensor:
     _build.require_fp32(g)
     _check(g, bp)
     b, n, _ = g.shape
-    if min(bp, n) * n * 4 > _MAX_PANEL_BYTES:
-        raise ValueError(f"potrf_batched: a {bp}-row panel of n={n} exceeds shared memory")
-    r = g.contiguous().clone()
-    rc = _build.lib().tq_potrf_batched(r.data_ptr(), b, n, bp, _build.stream())
+    bpe = min(bp, n)
+    if bpe > POTRF_BP_MAX or (bpe < n and bpe % 4):
+        raise ValueError(f"potrf_batched: the kernel takes bp <= {POTRF_BP_MAX}, a multiple of "
+                         f"4 unless it covers n; got bp={bp} at n={n}")
+    if n > POTRF_N_MAX:
+        raise ValueError(f"potrf_batched: n={n} is past the kernel's {POTRF_N_MAX} columns")
+    plan = potrf_plan(b, n, _build.sm_count(g), bp)
+    g = g.contiguous()
+    r = torch.empty_like(g)
+    rc = _build.lib().tq_potrf_batched(g.data_ptr(), r.data_ptr(), b, n, bp, plan.ctas,
+                                       plan.threads, plan.smem_bytes, int(plan.resident),
+                                       _build.stream())
     _build.check(rc, "potrf_batched")
     _build.LAUNCHES["potrf_batched"] += 1
     return r

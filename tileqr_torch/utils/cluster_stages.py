@@ -2,6 +2,8 @@
 
     python -m tileqr_torch.utils.cluster_stages [--n 8192] [--reps 5]
         [--rows-per-cta 160 80] [--ttqrt-ctas 4 8] [--modlu-nb 256 512]
+        [--potrf 1x256 1x512 4096x128] [--small 1x32 4096x32 1x128 4096x128]
+        [--only cluster modlu potrf small]
 
 Builds the kernels a second time with ``TQ_CL_STAGES`` defined (a copy of
 ``csrc/`` under ``build/``), which makes thread 0 of the cluster's CTA 0
@@ -22,7 +24,15 @@ at each ``--ttqrt-ctas`` (default: ``ttqrt_plan``'s). B8 (``csrc/modlu.cu``)
 on an orthonormal factor's top block at each ``--modlu-nb``: every CTA's
 time in the block's load and store, its own panels' column loops, the
 cluster barriers (with the wait for each panel's owner), the copies of L's
-panel, U12 and the trailing product. Needs a GPU.
+panel, U12 and the trailing product. B9 (``csrc/potrf.cu``) on the gram of
+a gaussian (2n, n) for each ``--potrf`` BxN: every CTA of the first
+cluster's time in the blocks' load and store, its own panels' row steps,
+the cluster barriers, the panel copies and the SYRKs. The batched GEQRT's
+small route (``csrc/geqrt_small.cu``) on a gaussian (B, 128, 128) stack for
+each ``--small`` BxIB: CTA 0's time in the tile's load, LARFG, warp 0's
+dots and updates, the column barriers, T's 32-column sub-blocks by rows,
+their joins, the block apply with its off-diagonal T, and the stores. Needs
+a GPU.
 """
 
 from __future__ import annotations
@@ -38,6 +48,10 @@ import torch
 from tileqr_torch.kernels import _build
 from tileqr_torch.utils.plan_sweep import cuda_ms, ttqrt_at, ttqrt_plan_at
 
+SMALL_STAGES = ("load", "LARFG", "warp 0 dots + updates", "column barrier",
+                "T sub-blocks by rows", "T sub-blocks joined", "block apply + off-diagonal T",
+                "store")
+PO_STAGES = ("load/store", "own row steps", "cluster barrier", "panel copy", "SYRK")
 STAGES = ("slab load/store", "P + reduction", "block T", "off-diagonal T", "apply",
           "column dots", "exchange + cluster barrier", "LARFG + rank-1 update")
 LU_STAGES = ("load/store", "own panels", "cluster barrier", "L copy", "U12", "trailing")
@@ -49,12 +63,13 @@ def instrumented_lib() -> ctypes.CDLL:
     if src.exists():
         shutil.rmtree(src)
     shutil.copytree(_build.CSRC, src)
-    head = src / "geqrt_cluster.cuh"
-    head.write_text("#define TQ_CL_STAGES 1\n" + head.read_text())
+    for f in ("geqrt_cluster.cuh", "geqrt_small.cu"):
+        head = src / f
+        head.write_text("#define TQ_CL_STAGES 1\n" + head.read_text())
     _build.CSRC = src
     handle = _build.lib()
     for name in ("tq_cl_stages_panel", "tq_cl_stages_chain", "tq_cl_stages_ttqrt",
-                 "tq_lu_stages"):
+                 "tq_lu_stages", "tq_potrf_stages", "tq_small_stages"):
         getattr(handle, name).argtypes = [ctypes.c_void_p]
         getattr(handle, name).restype = ctypes.c_int
     return handle
@@ -70,16 +85,62 @@ def main() -> int:
     ap.add_argument("--rows-per-cta", type=int, nargs="+", default=None)
     ap.add_argument("--ttqrt-ctas", type=int, nargs="+", default=None)
     ap.add_argument("--modlu-nb", type=int, nargs="+", default=[256, 512])
+    ap.add_argument("--potrf", nargs="+", default=["1x256", "1x512", "4096x128"])
+    ap.add_argument("--small", nargs="+", default=["1x32", "4096x32", "1x128", "4096x128"])
+    ap.add_argument("--only", nargs="+", choices=("cluster", "modlu", "potrf", "small"),
+                    default=["cluster", "modlu", "potrf", "small"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("cluster_stages: needs a CUDA device")
         return 1
-    from tileqr_torch.kernels import chain, modlu, panel
-
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip().splitlines()[0])
     lib = instrumented_lib()
+    rng = np.random.default_rng(1)
+    if "cluster" in args.only:
+        cluster_kernels(args, lib, rng)
+    if "modlu" in args.only:
+        from tileqr_torch.kernels import modlu
+
+        lu_out = (ctypes.c_ulonglong * (16 * len(LU_STAGES)))()
+        for n in args.modlu_nb:
+            q, _ = torch.linalg.qr(torch.from_numpy(rng.standard_normal((4 * n, n))).cuda())
+            q_top = q[:n].float().contiguous()
+            time_lu_stages(lambda: modlu.modified_lu(q_top), lib.tq_lu_stages,
+                           modlu.modlu_plan(n), n, lu_out, args.reps)
+    if "potrf" in args.only:
+        from tileqr_torch.kernels import potrf
+
+        po_out = (ctypes.c_ulonglong * (16 * len(PO_STAGES)))()
+        for shape in args.potrf:
+            b, n = (int(v) for v in shape.split("x"))
+            x = torch.from_numpy(rng.standard_normal((b, 2 * n, n), dtype=np.float32)).cuda()
+            g = x.transpose(1, 2) @ x
+            del x
+            time_cta_stages(f"potrf_batched ({b}, {n}, {n})", lambda: potrf.potrf_batched(g),
+                            lib.tq_potrf_stages, potrf.potrf_plan(b, n, _build.sm_count(g)),
+                            PO_STAGES, po_out, args.reps)
+            del g
+    if "small" in args.only:
+        from tileqr_torch.kernels import geqrt
+
+        sm_out = (ctypes.c_ulonglong * len(SMALL_STAGES))()
+        for shape in args.small:
+            b, ib = (int(v) for v in shape.split("x"))
+            a = torch.from_numpy(rng.standard_normal((b, 128, 128), dtype=np.float32)).cuda()
+            time_stages(f"geqrt_batched[small] ({b}, 128, 128) ib={ib}",
+                        lambda: geqrt.geqrt_batched(a, ib), lib.tq_small_stages,
+                        geqrt.batched_plan(b, 128, 128, ib, _build.sm_count(a)), sm_out,
+                        args.reps, SMALL_STAGES)
+            del a
+    return 0
+
+
+def cluster_kernels(args, lib, rng) -> None:
+    """K1, K2 and TTQRT's stages (``csrc/geqrt_cluster.cuh``)."""
+    from tileqr_torch.kernels import chain, panel
+
     nb, ib, c = args.nb, args.ib, args.chunk
     a = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (args.n, nb), dtype=np.float32)).cuda()
@@ -97,20 +158,12 @@ def main() -> int:
         panel.ROWS_PER_CTA = rows_per_cta
         for name, (fn, read, rows) in calls.items():
             time_stages(name, fn, read, panel.cluster_plan(nb, rows, ib), out, args.reps)
-    rng = np.random.default_rng(1)
     r1, r2 = (torch.from_numpy(np.triu(rng.standard_normal((nb, nb), dtype=np.float32))).cuda()
               for _ in range(2))
     for ctas in args.ttqrt_ctas or [None]:
         plan = panel.ttqrt_plan(nb, ib) if ctas is None else ttqrt_plan_at(nb, ib, ctas)
         time_stages("ttqrt", lambda: ttqrt_at(r1, r2, ib, plan), lib.tq_cl_stages_ttqrt,
                     plan, out, args.reps)
-    lu_out = (ctypes.c_ulonglong * (16 * len(LU_STAGES)))()
-    for n in args.modlu_nb:
-        q, _ = torch.linalg.qr(torch.from_numpy(rng.standard_normal((4 * n, n))).cuda())
-        q_top = q[:n].float().contiguous()
-        time_lu_stages(lambda: modlu.modified_lu(q_top), lib.tq_lu_stages, modlu.modlu_plan(n),
-                       n, lu_out, args.reps)
-    return 0
 
 
 def time_lu_stages(fn, read, plan, n: int, out, reps: int) -> None:
@@ -127,7 +180,7 @@ def time_lu_stages(fn, read, plan, n: int, out, reps: int) -> None:
         print(f"  CTA {r}: " + ", ".join(f"{s} {t:.4f} ms" for s, t in zip(LU_STAGES, split)))
 
 
-def time_stages(name, fn, read, plan, out, reps: int) -> None:
+def time_stages(name, fn, read, plan, out, reps: int, stages=STAGES) -> None:
     """One call's time by CUDA events and its stages by the device timer."""
     fn()
     torch.cuda.synchronize()
@@ -137,8 +190,23 @@ def time_stages(name, fn, read, plan, out, reps: int) -> None:
     split = [v / 1e6 / reps for v in out]
     print(f"{name} {plan}: {ms:.3f} ms per call (CUDA events); "
           f"stages on CTA 0: " + ", ".join(
-              f"{s} {t:.3f} ms ({t / max(sum(split), 1e-9):.1%})"
-              for s, t in zip(STAGES, split)))
+              f"{s} {t:.4f} ms ({t / max(sum(split), 1e-9):.1%})"
+              for s, t in zip(stages, split)))
+
+
+def time_cta_stages(name, fn, read, plan, stages, out, reps: int) -> None:
+    """One call's time by CUDA events and every CTA's stages of its first
+    cluster by the device timer."""
+    fn()
+    torch.cuda.synchronize()
+    _build.check(read(ctypes.addressof(out)), name)
+    ms = cuda_ms(fn, reps)
+    _build.check(read(ctypes.addressof(out)), name)
+    print(f"{name} {plan}: {ms:.4f} ms per call (CUDA events)")
+    k = len(stages)
+    for r in range(plan.ctas):
+        split = [out[r * k + i] / 1e6 / reps for i in range(k)]
+        print(f"  CTA {r}: " + ", ".join(f"{s} {t:.4f} ms" for s, t in zip(stages, split)))
 
 
 if __name__ == "__main__":

@@ -1,8 +1,19 @@
-"""Launch plans at each size they can take, on the card: B8 and TTQRT at
-each cluster size, the batched GEQRT at each cluster size, and the
-whole-panel projection at each number of row-block groups.
+"""Launch plans at each size they can take, on the card: B8, B9 and TTQRT
+at each cluster size, the batched GEQRT at each cluster size and its small
+route at each CTA size, and the whole-panel projection at each number of
+row-block groups.
 
     python -m tileqr_torch.utils.plan_sweep [--reps 50] [--repeat 3] [--only NAME ...]
+
+B9 (``kernels/potrf.py``, ``--only potrf``) on the gram of a gaussian
+(2n, n) at (1, 256), (1, 512) and (4096, 128), at every C with b·C within
+the card (its blocks resident where they fit), beside ``potrf_plan``'s C
+and ``torch.linalg.cholesky``; its outputs must be bitwise equal at every
+C. The small route (``--only small``) on qr_batched's 4096 × 128² at ib 32
+and 128 at 128, 256 and 512 threads a CTA (with the CTAs an SM holds),
+and the stacks that both it and the cluster route take (m >= n, b·C
+within the card) on both, the routes side by side, beside the plan
+``batched_plan`` picks.
 
 B8 (``kernels/modlu.py``) on the top block of an orthonormal (4nb, nb)
 factor at nb = 256 and 512, and TTQRT (``kernels/ttqrt.py``) on two upper-
@@ -40,7 +51,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from tileqr_torch.kernels import _build, geqrt, panel_apply
+from tileqr_torch.kernels import _build, geqrt, panel_apply, potrf
 from tileqr_torch.kernels.chain import SLAB_COLS, StripPlan, group_rows, strip_workspace
 from tileqr_torch.kernels.modlu import (ModluPlan, modlu_panel_width, modlu_plan,
                                         modlu_smem_bytes, modified_lu_plain)
@@ -117,6 +128,27 @@ def geqrt_at(a: torch.Tensor, ib: int, ctas: int) -> Tuple[torch.Tensor, torch.T
     resident = cluster_smem_bytes(n, m, ibc, ctas, True) <= SMEM_LIMIT
     return geqrt._geqrt_cluster(a, geqrt.BatchedClusterPlan(
         ctas, ibc, cluster_smem_bytes(n, m, ibc, ctas, resident), resident))
+
+
+def potrf_plan_at(b: int, n: int, ctas: int) -> potrf.PotrfPlan:
+    """B9's plan on C = ``ctas`` CTAs a matrix: its blocks in their shared
+    memory where they fit, else in the output."""
+    if b < 1 or n < 1 or ctas not in CLUSTER_SIZES:
+        raise ValueError(f"potrf_plan_at: b={b}, n={n}, ctas={ctas}")
+    resident = potrf.potrf_smem_bytes(n, ctas, True) <= SMEM_LIMIT
+    return potrf.PotrfPlan(ctas, potrf.potrf_smem_bytes(n, ctas, resident), resident,
+                           potrf.potrf_threads(n))
+
+
+def potrf_at(g: torch.Tensor, plan: potrf.PotrfPlan) -> torch.Tensor:
+    """One B9 launch on a contiguous CUDA stack (b, n, n) at ``plan``: R."""
+    b, n, _ = g.shape
+    r = torch.empty_like(g)
+    _build.check(_build.lib().tq_potrf_batched(g.data_ptr(), r.data_ptr(), b, n, 16, plan.ctas,
+                                               plan.threads, plan.smem_bytes,
+                                               int(plan.resident), _build.stream()),
+                 "potrf_batched")
+    return r
 
 
 def project_at(y: torch.Tensor, tm, c: torch.Tensor, mr: int, precision: str,
@@ -241,6 +273,57 @@ def sweep_geqrt(b: int, m: int, n: int, ib: int, reps: int, repeat: int) -> None
     torch.cuda.empty_cache()
 
 
+def sweep_potrf(b: int, n: int, reps: int, repeat: int) -> None:
+    x = torch.from_numpy(np.random.default_rng(b + n).standard_normal(
+        (b, 2 * n, n), dtype=np.float32)).cuda()
+    g = x.transpose(1, 2) @ x
+    del x
+    sms = _build.sm_count(g)
+    want = potrf.potrf_batched_plain(g)
+    lib = timed(lambda: torch.linalg.cholesky(g, upper=True), reps, repeat)
+    ref = potrf.potrf_batched(g)
+    print(f"B9 ({b}, {n}, {n}): the wrappers' plan {potrf.potrf_plan(b, n, sms)}; "
+          f"torch.linalg.cholesky {fmt(lib)}")
+    for c in CLUSTER_SIZES:
+        if c > 1 and b * c > sms:
+            continue
+        plan = potrf_plan_at(b, n, c)
+        got = potrf_at(g, plan)
+        ms = timed(lambda: potrf_at(g, plan), reps, repeat)
+        print(f"B9 ({b}, {n}, {n}) {plan}: {fmt(ms)}, rel {rel(got, want):.3e}, "
+              f"bitwise the wrappers' {torch.equal(got, ref)}")
+    del g, want, ref
+    torch.cuda.empty_cache()
+
+
+def sweep_small(b: int, m: int, n: int, ib: int, reps: int, repeat: int) -> None:
+    """The small route at each CTA size, and the cluster route at each C
+    where it takes the stack too."""
+    a = torch.from_numpy(np.random.default_rng(b + m + ib).standard_normal(
+        (b, m, n), dtype=np.float32)).cuda()
+    want = geqrt.geqrt_batched_plain(a, ib)
+    sms = _build.sm_count(a)
+    r = max(1, reps // 10) if b > 1000 else reps
+    lib = timed(lambda: torch.geqrf(a), r, repeat)
+    print(f"geqrt_batched ({b}, {m}, {n}) ib={ib}: the wrappers' plan "
+          f"{geqrt.batched_plan(b, m, n, ib, sms)}; torch.geqrf {fmt(lib)}")
+    for threads in (128, 256, 512):
+        got = geqrt._geqrt_small(a, ib, threads)
+        ms = timed(lambda: geqrt._geqrt_small(a, ib, threads), r, repeat)
+        per_sm = _build.lib().tq_geqrt_small_per_sm(m, n, ib, threads)
+        print(f"geqrt_batched ({b}, {m}, {n}) ib={ib} small, {threads} threads, {per_sm} CTAs an "
+              f"SM: {fmt(ms)}, rel {max(rel(g, w) for g, w in zip(got, want)):.3e}")
+    for c in CLUSTER_SIZES[1:]:
+        if m < n or b * c > sms:
+            continue
+        got = geqrt_at(a, ib, c)
+        ms = timed(lambda: geqrt_at(a, ib, c), r, repeat)
+        print(f"geqrt_batched ({b}, {m}, {n}) ib={ib} cluster C={c}: {fmt(ms)}, "
+              f"rel {max(rel(g, w) for g, w in zip(got, want)):.3e}")
+    del a, want
+    torch.cuda.empty_cache()
+
+
 def sweep_project(label: str, m: int, nb: int, n: int, mr: int, modes, fold: bool, reps: int,
                   repeat: int) -> None:
     rng = np.random.default_rng(m + n)
@@ -331,7 +414,7 @@ def sweep_strip(label: str, nb: int, width: int, rows: int, couples: int, modes,
     torch.cuda.empty_cache()
 
 
-SWEEPS = ("modlu", "ttqrt", "geqrt", "project", "sub", "strip")
+SWEEPS = ("modlu", "potrf", "ttqrt", "geqrt", "small", "project", "sub", "strip")
 
 
 def main() -> int:
@@ -352,12 +435,21 @@ def main() -> int:
     if "modlu" in args.only:
         for nb in (256, 512):
             sweep_modlu(nb, reps, repeat)
+    if "potrf" in args.only:
+        for b, n in ((1, 256), (1, 512), (4096, 128)):
+            sweep_potrf(b, n, reps, repeat)
     if "ttqrt" in args.only:
         sweep_ttqrt(256, 128, reps, repeat)
     if "geqrt" in args.only:
         sweep_geqrt(1, 256, 256, 128, reps, repeat)
         for b, rows in ((32, 2048), (8, 2048), (2, 2048), (1, 1024)):
             sweep_geqrt(b, rows, 512, 128, reps, repeat)
+    if "small" in args.only:
+        for ib in (32, 128):
+            sweep_small(4096, 128, 128, ib, reps, repeat)
+        for b, m, n, ib in ((1, 128, 128, 32), (16, 128, 128, 32), (64, 128, 128, 32),
+                            (64, 128, 128, 128), (8, 256, 64, 32), (32, 159, 159, 32)):
+            sweep_small(b, m, n, ib, reps, repeat)
     if "project" in args.only:
         sweep_project("B7a", 4096, 256, 8192, 512, every, False, reps, repeat)
         sweep_project("B6 panel 0", 16384, 256, 16128, 512, every, True, max(1, reps // 10),

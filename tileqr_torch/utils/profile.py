@@ -4,6 +4,7 @@
     python -m tileqr_torch.utils.profile --method hh --n 8192 --precision b3
     python -m tileqr_torch.utils.profile --method tsqr [--n 512] [--qr]
     python -m tileqr_torch.utils.profile --method batched [--n 128]
+    python -m tileqr_torch.utils.profile --method batched_cholqr2 [--n 128]
     python -m tileqr_torch.utils.profile --method sharded [--n 16384]
     python -m tileqr_torch.utils.profile --method sharded_hr [--n 16384] [--precision b3]
 
@@ -12,7 +13,9 @@ warm on a gaussian fp32 (n, n) A made from ``--seed``, then once more under
 ``torch.profiler``; ``--method tsqr`` profiles ``tsqr(a, "r")`` (with
 ``--qr``: "reduced") on a (1048576, n) A with ``QRConfig(nb=n)``, and
 ``--method batched`` ``qr_batched`` (Q and R) on a (4096, n, n) stack:
-BASELINE's configs 3 and 4 at the default n. ``--method sharded`` spawns
+BASELINE's configs 3 and 4 at the default n; ``--method batched_cholqr2``
+the same with ``batched_method="cholqr2"`` on G + 4·√n·I (well
+conditioned, so the guard does not fall back). ``--method sharded`` spawns
 a 4×2 world of ranks on the machine's cards (``dist/launch.py``) and
 profiles ``qr_sharded(mode="factor")`` on every rank: rank 0's kernels in
 the tables, and each rank's device and wall time, whose device times add
@@ -51,7 +54,7 @@ OWN = {
     "proj_wg_kernel": "couple_strip (K3 stage 1, projections, split product)",
     "chain_kernel": "couple_strip/larfb_strip (K3 stage 2 and K4, the chain)",
     "modlu_kernel": "modified_lu",
-    "potrf_kernel": "potrf_batched",
+    "potrf_cluster_kernel": "potrf_batched",
     "project_f32_kernel": "panel apply B6/B7/B7a (phase 1)",
     "project_wg_kernel": "panel apply B6/B7/B7a (phase 1, split product)",
     "combine_kernel": "panel apply B6/B7 (phase 1's groups combined, op(T) folded in)",
@@ -59,6 +62,7 @@ OWN = {
     "sub_wg_kernel": "C -= Y W: B6/B7/B7b phase 2 and K3 stage 3 (split product)",
     "geqrt_batched_kernel": "geqrt_batched",
     "geqrt_cluster_kernel": "geqrt_batched (cluster route)",
+    "geqrt_small_kernel": "geqrt_batched (small route)",
     "Memcpy": "copies (Memcpy)",
     "ttqrt_kernel": "ttqrt",
 }
@@ -102,6 +106,9 @@ def profile_call(args, shape, n: int, tileqr_torch):
     a = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
     if args.method == "tsqr":
         cfg = tileqr_torch.QRConfig(nb=n, precision=args.precision)
+    elif args.method == "batched_cholqr2":
+        a += 4 * float(np.sqrt(n)) * torch.eye(n, device=a.device)
+        cfg = tileqr_torch.QRConfig(batched_method="cholqr2", precision=args.precision)
     else:
         cfg = tileqr_torch.QRConfig(square_method="hr" if args.method == "hr" else "hh",
                                     precision=args.precision)
@@ -109,7 +116,7 @@ def profile_call(args, shape, n: int, tileqr_torch):
     def call():
         if args.method == "tsqr":
             return tileqr_torch.tsqr(a, "reduced" if args.qr else "r", cfg)
-        if args.method == "batched":
+        if args.method.startswith("batched"):
             return tileqr_torch.qr_batched(a, config=cfg)
         if args.qr:
             return tileqr_torch.qr(a, config=cfg)
@@ -160,8 +167,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=None,
                     help="columns (default 16384 square, 512 tsqr, 128 batched)")
-    ap.add_argument("--method", choices=("hh", "hr", "tsqr", "batched", "sharded", "sharded_hr"),
-                    default="hr")
+    ap.add_argument("--method", choices=("hh", "hr", "tsqr", "batched", "batched_cholqr2",
+                                         "sharded", "sharded_hr"), default="hr")
     ap.add_argument("--qr", action="store_true", help="profile qr (factor + R + Q)")
     ap.add_argument("--health", action="store_true", help="hr: print each panel's defect")
     ap.add_argument("--precision", default="highest",
@@ -181,9 +188,11 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}")
     _build.lib()
-    n = args.n or {"tsqr": 512, "batched": 128}.get(args.method, 16384)
-    shape = {"tsqr": (1048576, n), "batched": (4096, n, n)}.get(args.method, (n, n))
+    n = args.n or {"tsqr": 512, "batched": 128, "batched_cholqr2": 128}.get(args.method, 16384)
+    shape = {"tsqr": (1048576, n), "batched": (4096, n, n),
+             "batched_cholqr2": (4096, n, n)}.get(args.method, (n, n))
     what = {"tsqr": "tsqr reduced" if args.qr else "tsqr r", "batched": "qr_batched",
+            "batched_cholqr2": "qr_batched cholqr2 (G + 4 sqrt(n) I)",
             "sharded": "qr_sharded factor, rank 0 of 4x2 ranks",
             "sharded_hr": "qr_sharded hr factor, rank 0 of 4x2 ranks"}.get(
         args.method, f"{args.method} {'qr' if args.qr else 'qr_factor'}")
