@@ -58,16 +58,17 @@ use (one nvcc per source, in parallel), then:
    16384²;
 7. the tall-skinny path at BASELINE config 3, a 1048576×512 gaussian A with
    ``QRConfig(nb=512)``: holds the batched GEQRT against its plain version
-   on the 512 leaves of 2048 rows (the one-block kernel) and on each tree
-   level's stack as ``tsqr_factor`` forms it (128 stacks of 2048×512 on the
-   one-block kernel; 32, 8, 2 stacks of 2048×512 and 1 of 1024×512 on the
-   cluster route, ``batched_cluster_plan``'s C printed), and times each
-   beside its plain version and ``torch.geqrf`` (each cluster level also
-   beside the one-block kernel on the same stack); runs ``tsqr(a, "r")``
-   (auto → tree) with the counts set to 0 just before and read just after
-   (each route launched as often as the plans say: the leaves and the
-   first level on the one-block kernel, four levels on the cluster route;
-   no other kernel, no plain version) and ``tsqr(a, "reduced")``, and checks the relerr ‖QᵀA − [R; 0]‖F/‖A‖F
+   on the 512 leaves of 2048 rows (the tall route, ``tall_plan`` printed)
+   and on each tree level's stack as ``tsqr_factor`` forms it (128 stacks
+   of 2048×512 on the tall route; 32, 8, 2 stacks of 2048×512 and 1 of
+   1024×512 on the cluster route, ``batched_cluster_plan``'s C printed),
+   each rerun bitwise, and times each beside its plain version,
+   ``torch.geqrf`` and the one-block kernel on the same stack; runs
+   ``tsqr(a, "r")`` (auto → tree) with the counts set to 0 just before and
+   read just after (each route launched as often as the plans say: the
+   leaves and the first level on the tall route, four levels on the
+   cluster route; no other kernel, no plain version) and
+   ``tsqr(a, "reduced")``, and checks the relerr ‖QᵀA − [R; 0]‖F/‖A‖F
    through ``apply_q`` on the tree's ``TSQRFactors`` ≤ 1e-6, the explicit-Q
    residual ≤ 3e-6, ‖QᵀQ − I‖F ≤ 1e-3, R against ``torch.linalg.qr`` up to
    row signs (printed), bitwise reruns; then ``tsqr(a, "factor")`` (auto →
@@ -92,7 +93,12 @@ use (one nvcc per source, in parallel), then:
    bitwise, each ib block's T against ``t_from_gram`` of the kernel's own
    reflectors, and ``geqrt`` on one 256² tile (B1s: the cluster route;
    rerun bitwise), each timed beside ``torch.geqrf`` (B1s also beside the
-   one-block kernel); runs ``qr_batched(a)`` with the counts set to 0 just
+   one-block kernel); the one-block kernel at a stack it keeps (64 wide
+   256×512 matrices, which no path runs: 0 launches in the line) against
+   its plain version, rerun bitwise, timed beside ``torch.geqrf``; the
+   tall route on ``qr_batched``'s 4096 × 256² (past the small route)
+   likewise, beside the one-block kernel on the same stack; runs
+   ``qr_batched(a)`` with the counts set to 0 just
    before and read just after (one small-route launch, no plain version) and
    checks the max over the batch of ‖A − QR‖F/‖A‖F ≤ 1e-6 and of
    ‖QᵀQ − I‖F ≤ 1e-3 and bitwise reruns; with
@@ -260,10 +266,16 @@ KERNEL_INFO = {
     "potrf_batched": ("tileqr_torch/csrc/potrf.cu", "tileqr/drivers/cholqr.py:203"),
     "panel_apply_carry": ("tileqr_torch/csrc/panel_apply.cu + tileqr_torch/csrc/tile_gemm.cuh",
                           "tileqr/kernels/panel_apply.py:227"),
-    # the batched GEQRT's one-block kernel: tall tiles in global memory (the
-    # tsqr leaves and the tree's level of 128 stacks)
+    # the batched GEQRT's one-block kernel, its tile in global memory: the
+    # stacks no other route takes (m < n past the small route; tall n = 8
+    # leaves of 131072 rows in stacks past the cluster route), which no
+    # path runs: held and timed at a wide stack, 0 launches on the paths
     "geqrt_batched": ("tileqr_torch/csrc/geqrt_batched.cu + tileqr_torch/csrc/geqrt.cuh",
-                      "tileqr/drivers/tsqr.py:217"),
+                      "tileqr/drivers/batched.py:41, tileqr/drivers/tsqr.py:217"),
+    # its tall route: panels in shared memory, a persistent CTA a matrix (the
+    # tsqr leaves and the tree's level of 128 stacks)
+    "geqrt_batched[tall]": ("tileqr_torch/csrc/geqrt_tall.cu + tileqr_torch/csrc/tile_gemm.cuh",
+                            "tileqr/drivers/tsqr.py:217"),
     # the batched GEQRT's cluster route: small stacks (the tsqr tree's
     # levels of 32, 8, 2, 1 matrices; B1s), one thread-block cluster a matrix
     "geqrt_batched[cluster]": ("tileqr_torch/csrc/geqrt_batched.cu + "
@@ -330,7 +342,9 @@ def max_abs(x: torch.Tensor, y: torch.Tensor) -> float:
 
 
 def geqrf_flops(m: int, n: int) -> float:
-    """LAPACK's count for a Householder QR of an (m, n) block, m >= n."""
+    """LAPACK's count for a Householder QR of an (m, n) block."""
+    if m < n:
+        return 2.0 * n * m * m - 2.0 * m ** 3 / 3.0
     return 2.0 * m * n * n - 2.0 * n ** 3 / 3.0
 
 
@@ -974,10 +988,10 @@ def geqrt_route(b: int, m: int, n: int, ib: int = IB) -> str:
 
 def tree_levels(rec: KernelRecord, rs: torch.Tensor, p: int, n: int, lr: int, card: str) -> list:
     """Each level of the tsqr tree on the stack tsqr_factor forms from the
-    R factors below (rs: the leaves' R), against the plain version, timed
-    beside the one-block kernel on the same stack (the cluster levels) and
-    ``torch.geqrf``; the level of 32 stacks is the cluster route's row.
-    Returns each level's route."""
+    R factors below (rs: the leaves' R), against the plain version, rerun
+    bitwise, timed beside the one-block kernel on the same stack and
+    ``torch.geqrf``; the level of 32 stacks is the cluster route's row,
+    level 1 (128 stacks) the tall route's. Returns each level's route."""
     from tileqr_torch.drivers import tsqr as dtsqr
     from tileqr_torch.kernels import geqrt
     from tileqr_torch.utils.plan_sweep import geqrt_at
@@ -992,6 +1006,9 @@ def tree_levels(rec: KernelRecord, rs: torch.Tensor, p: int, n: int, lr: int, ca
         label = f"tsqr level {tuple(stack.shape)} ib={IB} C={plan.ctas}"
         got = geqrt.geqrt_batched(stack, IB)
         rec.compare(key, label, got, geqrt.geqrt_batched_plain(stack, IB))
+        same = all(torch.equal(x, y) for x, y in zip(got, geqrt.geqrt_batched(stack, IB)))
+        print(f"kernel {key} {label}: rerun bitwise equal: {same}")
+        require(same, f"{key} reruns differ ({label})")
         bound = geqrt_bound(ncomb, a_l * n, n)
         if plan.route == "cluster" and ncomb == 32:
             rec.bound[key] = bound
@@ -1002,7 +1019,8 @@ def tree_levels(rec: KernelRecord, rs: torch.Tensor, p: int, n: int, lr: int, ca
             rec.time(key, lambda: geqrt.geqrt_batched(stack, IB),
                      lambda: geqrt.geqrt_batched_plain(stack, IB), lambda: torch.geqrf(stack),
                      3, 1, card, label=label, bound=bound)
-        if plan.route == "cluster":
+        if plan.route in ("cluster", "tall"):
+            geqrt_at(stack, IB, 1)
             print(f"time geqrt_batched {label}: the one-block kernel on the same stack "
                   f"{cuda_ms(lambda: geqrt_at(stack, IB, 1), 2):.4f} ms [{card}]")
         rnew = torch.triu(got[0][:, :n])
@@ -1078,6 +1096,7 @@ def phase7(rec: KernelRecord, rng, card: str):
     from tileqr_torch.drivers import tsqr as dtsqr
     from tileqr_torch.drivers.square_hr import apply_q_hr
     from tileqr_torch.kernels import geqrt
+    from tileqr_torch.utils.plan_sweep import geqrt_at
     from tileqr_torch.utils.verify import backward_error_f64, residuals_f64
 
     m, n = M_TS, N_TS
@@ -1087,28 +1106,40 @@ def phase7(rec: KernelRecord, rng, card: str):
     p = m // lr
     leaves = a.view(p, lr, n)
 
-    # the kernel on the leaves, and on each level's stack as tsqr_factor
-    # forms it from the R factors below
+    # the kernel on the leaves (the tall route), and on each level's stack
+    # as tsqr_factor forms it from the R factors below
+    leaf_key = geqrt_route(p, lr, n)
+    tall = geqrt.tall_plan(p, lr, n, IB, torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"route geqrt_batched tsqr leaves ({p}, {lr}, {n}): {leaf_key}, {tall}")
+    require(leaf_key == "geqrt_batched[tall]", f"the leaves take {leaf_key}")
     got = geqrt.geqrt_batched(leaves, IB)
     want = geqrt.geqrt_batched_plain(leaves, IB)
-    rec.compare("geqrt_batched", f"tsqr leaves ({p}, {lr}, {n}) ib={IB}", got, want)
+    rec.compare(leaf_key, f"tsqr leaves ({p}, {lr}, {n}) ib={IB}", got, want)
     del want
+    same = all(torch.equal(x, y) for x, y in zip(got, geqrt.geqrt_batched(leaves, IB)))
+    print(f"kernel {leaf_key} tsqr leaves: rerun bitwise equal: {same}")
+    require(same, "the leaves' reruns differ")
     rs = torch.triu(got[0].view(p, lr, n)[:, :n])
     del got
     torch.cuda.empty_cache()
     routes = tree_levels(rec, rs, p, n, lr, card)
     del rs
     torch.cuda.empty_cache()
-    rec.bound["geqrt_batched"] = geqrt_bound(p, lr, n)
-    rec.time("geqrt_batched", lambda: geqrt.geqrt_batched(leaves, IB),
+    rec.bound[leaf_key] = geqrt_bound(p, lr, n)
+    rec.time(leaf_key, lambda: geqrt.geqrt_batched(leaves, IB),
              lambda: geqrt.geqrt_batched_plain(leaves, IB), lambda: torch.geqrf(leaves),
-             2, 1, card)
+             3, 1, card)
+    geqrt_at(leaves, IB, 1)
+    print(f"time geqrt_batched tsqr leaves ({p}, {lr}, {n}): the one-block kernel on the same "
+          f"stack {cuda_ms(lambda: geqrt_at(leaves, IB, 1), 1):.4f} ms [{card}]")
     torch.cuda.empty_cache()
 
     # the path: tsqr r (auto → tree): the leaves and every level, each on
     # the route its plan picks
     route_of = geqrt_route(p, lr, n)
     expect = {k: ([route_of] + routes).count(k) for k in TS_KERNELS}
+    require(expect["geqrt_batched[tall]"] == 2 and expect["geqrt_batched[cluster]"] == 4,
+            f"tsqr r's routes: {expect}")
     r, launches = run_counted(lambda: tileqr_torch.tsqr(a, "r", cfg),
                               tuple(k for k in TS_KERNELS if expect[k]), expect,
                               "tsqr r (auto → tree)")
@@ -1189,6 +1220,63 @@ def batched_gates(a: torch.Tensor, q: torch.Tensor, r: torch.Tensor, what: str, 
     require(res <= TOL_RELERR and orth <= TOL_ORTH, f"{what}: residual {res:.3e} orth {orth:.3e}")
 
 
+def one_block(rec: KernelRecord, card: str) -> None:
+    """The one-block kernel at a stack it keeps, wide matrices past the
+    small route (m < n, which neither the cluster nor the tall route
+    takes): against its plain version, rerun bitwise, timed beside
+    ``torch.geqrf``. No path runs it. Its stack comes from a generator of
+    its own, so the phases after it draw from the shared stream what they
+    drew before this check was added."""
+    from tileqr_torch.kernels import geqrt
+
+    rng = np.random.default_rng(12)
+    b, m, n = 64, 256, 512
+    key = geqrt_route(b, m, n)
+    require(key == "geqrt_batched", f"a wide ({b}, {m}, {n}) stack takes {key}")
+    a = torch.from_numpy(rng.standard_normal((b, m, n), dtype=np.float32)).cuda()
+    label = f"wide stack ({b}, {m}, {n}) ib={IB}"
+    got = geqrt.geqrt_batched(a, IB)
+    rec.compare(key, label, got, geqrt.geqrt_batched_plain(a, IB))
+    same = all(torch.equal(x, y) for x, y in zip(got, geqrt.geqrt_batched(a, IB)))
+    print(f"kernel {key} {label}: rerun bitwise equal: {same}")
+    require(same, f"{key} reruns differ ({label})")
+    rec.bound[key] = geqrt_bound(b, m, n)
+    rec.time(key, lambda: geqrt.geqrt_batched(a, IB), lambda: geqrt.geqrt_batched_plain(a, IB),
+             lambda: torch.geqrf(a), 5, 1, card)
+    del a, got
+    torch.cuda.empty_cache()
+
+
+def tall_tiles(rec: KernelRecord, card: str) -> None:
+    """The tall route on 4096 matrices of 256², a ``qr_batched`` stack
+    past the small route: against its plain version, rerun bitwise, timed
+    beside its bound, ``torch.geqrf`` and the one-block kernel on the
+    same stack. Its stack comes from a generator of its own, so the phases
+    after it draw from the shared stream what they drew before."""
+    from tileqr_torch.kernels import geqrt
+    from tileqr_torch.utils.plan_sweep import geqrt_at
+
+    rng = np.random.default_rng(13)
+    b, n = 4096, 2 * N_BA
+    key = geqrt_route(b, n, n)
+    require(key == "geqrt_batched[tall]", f"a ({b}, {n}, {n}) stack takes {key}")
+    a = torch.from_numpy(rng.standard_normal((b, n, n), dtype=np.float32)).cuda()
+    label = f"qr_batched's ({b}, {n}, {n}) ib={IB}"
+    got = geqrt.geqrt_batched(a, IB)
+    rec.compare(key, label, got, geqrt.geqrt_batched_plain(a, IB))
+    same = all(torch.equal(x, y) for x, y in zip(got, geqrt.geqrt_batched(a, IB)))
+    print(f"kernel {key} {label}: rerun bitwise equal: {same}")
+    require(same, f"{key} reruns differ ({label})")
+    del got
+    rec.time(key, lambda: geqrt.geqrt_batched(a, IB), lambda: geqrt.geqrt_batched_plain(a, IB),
+             lambda: torch.geqrf(a), 5, 1, card, label=label, bound=geqrt_bound(b, n, n))
+    geqrt_at(a, IB, 1)
+    print(f"time geqrt_batched {label}: the one-block kernel on the same stack "
+          f"{cuda_ms(lambda: geqrt_at(a, IB, 1), 3):.4f} ms [{card}]")
+    del a
+    torch.cuda.empty_cache()
+
+
 def phase8(rec: KernelRecord, rng, card: str) -> int:
     """The batched path at config 4; returns the small route's launches in
     its ``qr_batched`` run."""
@@ -1249,6 +1337,8 @@ def phase8(rec: KernelRecord, rng, card: str) -> int:
              20, 2, card, label=label, bound=geqrt_bound(1, 2 * n, 2 * n))
     print(f"time geqrt_batched {label}: the one-block kernel on the same tile "
           f"{cuda_ms(lambda: geqrt_at(tile[None], IB, 1), 10):.4f} ms [{card}]")
+    one_block(rec, card)
+    tall_tiles(rec, card)
 
     (q, r), launches = run_counted(lambda: tileqr_torch.qr_batched(a, config=hh),
                                    ("geqrt_batched[small]",), {"geqrt_batched[small]": 1},
@@ -2078,7 +2168,8 @@ def main() -> int:
     sh, sh_hr = phase10(rec, rng, card)
     launches.update({k: sh[k] for k in _build.SHARDED_KERNELS + _build.SITE_KERNELS})
     launches.update({k: sh_hr[k] for k in KERNEL_INFO if k.split("[")[0] in SHARDED_HR_KERNELS})
-    idle = [k for k in KERNEL_INFO if not launches[k]]
+    # the one-block kernel keeps only stacks that no path runs (one_block)
+    idle = [k for k in KERNEL_INFO if not launches[k] and k != "geqrt_batched"]
     require(not idle, f"kernels of the line that no path launched: {idle}")
     print(json.dumps({"kernels": rec.line(launches)}))
     print(card)

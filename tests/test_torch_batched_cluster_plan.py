@@ -128,14 +128,14 @@ def test_plain_version_at_a_cluster_shape_matches_tileqr(dt, tol):
         assert np.linalg.norm(g.numpy() - w) / np.linalg.norm(w) <= tol
 
 
-# ---- the three routes (batched_plan): small, cluster, one-block global ----
+# ---- the four routes (batched_plan): small, cluster, tall, one-block global ----
 
 # (b, m, n, ib) → (route, C)
 ROUTE_CASES = {
     "b11-4096x128-ib32": ((4096, 128, 128, 32), ("small", 1)),
     "b16-4096x128-ib128": ((4096, 128, 128, 128), ("small", 1)),
-    "tsqr-leaves": ((512, 2048, 512, 128), ("global", 1)),
-    "tsqr-level-128": ((128, 2048, 512, 128), ("global", 1)),
+    "tsqr-leaves": ((512, 2048, 512, 128), ("tall", 1)),
+    "tsqr-level-128": ((128, 2048, 512, 128), ("tall", 1)),
     "tsqr-level-32": ((32, 2048, 512, 128), ("cluster", 4)),
     "b1s-256": ((1, 256, 256, 128), ("cluster", 8)),
     "wide-small": ((3, 32, 48, 16), ("small", 1)),
@@ -143,6 +143,13 @@ ROUTE_CASES = {
     # both routes take it: the small route (a matrix a CTA) is picked
     "64x128-ib32": ((64, 128, 128, 32), ("small", 1)),
     "n8-leaves": ((2, 131072, 8, 8), ("cluster", 16)),
+    # past the cluster route (b·C > the SMs), its 8-column panel past shared memory
+    "n8-leaves-200": ((200, 131072, 8, 8), ("global", 1)),
+    # past the cluster route (b·C > the SMs): the tall route
+    "140x256": ((140, 256, 256, 128), ("tall", 1)),
+    "4096x256": ((4096, 256, 256, 128), ("tall", 1)),
+    "67x2048x512": ((67, 2048, 512, 128), ("tall", 1)),
+    "wide-4096x256x512": ((4096, 256, 512, 128), ("global", 1)),
 }
 
 
@@ -156,6 +163,9 @@ def test_batched_plan_routes(case):
         assert plan.threads == (512 if m >= n and ib >= n else 256)
     elif route == "cluster":
         assert plan[1:5] == geqrt.batched_cluster_plan(b, m, n, ib, H100_SMS)
+    elif route == "tall":
+        tall = geqrt.tall_plan(b, m, n, ib, H100_SMS)
+        assert plan.smem_bytes == tall.smem_bytes and plan.threads == geqrt.TALL_THREADS
     else:
         assert plan.smem_bytes == 0 and plan.threads == geqrt.GLOBAL_THREADS
 
@@ -164,7 +174,8 @@ def test_batched_plan_routes(case):
 def test_batched_plan_small_is_the_shared_memory_shapes(n):
     """The small route takes exactly the shapes whose tile, T and reflector
     fit 200 KiB (4(mn + n² + m)), whatever b and the SM count; the others
-    go to the cluster or the one-block kernel as batched_cluster_plan says."""
+    go to the cluster route as batched_cluster_plan says, else to the tall
+    route where tall_plan takes them, else to the one-block kernel."""
     for m in (1, n // 2 + 1, n, 2 * n, 8 * n):
         for b in (1, 7, 4096):
             for sms in (16, 132):
@@ -173,7 +184,8 @@ def test_batched_plan_small_is_the_shared_memory_shapes(n):
                 assert (plan.route == "small") == small
                 if not small:
                     c = geqrt.batched_cluster_plan(b, m, n, 32, sms).ctas
-                    assert plan.route == ("cluster" if c > 1 else "global")
+                    tall = geqrt.tall_plan(b, m, n, 32, sms) is not None
+                    assert plan.route == ("cluster" if c > 1 else "tall" if tall else "global")
 
 
 @pytest.mark.parametrize("args", [(0, 8, 8, 8, 132), (1, 8, 8, 0, 132), (1, 8, 8, 8, 0)],

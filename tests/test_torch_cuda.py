@@ -3,7 +3,7 @@ both square paths (hh and hr), tsqr and qr_batched end to end, the
 split-product instantiations of K3, K4, B6 and B7 in each emulated
 precision mode, the whole-panel projection at 1, 2 and 3 row-block groups
 (against the plain sums in the same groups), the batched GEQRT's
-cluster route, and K3's three stages and phase 2 at every tile and G
+routes (its tall route at every width its kernel is built for), and K3's three stages and phase 2 at every tile and G
 their plans can take (against the plain versions in the same groups).
 
 Every test here needs a CUDA device and carries the ``cuda_only`` marker;
@@ -378,13 +378,15 @@ def test_hr_pins_ieee_fp32_and_numpy_input_runs_on_the_card(cuda):
 
 # (B, m, n, ib): the small route (a CTA a matrix, 4(mn + n² + m) <= 200
 # KiB: odd B, m < n, n not a multiple of ib, a last block narrower than ib,
-# two lanes a reflector index at ib 64, a matrix wider than ib = 128) and
-# the one-block kernel (a tall leaf, a 256² tile, n = 8 leaves of 131072
-# rows whose reflector is past shared memory); each launch counted under
-# its route's key
+# two lanes a reflector index at ib 64, a matrix wider than ib = 128), the
+# cluster route (a tall leaf, a 256² tile, n = 8 leaves of 131072 rows),
+# the tall route past the cluster route's b·C <= SMs (67 leaves of the
+# tsqr leaves' 2048 × 512, 140 tiles of 256²) and the one-block kernel
+# (m < n past the small route); each launch counted under its route's key
 GEQRT_CASES = [(64, 128, 128, 32), (16, 128, 128, 128), (5, 72, 40, 32), (3, 32, 48, 16),
                (7, 100, 100, 32), (3, 100, 60, 64), (5, 159, 159, 128), (3, 40, 200, 16),
-               (3, 300, 64, 32), (3, 2048, 64, 64), (2, 256, 256, 128), (2, 131072, 8, 8)]
+               (3, 300, 64, 32), (3, 2048, 64, 64), (2, 256, 256, 128), (2, 131072, 8, 8),
+               (67, 2048, 512, 128), (140, 256, 256, 128), (2, 300, 400, 32)]
 
 
 @pytest.mark.parametrize("b,m,n,ib", GEQRT_CASES,
@@ -423,6 +425,79 @@ def test_geqrt_small_t_blocks_are_the_recurrence(cuda, b, m, n, ib):
         tau = torch.diagonal(t[:, s:e, s:e], dim1=1, dim2=2).double()
         want = geqrt.t_from_gram(vb.transpose(1, 2) @ vb, tau)
         assert rel(t[:, s:e, s:e], want) <= TOL
+
+
+def tall_plans(b, m, n, ib, sms):
+    """Every plan the tall route's kernel is built for at this shape: each
+    width whose panel fits."""
+    from tileqr_torch.utils.plan_sweep import tall_plan_at
+
+    plans = []
+    for w in geqrt.TALL_WIDTHS:
+        try:
+            plans.append(tall_plan_at(b, m, n, ib, sms, w))
+        except ValueError:
+            pass
+    return plans
+
+
+# (B, m, n, ib) through the direct entry: the leaves' shape at a small B, an
+# odd B, a ragged n (a last block and panel narrower than ib and w, the
+# 4-float copies) and a tall n = 8 leaf
+TALL_CASES = [(3, 2048, 512, 128), (5, 256, 256, 128), (3, 200, 44, 32), (4, 130, 37, 16),
+              (2, 2048, 8, 8)]
+
+
+@pytest.mark.parametrize("b,m,n,ib", TALL_CASES, ids=[f"{b}x{m}x{n}-ib{ib}" for b, m, n, ib in TALL_CASES])
+def test_geqrt_tall_at_every_width(cuda, b, m, n, ib):
+    """The tall route at every width and leaves an SM its kernel is built
+    for, against the plain version; reruns bitwise, the input read only,
+    one launch a call under its key."""
+    a = torch.from_numpy(np.random.default_rng(b + m + n).standard_normal(
+        (b, m, n), dtype=np.float32)).to(cuda)
+    before = a.clone()
+    want = geqrt.geqrt_batched_plain(a, ib)
+    plans = tall_plans(b, m, n, ib, _build.sm_count(a))
+    assert geqrt.tall_plan(b, m, n, ib, _build.sm_count(a)) in plans
+    for plan in plans:
+        _build.reset_counts()
+        got = geqrt._geqrt_tall(a, plan)
+        again = geqrt._geqrt_tall(a, plan)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["geqrt_batched[tall]"] == 2 and sum(_build.LAUNCHES.values()) == 2
+        assert torch.equal(a, before)
+        for g, h, w in zip(got, again, want):
+            assert torch.equal(g, h)
+            assert rel(g, w) <= TOL, plan
+
+
+@pytest.mark.parametrize("b,m,n,ib", [(3, 2048, 512, 128), (5, 256, 256, 128), (3, 200, 44, 32)],
+                         ids=str)
+def test_geqrt_tall_t_is_the_recurrence(cuda, b, m, n, ib):
+    """The tall route's T, each ib block and the whole matrix, against
+    ``t_from_gram`` of its own reflectors (the gram in float64): the panels'
+    larft and the joins build the T of the column recurrence."""
+    a = torch.from_numpy(np.random.default_rng(b + n).standard_normal(
+        (b, m, n), dtype=np.float32)).to(cuda)
+    packed, t = geqrt._geqrt_tall(a, geqrt.tall_plan(b, m, n, ib, _build.sm_count(a)))
+    v = (torch.tril(packed, -1) + torch.eye(m, n, device=cuda)).double()
+    tau = torch.diagonal(t, dim1=1, dim2=2).double()
+    for s in range(0, n, ib):
+        e = min(s + ib, n)
+        vb = v[:, :, s:e]
+        want = geqrt.t_from_gram(vb.transpose(1, 2) @ vb, tau[:, s:e])
+        assert rel(t[:, s:e, s:e], want) <= TOL
+    assert rel(t, geqrt.t_from_gram(v.transpose(1, 2) @ v, tau)) <= TOL
+    assert not torch.tril(t, -1).any()
+
+
+def test_geqrt_tall_refuses_what_it_cannot_take(cuda):
+    a = torch.zeros((2, 64, 128), device=cuda)
+    plan = geqrt.tall_plan(2, 128, 64, 32, _build.sm_count(a))
+    with pytest.raises(ValueError, match="tall"):
+        geqrt._geqrt_tall(a, plan)  # m < n
+    with pytest.raises(ValueError, match="tall"):
+        geqrt._geqrt_tall(a.transpose(1, 2).contiguous(), plan._replace(w=12))
 
 
 def test_geqrt_batched_raises_on_float64(cuda):

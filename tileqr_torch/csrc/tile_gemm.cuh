@@ -1,7 +1,8 @@
 // Block-level tiled products D = A B on the H100, the building blocks of
 // the whole-panel apply's phase 2 (panel_apply.cu: tq_panel_sub, B7b and
-// phase 2 of B6/B7) and of the strip apply K3/K4 (strip.cu: its three
-// stages). One routine a route:
+// phase 2 of B6/B7), of the strip apply K3/K4 (strip.cu: its three
+// stages) and of the batched GEQRT's tall route (geqrt_tall.cu: its
+// updates and T joins, f32_tile only). One routine a route:
 //
 //   f32_tile<BM, BN, A_KMAJ>  ("highest"): 256 threads, a BM x BN tile of
 //       D (128 x 128, 64 x 64 or 128 x 64), (BM/16) x (BN/16) entries a
@@ -182,8 +183,12 @@ __host__ __device__ constexpr size_t f32_smem() {
 // D rows i0.., columns j0.. (a BM x BN tile) over k in [k0, k1). Thread
 // (ty, tx) = (tid / 16, tid % 16) owns rows 64 (r / 4) + 4 ty + r % 4 and
 // columns 64 (q / 4) + 4 tx + q % 4. The A stage is (FK + 4)-padded rows
-// of k when A_KMAJ (read 4 k at a time), else rows of i.
-template <int BM, int BN, bool A_KMAJ, class Epi>
+// of k when A_KMAJ (read 4 k at a time), else rows of i. KC > 0 (a
+// multiple of FK): each D entry is instead the sum, in order, of the fmaf
+// chains over consecutive runs of KC k from k0 (geqrt_tall.cu's
+// contractions over tall rows keep geqrt.cuh's GEMM_KCHUNK error bound);
+// KC = 0 compiles to the single chain above.
+template <int BM, int BN, bool A_KMAJ, int KC = 0, class Epi>
 __device__ __forceinline__ void f32_tile(float* sm, Opnd A, Opnd B, int M, int N, int k0, int k1,
                                          int i0, int j0, bool vec, bool unit, Epi epi) {
   static_assert(BM % 64 == 0 && BN % 64 == 0, "tiles of 64 rows and columns");
@@ -236,11 +241,12 @@ __device__ __forceinline__ void f32_tile(float* sm, Opnd A, Opnd B, int M, int N
     }
   };
 
-  float acc[RM][RN];
+  static_assert(KC % FK == 0, "runs of whole stages");
+  float acc[RM][RN], tot[RM][RN];
 #pragma unroll
   for (int r = 0; r < RM; ++r)
 #pragma unroll
-    for (int q = 0; q < RN; ++q) acc[r][q] = 0.f;
+    for (int q = 0; q < RN; ++q) acc[r][q] = tot[r][q] = 0.f;
 
   load(0);
   load(1);
@@ -248,7 +254,10 @@ __device__ __forceinline__ void f32_tile(float* sm, Opnd A, Opnd B, int M, int N
     cp_wait<FSTAGES - 2>();  // this thread's copies of stage s have landed
     __syncthreads();         // everyone's; and stage s - 1's buffer is consumed
     load(s + 2);
-    if (unit) {
+    // the mask changes only the elements on and above the unit diagonal (r
+    // <= c), so only stages whose k reach the tile's rows need it
+    const int kb = k0 + s * FK;
+    if (unit && (A_KMAJ ? i0 <= kb + FK - 1 : kb <= i0 + BM - 1)) {
       mask(s);
       __syncthreads();
     }
@@ -297,6 +306,23 @@ __device__ __forceinline__ void f32_tile(float* sm, Opnd A, Opnd B, int M, int N
           for (int q = 0; q < RN; ++q) acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
       }
     }
+    if constexpr (KC > 0) {
+      if ((s + 1) % (KC / FK) == 0) {  // a run of KC k ends: fold it into the total
+#pragma unroll
+        for (int r = 0; r < RM; ++r)
+#pragma unroll
+          for (int q = 0; q < RN; ++q) {
+            tot[r][q] += acc[r][q];
+            acc[r][q] = 0.f;
+          }
+      }
+    }
+  }
+  if constexpr (KC > 0) {
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int q = 0; q < RN; ++q) acc[r][q] = tot[r][q] + acc[r][q];
   }
   cp_wait<0>();
 

@@ -36,10 +36,13 @@ import torch
 
 HH_KERNELS = ("panel_factor", "panel_chain", "couple_strip", "larfb_strip")
 HR_KERNELS = ("modified_lu", "potrf_batched", "panel_apply_carry")
-# the batched GEQRT's three routes, counted apart: the one-block kernel
-# (tall tiles in global memory), the cluster route (small stacks, one
-# thread-block cluster a matrix) and the small route (a matrix a CTA)
-TS_KERNELS = ("geqrt_batched", "geqrt_batched[cluster]", "geqrt_batched[small]")
+# the batched GEQRT's four routes, counted apart: the one-block kernel
+# (its tile in global memory: m < n past the small route), the cluster
+# route (small stacks, one thread-block cluster a matrix), the small route
+# (a matrix a CTA) and the tall route (panels in shared memory, a
+# persistent CTA a leaf: the tsqr leaves and the tree's level 1)
+TS_KERNELS = ("geqrt_batched", "geqrt_batched[cluster]", "geqrt_batched[small]",
+              "geqrt_batched[tall]")
 # B7, the value-level whole-panel apply of the hr apply_q/orgqr
 APPLY_KERNELS = ("panel_apply",)
 # B15's TTQRT, the combine of the sharded tree
@@ -113,6 +116,11 @@ SIGNATURES = {
     "tq_geqrt_small_per_sm": (_I, _I, _I, _I),
     # a, packed, t, work, batch, m, n, ib, ctas, smem, resident, stream
     "tq_geqrt_batched_cluster": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _P),
+    # the tall route: a, packed, t, work, ops, nops, batch, m, n, ibm, w,
+    # vec, grid, smem (kernels/geqrt.py:tall_plan), stream
+    "tq_geqrt_tall": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _L, _P),
+    # tall-route CTAs an SM holds (or -cudaError): m, w
+    "tq_geqrt_tall_per_sm": (_I, _I),
     # r1, r2, nb, ib, r_out, v2, t2, work, ctas, smem, resident, stream
     "tq_ttqrt": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _L, _I, _P),
 }

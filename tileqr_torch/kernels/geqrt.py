@@ -27,26 +27,31 @@ a stack with inner block width ``ib`` (packed reflectors and T):
 ``batched.py:geqrt_batched_grouped`` (G matrices per grid step),
 ``tileqr/drivers/tsqr.py:tall_geqrt`` (every leaf of a tall matrix, and the
 tree's stacked R factors) and ``tileqr/kernels/geqrt.py:geqrt`` (B = 1).
-On a CUDA tensor it takes one of three routes, which ``batched_plan``
+On a CUDA tensor it takes one of four routes, which ``batched_plan``
 picks from the shapes and the SM count: a matrix whose tile fits one
 CTA's shared memory the small route ``tq_geqrt_small``
 (``csrc/geqrt_small.cu``, a CTA a matrix, several an SM: ``qr_batched``'s
 stacks, B11 and B16), counted as ``geqrt_batched[small]``; a stack small
 enough that B clusters fill the card the cluster route
 ``tq_geqrt_batched_cluster`` (one thread-block cluster a matrix,
-``csrc/geqrt_cluster.cuh``: B1s at 256² and the tsqr tree's levels),
-counted as ``geqrt_batched[cluster]``; any other stack ``tq_geqrt_batched``
-(``csrc/geqrt_batched.cu``, one block a matrix, its tile in global
-memory: the tsqr leaves). On a CPU tensor it runs ``geqrt_batched_plain``.
-The routes sum in other orders, so a matrix's bits depend on the route,
-which depends on B. The small route builds each block's T by the column
-recurrence (``t_from_gram``) where the plain version doubles: the two agree
-to rounding.
+``csrc/geqrt_cluster.cuh``: B1s at 256² and the tsqr tree's levels of ≤ 32
+stacks), counted as ``geqrt_batched[cluster]``; a stack of m ≥ n whose
+narrow panels fit one CTA's shared memory the tall route
+``tq_geqrt_tall`` (``csrc/geqrt_tall.cu``, a persistent CTA a matrix,
+``tall_plan`` and ``tall_schedule``: the tsqr leaves and the tree's level
+of 128 stacks), counted as ``geqrt_batched[tall]``; any other stack
+``tq_geqrt_batched`` (``csrc/geqrt_batched.cu``, one block a matrix, its
+tile in global memory: m < n past the small route). On a CPU tensor it
+runs ``geqrt_batched_plain``. The routes sum in other orders, so a
+matrix's bits depend on the route, which depends on B. The small and tall
+routes build T by the column recurrence (``t_from_gram``) and joins where
+the plain version doubles: they agree to rounding.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -55,13 +60,15 @@ from tileqr_torch.kernels import _build
 # a matrix of 4·(m·n + n·n + m) bytes up to this takes the small route (its
 # tile, T and a few columns in one CTA's shared memory)
 _SMALL_MAX_BYTES = 200 * 1024
-# threads of a small-route CTA (one a matrix; small_threads), and of the
-# one-block kernel's block (csrc/geqrt.cuh: GEQRT_THREADS)
+# threads of a small-route CTA (one a matrix; small_threads), of a tall-route
+# CTA (csrc/geqrt_tall.cu: tile_gemm.cuh's F_THREADS), and of the one-block
+# kernel's block (csrc/geqrt.cuh: GEQRT_THREADS)
 SMALL_THREADS = 256
+TALL_THREADS = 256
 GLOBAL_THREADS = 1024
 # the launch counter of each route
 ROUTE_KEYS = {"small": "geqrt_batched[small]", "cluster": "geqrt_batched[cluster]",
-              "global": "geqrt_batched"}
+              "tall": "geqrt_batched[tall]", "global": "geqrt_batched"}
 
 
 def _recon_vt(rows: torch.Tensor, row0: int, lane_r: torch.Tensor) -> torch.Tensor:
@@ -270,8 +277,102 @@ def takes_small(m: int, n: int) -> bool:
     return 4 * (m * n + n * n + m) <= _SMALL_MAX_BYTES
 
 
+# ---- the tall route (csrc/geqrt_tall.cu) ----
+
+# the panel widths the tall route is built for, widest first
+TALL_WIDTHS = (16, 8)
+# rows a partial sum of the route's contractions over rows runs (its f32_tile
+# KC, as csrc/geqrt.cuh's GEMM_KCHUNK)
+TALL_KCHUNK = 256
+# bytes of f32_tile's cp.async ring at 128 x 128 (tile_gemm.cuh: f32_smem,
+# the larger of its two A layouts), which shares the panel's shared memory
+_TALL_RING_BYTES = 4 * 3 * (128 * 20 + 16 * 128)
+# the kinds of tall_schedule's operations (csrc/geqrt_tall.cu: OP_*)
+OP_PANEL, OP_UPDATE, OP_TRAIL, OP_JOIN, OP_JOIN_BLOCK = range(5)
+
+
+def tall_smem_bytes(m: int, w: int) -> int:
+    """Shared bytes of a tall-route CTA at panel width ``w``
+    (``csrc/geqrt_tall.cu``: ``smem_bytes``): the panel (m × w), the
+    warps' partials (2 × 8 × w), two posted head rows, G and the panel's T
+    (w² each) and its taus; at least the products' cp.async ring, which
+    reuses the same bytes."""
+    return max(4 * (m * w + 2 * (TALL_THREADS // 32) * w + 2 * w + 2 * w * w + w),
+               _TALL_RING_BYTES)
+
+
+class TallPlan(NamedTuple):
+    w: int             # the panel width, 8 or 16
+    ctas: int          # CTAs a matrix: 1
+    threads: int       # threads a CTA
+    smem_bytes: int    # dynamic shared memory per CTA
+    grid: int          # persistent CTAs, one an SM: min(b, sms)
+    ib: int            # the block width
+
+
+def tall_plan(b: int, m: int, n: int, ib: int, sms: int) -> Optional[TallPlan]:
+    """The tall route's plan for a (b, m, n) stack at inner width ``ib`` on
+    a card of ``sms`` SMs, or None where the route does not take it (m < n,
+    or a panel of 8 columns past one CTA's shared memory: n = 8 leaves of
+    131072 rows). w: the widest of ``TALL_WIDTHS`` whose panel fits one
+    CTA and that is no wider than the block (min(ib, n), at least 8); a
+    grid of min(b, sms) persistent CTAs, one an SM. On the H100 w = 16
+    took 64.5 ms on the 512 tsqr leaves (2048 × 512) and 16.1 on the 128
+    stacks of level 1, against 85.0 and 21.3 for w = 8 (and 76.0 and 26.9
+    for w = 8 at two leaves an SM on 64 × 64 product tiles); on 4096
+    stacks of 256² 47.8 ms, against 52.6 for w = 8 and 112.1 for the
+    one-block kernel (``utils/plan_sweep.py --only tall``)."""
+    from tileqr_torch.kernels.panel import SMEM_LIMIT
+
+    if b < 1 or m < 1 or n < 1 or ib < 1 or sms < 1:
+        raise ValueError(f"tall_plan: b={b}, m={m}, n={n}, ib={ib}, sms={sms}")
+    if m < n:
+        return None
+    cap = max(8, min(ib, n))
+    for w in TALL_WIDTHS:
+        smem = tall_smem_bytes(m, w)
+        if w <= cap and smem <= SMEM_LIMIT:
+            return TallPlan(w, 1, TALL_THREADS, smem, min(b, sms), ib)
+    return None
+
+
+def tall_schedule(n: int, ib: int, w: int) -> List[Tuple[int, int, int, int]]:
+    """The tall route's operations on an (m, n) matrix, m ≥ n, in order, as
+    (kind, c0, h1, h2) (``csrc/geqrt_tall.cu`` runs them on every matrix
+    of the stack): each ib-column block [s, e) factored recursively, its
+    columns split at a panel boundary into halves (the left half factored,
+    then ``OP_UPDATE`` of the right half by it, the right half factored,
+    ``OP_JOIN`` of the two), down to ``OP_PANEL``s of w columns (the last
+    one narrower); then ``OP_TRAIL``, the columns [e, n) updated by the
+    block, and ``OP_JOIN_BLOCK``, the block's T against the columns [0, s).
+    An update takes the reflectors [c0, c0 + h1) to the columns [c0 + h1,
+    c0 + h1 + h2); a join sets T[c0 : c0 + h1, c0 + h1 : c0 + h1 + h2]."""
+    if n < 1 or ib < 1 or w < 1:
+        raise ValueError(f"tall_schedule: n={n}, ib={ib}, w={w}")
+    ops: List[Tuple[int, int, int, int]] = []
+
+    def rec(a: int, b: int) -> None:
+        if b - a <= w:
+            ops.append((OP_PANEL, a, b - a, 0))
+            return
+        mid = a + (-(-(b - a) // w) // 2) * w
+        rec(a, mid)
+        ops.append((OP_UPDATE, a, mid - a, b - mid))
+        rec(mid, b)
+        ops.append((OP_JOIN, a, mid - a, b - mid))
+
+    for s in range(0, n, ib):
+        e = min(s + ib, n)
+        rec(s, e)
+        if e < n:
+            ops.append((OP_TRAIL, s, e - s, n - e))
+        if s > 0:
+            ops.append((OP_JOIN_BLOCK, 0, s, e - s))
+    return ops
+
+
 class BatchedPlan(NamedTuple):
-    route: str         # "small", "cluster" or "global" (the one-block kernel)
+    route: str         # "small", "cluster", "tall" or "global" (the one-block kernel)
     ctas: int          # the cluster route's C; 1 on the others
     ib: int            # the block width the kernel runs
     smem_bytes: int    # dynamic shared memory per CTA (0 on the global route)
@@ -285,8 +386,13 @@ def batched_plan(b: int, m: int, n: int, ib: int, sms: int) -> BatchedPlan:
     included; on the H100 it beat the cluster route at 5 of the 6 stacks
     both take that ``utils/plan_sweep.py --only small`` times, losing 10% at
     8 × 256×64, a shape no path runs), else ``batched_cluster_plan``'s
-    cluster where C > 1, else the one-block kernel on its tile in global
-    memory."""
+    cluster where C > 1 (the tsqr tree's levels of ≤ 32 stacks, B1s), else
+    the tall route where ``tall_plan`` takes the stack (the tsqr leaves
+    and the tree's level of 128 stacks, qr_batched's 4096 × 256²), else
+    the one-block kernel on its tile in global memory: a stack of m < n
+    past the small route, or tall matrices whose 8-column panel is past
+    shared memory (n = 8 leaves of 131072 rows, in stacks too large for
+    the cluster route)."""
     if b < 1 or m < 1 or n < 1 or ib < 1 or sms < 1:
         raise ValueError(f"batched_plan: b={b}, m={m}, n={n}, ib={ib}, sms={sms}")
     if takes_small(m, n):
@@ -297,6 +403,9 @@ def batched_plan(b: int, m: int, n: int, ib: int, sms: int) -> BatchedPlan:
         from tileqr_torch.kernels.panel import CL_THREADS
 
         return BatchedPlan("cluster", cl.ctas, cl.ib, cl.smem_bytes, cl.resident, CL_THREADS)
+    tall = tall_plan(b, m, n, ib, sms)
+    if tall is not None:
+        return BatchedPlan("tall", 1, ib, tall.smem_bytes, True, tall.threads)
     return BatchedPlan("global", 1, ib, 0, False, GLOBAL_THREADS)
 
 
@@ -328,6 +437,35 @@ def _geqrt_one_block(a: torch.Tensor, ib: int) -> Tuple[torch.Tensor, ...]:
                               b, m, n, min(m, n), ib, grid, _build.stream())
     _build.check(rc, "geqrt_batched")
     _build.LAUNCHES["geqrt_batched"] += 1
+    return packed, t
+
+
+@functools.lru_cache(maxsize=None)
+def _tall_ops(n: int, ib: int, w: int, device: torch.device) -> torch.Tensor:
+    """``tall_schedule(n, ib, w)`` as an int32 tensor on ``device``, built
+    and copied there once a shape (the copy blocks the host)."""
+    return torch.tensor(tall_schedule(n, ib, w), dtype=torch.int32, device=device)
+
+
+def _geqrt_tall(a: torch.Tensor, plan: TallPlan) -> Tuple[torch.Tensor, ...]:
+    """The tall route on a contiguous CUDA stack (b, m, n), m ≥ n, at
+    ``plan`` (``tall_plan``'s, or any width the kernel is built for):
+    (packed, T)."""
+    b, m, n = a.shape
+    if m < n or plan.w not in TALL_WIDTHS or plan.grid < 1:
+        raise ValueError(f"geqrt_batched[tall]: {tuple(a.shape)} at {plan}")
+    ibm = min(plan.ib, n)
+    ops = _tall_ops(n, plan.ib, plan.w, a.device)
+    vec = all(x % 4 == 0 for x in (m, n, ibm, plan.w))
+    packed = torch.empty_like(a)
+    t = a.new_empty((b, n, n))
+    work = a.new_empty(plan.grid * 2 * ibm * n)
+    rc = _build.lib().tq_geqrt_tall(a.data_ptr(), packed.data_ptr(), t.data_ptr(),
+                                    work.data_ptr(), ops.data_ptr(), ops.shape[0], b, m, n, ibm,
+                                    plan.w, int(vec), plan.grid, plan.smem_bytes,
+                                    _build.stream())
+    _build.check(rc, "geqrt_batched[tall]")
+    _build.LAUNCHES["geqrt_batched[tall]"] += 1
     return packed, t
 
 
@@ -366,6 +504,8 @@ def geqrt_batched(a: torch.Tensor, ib: int) -> Tuple[torch.Tensor, torch.Tensor]
         return _geqrt_small(a, ib)
     if plan.route == "cluster":
         return _geqrt_cluster(a, plan)
+    if plan.route == "tall":
+        return _geqrt_tall(a, tall_plan(b, m, n, ib, _build.sm_count(a)))
     return _geqrt_one_block(a, ib)
 
 

@@ -3,7 +3,7 @@
     python -m tileqr_torch.utils.cluster_stages [--n 8192] [--reps 5]
         [--rows-per-cta 160 80] [--ttqrt-ctas 4 8] [--modlu-nb 256 512]
         [--potrf 1x256 1x512 4096x128] [--small 1x32 4096x32 1x128 4096x128]
-        [--only cluster modlu potrf small]
+        [--tall 512 128] [--only cluster modlu potrf small tall]
 
 Builds the kernels a second time with ``TQ_CL_STAGES`` defined (a copy of
 ``csrc/`` under ``build/``), which makes thread 0 of the cluster's CTA 0
@@ -31,8 +31,15 @@ the cluster barriers, the panel copies and the SYRKs. The batched GEQRT's
 small route (``csrc/geqrt_small.cu``) on a gaussian (B, 128, 128) stack for
 each ``--small`` BxIB: CTA 0's time in the tile's load, LARFG, warp 0's
 dots and updates, the column barriers, T's 32-column sub-blocks by rows,
-their joins, the block apply with its off-diagonal T, and the stores. Needs
-a GPU.
+their joins, the block apply with its off-diagonal T, and the stores. Its
+tall route (``csrc/geqrt_tall.cu``) on a gaussian (B, 2048, 512) stack at
+ib 128 for each ``--tall`` B (512: the tsqr leaves, 128: the tree's level
+1): CTA 0's time over all its matrices in the copy-in and the panels'
+loads, the panels' stores, the inner T (each panel's larft and the joins
+within a block), the updates within a block, the trailing updates, the
+off-diagonal T of each block against the ones before it, and the column
+loops in three (the warps' sums with LARFG, the pass over the rows, the
+warp sums with the barrier). Needs a GPU.
 """
 
 from __future__ import annotations
@@ -55,6 +62,9 @@ PO_STAGES = ("load/store", "own row steps", "cluster barrier", "panel copy", "SY
 STAGES = ("slab load/store", "P + reduction", "block T", "off-diagonal T", "apply",
           "column dots", "exchange + cluster barrier", "LARFG + rank-1 update")
 LU_STAGES = ("load/store", "own panels", "cluster barrier", "L copy", "U12", "trailing")
+TALL_STAGES = ("copy-in + panel loads", "panel stores", "inner T", "in-block update",
+               "trailing update", "off-diagonal T", "column loop: sums + LARFG",
+               "column loop: rows", "column loop: warp sums + barrier")
 
 
 def instrumented_lib() -> ctypes.CDLL:
@@ -63,13 +73,13 @@ def instrumented_lib() -> ctypes.CDLL:
     if src.exists():
         shutil.rmtree(src)
     shutil.copytree(_build.CSRC, src)
-    for f in ("geqrt_cluster.cuh", "geqrt_small.cu"):
+    for f in ("geqrt_cluster.cuh", "geqrt_small.cu", "geqrt_tall.cu"):
         head = src / f
         head.write_text("#define TQ_CL_STAGES 1\n" + head.read_text())
     _build.CSRC = src
     handle = _build.lib()
     for name in ("tq_cl_stages_panel", "tq_cl_stages_chain", "tq_cl_stages_ttqrt",
-                 "tq_lu_stages", "tq_potrf_stages", "tq_small_stages"):
+                 "tq_lu_stages", "tq_potrf_stages", "tq_small_stages", "tq_tall_stages"):
         getattr(handle, name).argtypes = [ctypes.c_void_p]
         getattr(handle, name).restype = ctypes.c_int
     return handle
@@ -87,8 +97,9 @@ def main() -> int:
     ap.add_argument("--modlu-nb", type=int, nargs="+", default=[256, 512])
     ap.add_argument("--potrf", nargs="+", default=["1x256", "1x512", "4096x128"])
     ap.add_argument("--small", nargs="+", default=["1x32", "4096x32", "1x128", "4096x128"])
-    ap.add_argument("--only", nargs="+", choices=("cluster", "modlu", "potrf", "small"),
-                    default=["cluster", "modlu", "potrf", "small"])
+    ap.add_argument("--tall", type=int, nargs="+", default=[512, 128])
+    ap.add_argument("--only", nargs="+", choices=("cluster", "modlu", "potrf", "small", "tall"),
+                    default=["cluster", "modlu", "potrf", "small", "tall"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("cluster_stages: needs a CUDA device")
@@ -134,6 +145,18 @@ def main() -> int:
                         geqrt.batched_plan(b, 128, 128, ib, _build.sm_count(a)), sm_out,
                         args.reps, SMALL_STAGES)
             del a
+    if "tall" in args.only:
+        from tileqr_torch.kernels import geqrt
+
+        tl_out = (ctypes.c_ulonglong * len(TALL_STAGES))()
+        for b in args.tall:
+            a = torch.from_numpy(rng.standard_normal((b, 2048, 512), dtype=np.float32)).cuda()
+            plan = geqrt.tall_plan(b, 2048, 512, args.ib, _build.sm_count(a))
+            time_stages(f"geqrt_batched[tall] ({b}, 2048, 512) ib={args.ib}",
+                        lambda: geqrt._geqrt_tall(a, plan), lib.tq_tall_stages, plan, tl_out,
+                        max(1, args.reps // 5), TALL_STAGES)
+            del a
+            torch.cuda.empty_cache()
     return 0
 
 

@@ -1,7 +1,7 @@
 """Launch plans at each size they can take, on the card: B8, B9 and TTQRT
-at each cluster size, the batched GEQRT at each cluster size and its small
-route at each CTA size, and the whole-panel projection at each number of
-row-block groups.
+at each cluster size, the batched GEQRT at each cluster size, its small
+route at each CTA size and its tall route at each panel width, and the
+whole-panel projection at each number of row-block groups.
 
     python -m tileqr_torch.utils.plan_sweep [--reps 50] [--repeat 3] [--only NAME ...]
 
@@ -13,7 +13,11 @@ C. The small route (``--only small``) on qr_batched's 4096 × 128² at ib 32
 and 128 at 128, 256 and 512 threads a CTA (with the CTAs an SM holds),
 and the stacks that both it and the cluster route take (m >= n, b·C
 within the card) on both, the routes side by side, beside the plan
-``batched_plan`` picks.
+``batched_plan`` picks. The tall route (``--only tall``) on the tsqr
+leaves (512 × 2048×512), the tree's level 1 (128 × 2048×512), qr_batched's
+4096 × 256² and a 140 × 256² stack at ib 128, at every panel width w the
+kernel is built for (``tall_plan_at``; a CTA a leaf, one an SM), beside
+``tall_plan``'s pick, the one-block kernel and ``torch.geqrf``.
 
 B8 (``kernels/modlu.py``) on the top block of an orthonormal (4nb, nb)
 factor at nb = 256 and 512, and TTQRT (``kernels/ttqrt.py``) on two upper-
@@ -128,6 +132,14 @@ def geqrt_at(a: torch.Tensor, ib: int, ctas: int) -> Tuple[torch.Tensor, torch.T
     resident = cluster_smem_bytes(n, m, ibc, ctas, True) <= SMEM_LIMIT
     return geqrt._geqrt_cluster(a, geqrt.BatchedClusterPlan(
         ctas, ibc, cluster_smem_bytes(n, m, ibc, ctas, resident), resident))
+
+
+def tall_plan_at(b: int, m: int, n: int, ib: int, sms: int, w: int) -> geqrt.TallPlan:
+    """The tall route's plan at panel width ``w``."""
+    smem = geqrt.tall_smem_bytes(m, w)
+    if m < n or w not in geqrt.TALL_WIDTHS or smem > SMEM_LIMIT:
+        raise ValueError(f"tall_plan_at: b={b}, m={m}, n={n}, w={w}")
+    return geqrt.TallPlan(w, 1, geqrt.TALL_THREADS, smem, min(b, sms), ib)
 
 
 def potrf_plan_at(b: int, n: int, ctas: int) -> potrf.PotrfPlan:
@@ -324,6 +336,32 @@ def sweep_small(b: int, m: int, n: int, ib: int, reps: int, repeat: int) -> None
     torch.cuda.empty_cache()
 
 
+def sweep_tall(b: int, m: int, n: int, ib: int, reps: int, repeat: int) -> None:
+    """The tall route at every panel width its kernel is built for,
+    beside the one-block kernel and ``torch.geqrf``."""
+    a = torch.from_numpy(np.random.default_rng(b + m).standard_normal(
+        (b, m, n), dtype=np.float32)).cuda()
+    want = geqrt.geqrt_batched_plain(a, ib)
+    sms = _build.sm_count(a)
+    lib = timed(lambda: torch.geqrf(a), 1, 1)
+    one = timed(lambda: geqrt_at(a, ib, 1), 1, 1)
+    print(f"geqrt_batched ({b}, {m}, {n}) ib={ib}: the wrappers' plan "
+          f"{geqrt.tall_plan(b, m, n, ib, sms)}; torch.geqrf {fmt(lib)}, the one-block "
+          f"kernel {fmt(one)}")
+    for w in geqrt.TALL_WIDTHS:
+        try:
+            plan = tall_plan_at(b, m, n, ib, sms, w)
+        except ValueError:
+            continue
+        got = geqrt._geqrt_tall(a, plan)
+        ms = timed(lambda: geqrt._geqrt_tall(a, plan), reps, repeat)
+        resident = _build.lib().tq_geqrt_tall_per_sm(m, w)
+        print(f"geqrt_batched[tall] ({b}, {m}, {n}) w={w} ({resident} CTAs an SM fit): "
+              f"{fmt(ms)}, rel {max(rel(g, x) for g, x in zip(got, want)):.3e}")
+    del a, want
+    torch.cuda.empty_cache()
+
+
 def sweep_project(label: str, m: int, nb: int, n: int, mr: int, modes, fold: bool, reps: int,
                   repeat: int) -> None:
     rng = np.random.default_rng(m + n)
@@ -414,7 +452,7 @@ def sweep_strip(label: str, nb: int, width: int, rows: int, couples: int, modes,
     torch.cuda.empty_cache()
 
 
-SWEEPS = ("modlu", "potrf", "ttqrt", "geqrt", "small", "project", "sub", "strip")
+SWEEPS = ("modlu", "potrf", "ttqrt", "geqrt", "small", "tall", "project", "sub", "strip")
 
 
 def main() -> int:
@@ -450,6 +488,11 @@ def main() -> int:
         for b, m, n, ib in ((1, 128, 128, 32), (16, 128, 128, 32), (64, 128, 128, 32),
                             (64, 128, 128, 128), (8, 256, 64, 32), (32, 159, 159, 32)):
             sweep_small(b, m, n, ib, reps, repeat)
+    if "tall" in args.only:
+        for b in (512, 128):
+            sweep_tall(b, 2048, 512, 128, max(1, reps // 25), repeat)
+        for b in (4096, 140):
+            sweep_tall(b, 256, 256, 128, max(1, reps // 5), repeat)
     if "project" in args.only:
         sweep_project("B7a", 4096, 256, 8192, 512, every, False, reps, repeat)
         sweep_project("B6 panel 0", 16384, 256, 16128, 512, every, True, max(1, reps // 10),

@@ -63,6 +63,7 @@ OWN = {
     "geqrt_batched_kernel": "geqrt_batched",
     "geqrt_cluster_kernel": "geqrt_batched (cluster route)",
     "geqrt_small_kernel": "geqrt_batched (small route)",
+    "geqrt_tall_kernel": "geqrt_batched (tall route)",
     "Memcpy": "copies (Memcpy)",
     "ttqrt_kernel": "ttqrt",
 }
