@@ -1306,3 +1306,45 @@ def test_plans_refuse_what_their_layouts_lack(cuda):
     with pytest.raises(RuntimeError, match="couple_strip"):
         strip_at(v_chunks, t2, a.clone(), a.clone()[:nb, nb:], 0, 1, 2, 2 * nb, nb, 1, True,
                  False, None, None, "highest", bad)
+
+
+@pytest.mark.parametrize("case", ["qr", "tree-r", "cholqr2-factor", "tree-reduced", "upload"])
+def test_every_host_sync_is_a_sync_span(cuda, case):
+    """One call of each benchmark cell's entry at a small shape (and the
+    tree's Q, and a numpy input) under ``set_sync_debug_mode("warn")``:
+    every synchronising CUDA operation warns, and the warnings are as many
+    as the ``tileqr_torch.sync.*`` spans, so the spans miss no sync. The
+    tall route's schedule is dropped first, so that its one-time copy
+    happens inside the call."""
+    import warnings
+
+    rng = np.random.default_rng(14)
+    sq = torch.from_numpy(rng.standard_normal((1024, 1024), dtype=np.float32)).to(cuda)
+    # 128 leaves of 2048×512: the tall route, then four levels
+    tall = torch.from_numpy(rng.standard_normal((262144, 512), dtype=np.float32)).to(cuda)
+    cfg = tileqr_torch.QRConfig(nb=512)
+    host = sq.cpu().numpy()
+    call = {"qr": lambda: tileqr_torch.qr(sq),
+            "tree-r": lambda: tileqr_torch.tsqr(tall, "r", cfg, strategy="tree"),
+            "cholqr2-factor": lambda: tileqr_torch.tsqr(tall, "factor", cfg),
+            "tree-reduced": lambda: tileqr_torch.tsqr(tall, "reduced", cfg, strategy="tree"),
+            "upload": lambda: tileqr_torch.qr(host)}[case]
+    call()  # warm: cuBLAS handles, the allocator
+    torch.cuda.synchronize()
+    geqrt._tall_ops.cache_clear()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # each synchronising operation warns "called a synchronizing CUDA operation"
+    syncs = [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
+    spans = [e.name for e in prof.events() if e.name.startswith("tileqr_torch.sync.")]
+    want = {"qr": [], "tree-r": ["tall_ops"], "cholqr2-factor": ["guard"],
+            "tree-reduced": ["tall_ops"] + ["tree_index"] * 4, "upload": ["upload"]}[case]
+    assert sorted(spans) == sorted(f"tileqr_torch.sync.{s}" for s in want)
+    assert len(syncs) == len(spans), syncs

@@ -33,6 +33,7 @@ import torch
 
 from tileqr_torch.core.config import QRConfig
 from tileqr_torch.core.layout import pad_to_tiles, pow2_at_least, round_up
+from tileqr_torch.core.trace import entry, span
 from tileqr_torch.drivers.batched import qr_batched as _qr_batched
 from tileqr_torch.dist.mesh import Mesh, rank_device
 from tileqr_torch.drivers import sharded as _sh
@@ -102,6 +103,16 @@ def _check_matrix(a, who: str) -> None:
         raise ValueError(f"{who}: zero-size dimension in input shape {shape}")
 
 
+def _upload(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.as_tensor(x, dtype, device)``. A copy from the host onto the
+    card goes through pageable memory and blocks the host until the stream
+    has run: the span ``sync.upload``."""
+    if torch.device(device).type == "cuda" and not (isinstance(x, torch.Tensor) and x.is_cuda):
+        with span("tileqr_torch.sync.upload"):
+            return torch.as_tensor(x, dtype=dtype, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
 def _to_device(a, dtype: torch.dtype, device) -> torch.Tensor:
     """A tensor stays where it is; anything else goes to ``device``
     ("cuda" when None), which must exist."""
@@ -121,52 +132,61 @@ def _to_device(a, dtype: torch.dtype, device) -> torch.Tensor:
             "available; pass device='cpu' (or a CPU tensor) to run the plain "
             "CPU versions"
         )
-    return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    return _upload(np.asarray(a), dtype, dev)
 
 
+def _private_tiles(a: torch.Tensor, nb: int) -> torch.Tensor:
+    """A padded to nb multiples in a buffer of its own: the hh driver works
+    in place, never on the caller's storage."""
+    return pad_to_tiles(a, nb)[0].clone(memory_format=torch.contiguous_format)
+
+
+@entry("tileqr_torch.qr_factor")
 def qr_factor(a, config: Optional[QRConfig] = None, device=None):
     """Factor A → QRFactors (hh) or HRFactors (hr), with no Q/R assembly."""
-    _check_matrix(a, "qr_factor")
-    cfg = _cfg(config)
-    passes_of(cfg.precision)
-    a = _to_device(a, cfg.dtype, device)
-    m, n = a.shape
-    scale = 1.0
-    if cfg.prescale:
-        # exact power-of-2 scaling: QR(A/s) has identical reflectors/τ and
-        # R_true = s · R_stored; true division, not multiply-by-reciprocal
-        # (1/2^127 is subnormal and would flush to zero where denormals
-        # are off)
-        scale = pow2_at_least(a.abs().max())
-        a = a / scale
-    if cfg.square_method == "hr":
+    with span("tileqr_torch.prep"):
+        _check_matrix(a, "qr_factor")
+        cfg = _cfg(config)
+        passes_of(cfg.precision)
+        a = _to_device(a, cfg.dtype, device)
+        m, n = a.shape
+        scale = 1.0
+        if cfg.prescale:
+            # exact power-of-2 scaling: QR(A/s) has identical reflectors/τ and
+            # R_true = s · R_stored; true division, not multiply-by-reciprocal
+            # (1/2^127 is subnormal and would flush to zero where denormals
+            # are off)
+            scale = pow2_at_least(a.abs().max())
+            a = a / scale
+        hr = cfg.square_method == "hr"
+        ap = pad_for_hr(a, cfg.nb)[0] if hr else _private_tiles(a, cfg.nb)
+    if hr:
         stats = cfg.hr_guard != "off"
-        ap, _ = pad_for_hr(a, cfg.nb)
         r, panels, health = qr_hr(ap, cfg.nb, stats=stats, precision=cfg.precision)
         f = HRFactors(r, panels, cfg.nb, (m, n), scale, health)
         if not guard_trips(health, cfg, "qr_factor/hr") or cfg.hr_guard != "fallback":
             return f
         # fall through to the hh path: `a` is already prescaled and `scale`
         # already captured, so the fallback reuses both
-    ap, _ = pad_to_tiles(a, cfg.nb)
-    # the driver works in place: never on the caller's storage
-    ap = ap.clone(memory_format=torch.contiguous_format)
+        with span("tileqr_torch.prep"):
+            ap = _private_tiles(a, cfg.nb)
     packed, r_diag, t_g, panels = qr_tiled(ap, cfg.nb, ib=cfg.ib, chunk=cfg.chunk,
                                            precision=cfg.precision)
     return QRFactors(packed, r_diag, t_g, panels, cfg.nb, cfg.chunk, (m, n), scale)
 
 
+@entry("tileqr_torch.apply_q")
 def apply_q(f, c, trans: bool = False, config: Optional[QRConfig] = None) -> torch.Tensor:
     """C ← Q C (or Qᵀ C). c: (M, P) in the ORIGINAL row dimension (for
     ``TSQRFactors``, at most the factored rows)."""
     precision = _cfg(config).precision
     passes_of(precision)
+    like = f.r if isinstance(f, (TSQRFactors, HRFactors)) else f.packed
+    c = _upload(c, like.dtype, like.device)
     if isinstance(f, TSQRFactors):
-        c = torch.as_tensor(c, dtype=f.r.dtype, device=f.r.device)
         return tsqr_apply_q(f, c, trans=trans, precision=precision)
     if isinstance(f, HRFactors):
         mp = f.panels[0][0].shape[0]
-        c = torch.as_tensor(c, dtype=f.r.dtype, device=f.r.device)
         mc, p = c.shape
         if mc != f.shape[0]:
             raise ValueError(f"c rows {mc} != M {f.shape[0]}")
@@ -174,7 +194,6 @@ def apply_q(f, c, trans: bool = False, config: Optional[QRConfig] = None) -> tor
         cp[:mc] = c
         return apply_q_hr(f.panels, cp, f.nb, trans=trans, precision=precision)[:mc]
     mp = f.packed.shape[0]
-    c = torch.as_tensor(c, dtype=f.packed.dtype, device=f.packed.device)
     mc, p = c.shape
     if mc != f.shape[0]:
         raise ValueError(f"c rows {mc} != M {f.shape[0]}")
@@ -186,6 +205,7 @@ def apply_q(f, c, trans: bool = False, config: Optional[QRConfig] = None) -> tor
     return out[:mc, :p]
 
 
+@entry("tileqr_torch.orgqr")
 def orgqr(f, ncols: Optional[int] = None,
           config: Optional[QRConfig] = None) -> torch.Tensor:
     """Form Q explicitly: M×ncols (default: reduced, ncols = min(M, N)),
@@ -213,11 +233,13 @@ def orgqr(f, ncols: Optional[int] = None,
 
 def _r_of(f) -> torch.Tensor:
     """R with the prescale folded back in: (K, N_pad) for hr, padded for hh."""
-    if isinstance(f, HRFactors):
-        return f.r * f.scale
-    return assemble_r(f.packed, f.r_diag, f.nb) * f.scale
+    with span("tileqr_torch.assemble_r"):
+        if isinstance(f, HRFactors):
+            return f.r * f.scale
+        return assemble_r(f.packed, f.r_diag, f.nb) * f.scale
 
 
+@entry("tileqr_torch.qr")
 def qr(a, mode: str = "reduced", config: Optional[QRConfig] = None, device=None):
     """Tiled blocked QR. mode: "reduced" → (Q (M,K), R (K,N)); "complete" →
     (Q (M,M), R (M,N)); "r" → R (K,N) only. K = min(M, N)."""
@@ -238,6 +260,7 @@ def qr(a, mode: str = "reduced", config: Optional[QRConfig] = None, device=None)
     return orgqr(f, m, cfg), r_full[:m, :n]
 
 
+@entry("tileqr_torch.lstsq")
 def lstsq(a, b, config: Optional[QRConfig] = None, device=None) -> torch.Tensor:
     """Least-squares solve min ‖Ax − b‖₂ via QR (M >= N, full rank).
 
@@ -246,7 +269,7 @@ def lstsq(a, b, config: Optional[QRConfig] = None, device=None) -> torch.Tensor:
     _check_matrix(a, "lstsq")
     cfg = _cfg(config)
     a = _to_device(a, cfg.dtype, device)
-    b_in = torch.as_tensor(b, dtype=cfg.dtype, device=a.device)
+    b_in = _upload(b, cfg.dtype, a.device)
     if b_in.dim() not in (1, 2):
         raise ValueError(f"lstsq: b must be (M,) or (M, P), got shape {tuple(b_in.shape)}")
     vec = b_in.dim() == 1
@@ -261,6 +284,7 @@ def lstsq(a, b, config: Optional[QRConfig] = None, device=None) -> torch.Tensor:
     return x[:, 0] if vec else x
 
 
+@entry("tileqr_torch.tsqr")
 def tsqr(a, mode: str = "r", config: Optional[QRConfig] = None, strategy: str = "auto",
          device=None):
     """Tall-skinny QR of A (M, n), M >= n, n <= nb.
@@ -290,24 +314,37 @@ def tsqr(a, mode: str = "r", config: Optional[QRConfig] = None, strategy: str = 
         series, while the tree spreads 512 leaves over the 132 SMs. On the
         CPU "tree" is also what the reference's interpret-mode rule picks.
     """
-    _check_matrix(a, "tsqr")
-    if strategy not in ("auto", "tree", "chain", "cholqr2"):
-        raise ValueError(f"unknown strategy {strategy!r} (auto/tree/chain/cholqr2)")
-    if mode not in ("r", "reduced", "factor"):
-        raise ValueError(f"unknown mode {mode!r}")
-    cfg = _cfg(config)
-    passes_of(cfg.precision)
-    a = _to_device(a, cfg.dtype, device)
-    m, n = a.shape
-    if m < n:
-        raise ValueError(f"tsqr requires M >= n, got shape {(m, n)}")
-    if strategy == "auto":
-        strategy = "cholqr2" if mode == "factor" and cfg.hr_guard == "fallback" else "tree"
-    stats = cfg.hr_guard != "off"
-    if strategy == "cholqr2":
-        if mode == "factor":
+    with span("tileqr_torch.prep"):
+        _check_matrix(a, "tsqr")
+        if strategy not in ("auto", "tree", "chain", "cholqr2"):
+            raise ValueError(f"unknown strategy {strategy!r} (auto/tree/chain/cholqr2)")
+        if mode not in ("r", "reduced", "factor"):
+            raise ValueError(f"unknown mode {mode!r}")
+        cfg = _cfg(config)
+        passes_of(cfg.precision)
+        a = _to_device(a, cfg.dtype, device)
+        m, n = a.shape
+        if m < n:
+            raise ValueError(f"tsqr requires M >= n, got shape {(m, n)}")
+        if strategy == "auto":
+            strategy = "cholqr2" if mode == "factor" and cfg.hr_guard == "fallback" else "tree"
+        if strategy != "cholqr2" and n > cfg.nb:
+            raise ValueError(f"tsqr requires n={n} <= nb={cfg.nb}")
+        if strategy == "chain" and mode == "factor":
+            raise ValueError(
+                'tsqr(strategy="chain") has no "factor" mode; use strategy="tree" '
+                "(TSQRFactors) or qr_factor (square factors)"
+            )
+        stats = cfg.hr_guard != "off"
+        if strategy == "cholqr2" and mode == "factor":
             nbp = round_up(max(n, 8), 8)
             ap, _ = pad_for_hr(a, nbp)
+        elif strategy == "tree":
+            np_ = round_up(n, 8)
+            lr = auto_leaf_rows(round_up(m, 8), np_)
+            ap = torch.nn.functional.pad(a, (0, np_ - n, 0, round_up(m, lr) - m))
+    if strategy == "cholqr2":
+        if mode == "factor":
             with _highest():
                 out = hr_panel(ap, stats=stats)
             health = out[3] if stats else None
@@ -322,18 +359,8 @@ def tsqr(a, mode: str = "r", config: Optional[QRConfig] = None, strategy: str = 
         if mode == "r":
             return (out[0] if stats else out)[0]
         return out[0][0], out[1][0]
-    if n > cfg.nb:
-        raise ValueError(f"tsqr requires n={n} <= nb={cfg.nb}")
     if strategy == "chain":
-        if mode == "factor":
-            raise ValueError(
-                'tsqr(strategy="chain") has no "factor" mode; use strategy="tree" '
-                "(TSQRFactors) or qr_factor (square factors)"
-            )
         return qr(a, mode=mode, config=cfg)
-    np_ = round_up(n, 8)
-    lr = auto_leaf_rows(round_up(m, 8), np_)
-    ap = torch.nn.functional.pad(a, (0, np_ - n, 0, round_up(m, lr) - m))
     f = tsqr_factor(ap, cfg.nb, ib=cfg.ib, leaf_rows=lr)
     if mode == "factor":
         return f
@@ -343,6 +370,7 @@ def tsqr(a, mode: str = "r", config: Optional[QRConfig] = None, strategy: str = 
     return tsqr_form_q(f, cfg.precision)[:m, :n], r
 
 
+@entry("tileqr_torch.qr_batched")
 def qr_batched(a, mode: str = "reduced", config: Optional[QRConfig] = None, device=None):
     """Batched QR of a (B, m, n) stack, m >= n: mode "reduced" → (Q (B, m, n),
     R (B, n, n)); "r" → R. ``QRConfig.batched_method`` picks the route: "hh"

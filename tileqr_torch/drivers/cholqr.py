@@ -19,6 +19,7 @@ import warnings
 
 import torch
 
+from tileqr_torch.core.trace import span
 from tileqr_torch.kernels.common import refuse_xla_site
 from tileqr_torch.kernels.potrf import potrf_batched
 
@@ -75,7 +76,8 @@ def guard_trips(health, cfg, where: str) -> bool:
     runs eagerly, so the scalar is always concrete."""
     if health is None:
         return False
-    h = float(health)
+    with span("tileqr_torch.sync.guard"):
+        h = float(health)
     if h <= cfg.hr_guard_tau:  # NaN fails the comparison → guard trips
         return False
     action = (
@@ -163,17 +165,19 @@ def cholqr2_batched(a: torch.Tensor, mode: str = "reduced", stats: bool = False,
     m, n = a.shape[1:]
     eye = torch.eye(n, dtype=a.dtype, device=a.device)
     with _highest():
-        g = bdot_pair_rows(a, a)
-        r1 = potrf_batched(g)
-        # tall A: form S1 = R1⁻¹ and touch A once; near-square: fold the
-        # doubling factors into A, skipping the inverse's own products
-        if m > 2 * n:
-            q1 = a @ _triu_inv_doubling(r1)
-        else:
-            dinv, pows = _inv_factors(r1)
-            q1 = _apply_rinv(a, dinv, pows)
-        e = bdot_pair_rows(q1, q1) - eye
-        q = q1 @ _correction(e)
-        r = torch.triu(bdot_pair_rows(q, a))
+        with span("tileqr_torch.hr.round1"):
+            g = bdot_pair_rows(a, a)
+            r1 = potrf_batched(g)
+            # tall A: form S1 = R1⁻¹ and touch A once; near-square: fold the
+            # doubling factors into A, skipping the inverse's own products
+            if m > 2 * n:
+                q1 = a @ _triu_inv_doubling(r1)
+            else:
+                dinv, pows = _inv_factors(r1)
+                q1 = _apply_rinv(a, dinv, pows)
+        with span("tileqr_torch.hr.round2"):
+            e = bdot_pair_rows(q1, q1) - eye
+            q = q1 @ _correction(e)
+            r = torch.triu(bdot_pair_rows(q, a))
     out = ((r,) if mode == "r" else (q, r)) + ((_defect(e),) if stats else ())
     return out[0] if len(out) == 1 else out

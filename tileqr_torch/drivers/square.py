@@ -25,6 +25,7 @@ from typing import Tuple
 
 import torch
 
+from tileqr_torch.core.trace import span
 from tileqr_torch.kernels.chain import couple_strip, larfb_strip, panel_chain
 from tileqr_torch.kernels.panel import panel_factor
 
@@ -61,17 +62,19 @@ def qr_tiled(a: torch.Tensor, nb: int, ib: int = 128, chunk: int = 4,
     r_diag, t_geqrt, panels = [], [], []
     for k in range(k_max):
         n_head, base, nc = _segments(k, mt, c)
-        r_k, v_stack, tg_k, t2h = panel_factor(a, k, nb, ib=ib, n_couples=n_head)
-        if nc > 0:
-            r_k, v_chunks, t2t = panel_chain(a, r_k, k, nb, base, nc, c * nb, ib=ib)
-        else:
-            v_chunks = a.new_zeros((0, c * nb, nb))
-            t2t = a.new_zeros((0, nb, nb))
+        with span("tileqr_torch.hh.panel"):
+            r_k, v_stack, tg_k, t2h = panel_factor(a, k, nb, ib=ib, n_couples=n_head)
+            if nc > 0:
+                r_k, v_chunks, t2t = panel_chain(a, r_k, k, nb, base, nc, c * nb, ib=ib)
+            else:
+                v_chunks = a.new_zeros((0, c * nb, nb))
+                t2t = a.new_zeros((0, nb, nb))
         r_diag.append(r_k)
         t_geqrt.append(tg_k)
         panels.append((v_stack, t2h, v_chunks, t2t))
-
-        if nt - k - 1 > 0:
+        if nt - k - 1 == 0:
+            continue
+        with span("tileqr_torch.hh.update"):
             strip = a[k * nb : (k + 1) * nb, (k + 1) * nb :]
             if n_head > 0:
                 couple_strip(v_stack, t2h, a, strip, 1, k + 1, n_head, nb, nb, k + 1,

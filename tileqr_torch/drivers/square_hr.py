@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 import torch
 
 from tileqr_torch.core.layout import pow2_at_least, round_up
+from tileqr_torch.core.trace import span
 from tileqr_torch.drivers.cholqr import (
     _correction,
     _defect,
@@ -135,25 +136,28 @@ def hr_panel_parts(panel: torch.Tensor) -> dict:
     reconstruction signs folded in."""
     nb = panel.shape[1]
     eye = torch.eye(nb, dtype=panel.dtype, device=panel.device)
-    g = bdot_pair_rows(panel[None], panel[None])  # tall pass 1
-    r1 = potrf_batched(g)
-    s1 = _triu_inv_doubling(r1)[0]
-    q1 = panel @ s1  # tall pass 2
-    e = bdot_pair_rows(q1[None], q1[None])[0] - eye  # tall pass 3
-    w = _correction(e[None])[0]  # the second round, by matmuls
-    q_top = q1[:nb] @ w
-    lu, d = modified_lu(q_top)
-    l1 = torch.tril(lu, -1) + eye
-    uu = torch.triu(lu)
-    invs = _triu_inv_doubling(torch.stack([uu, l1.T]))
-    uuinv, l1tinv = invs[0], invs[1]
-    l2 = q1[nb:] @ (w @ uuinv)  # tall pass 4
-    return {
-        "gram": g, "q_top": q_top, "e": e,
-        "y": torch.cat([l1, l2], dim=0),
-        "t": -((uu * d[None, :]) @ l1tinv),
-        "r": d[:, None] * torch.triu(w.T @ (s1.T @ g[0])),
-    }
+    with span("tileqr_torch.hr.round1"):
+        g = bdot_pair_rows(panel[None], panel[None])  # tall pass 1
+        r1 = potrf_batched(g)
+        s1 = _triu_inv_doubling(r1)[0]
+        q1 = panel @ s1  # tall pass 2
+    with span("tileqr_torch.hr.round2"):
+        e = bdot_pair_rows(q1[None], q1[None])[0] - eye  # tall pass 3
+        w = _correction(e[None])[0]  # the second round, by matmuls
+        q_top = q1[:nb] @ w
+    with span("tileqr_torch.hr.reconstruct"):
+        lu, d = modified_lu(q_top)
+        l1 = torch.tril(lu, -1) + eye
+        uu = torch.triu(lu)
+        invs = _triu_inv_doubling(torch.stack([uu, l1.T]))
+        uuinv, l1tinv = invs[0], invs[1]
+        l2 = q1[nb:] @ (w @ uuinv)  # tall pass 4
+        return {
+            "gram": g, "q_top": q_top, "e": e,
+            "y": torch.cat([l1, l2], dim=0),
+            "t": -((uu * d[None, :]) @ l1tinv),
+            "r": d[:, None] * torch.triu(w.T @ (s1.T @ g[0])),
+        }
 
 
 def hr_panel(panel: torch.Tensor, stats: bool = False):

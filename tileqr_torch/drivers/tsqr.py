@@ -26,6 +26,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from tileqr_torch.core.trace import span
 from tileqr_torch.drivers.cholqr import _highest
 from tileqr_torch.kernels.common import passes_of, refuse_xla_site, unit_lower
 from tileqr_torch.kernels.geqrt import geqrt_batched
@@ -106,18 +107,20 @@ def tsqr_factor(a: torch.Tensor, nb: int, ib: int = 128, leaf_rows: Optional[int
     if p > 1 and lr < 2 * n:
         raise ValueError(f"tree needs leaf_rows={lr} >= 2n={2 * n}")
     ib_eff = min(ib, n)
-    packed, ts = tall_geqrt(a, lr, ib=ib_eff)
-    rs = torch.triu(packed.reshape(p, lr, n)[:, :n, :])
+    with span("tileqr_torch.tree.leaves"):
+        packed, ts = tall_geqrt(a, lr, ib=ib_eff)
+        rs = torch.triu(packed.reshape(p, lr, n)[:, :n, :])
 
     plan = _tree_plan(p, n, lr, arity)
     levels: List = []
     for ncomb, a_l, flat, rem in plan:
-        # rs rows follow the current survivor list: group reps, then the rest
-        stack = rs[: ncomb * a_l].reshape(ncomb * a_l * n, n)
-        pk, tl = tall_geqrt(stack, a_l * n, ib=ib_eff)
-        pk = pk.reshape(ncomb, a_l * n, n)
-        rnew = torch.triu(pk[:, :n, :])
-        rs = torch.cat([rnew, rs[ncomb * a_l :]]) if rem else rnew
+        with span("tileqr_torch.tree.level"):
+            # rs rows follow the current survivor list: group reps, then the rest
+            stack = rs[: ncomb * a_l].reshape(ncomb * a_l * n, n)
+            pk, tl = tall_geqrt(stack, a_l * n, ib=ib_eff)
+            pk = pk.reshape(ncomb, a_l * n, n)
+            rnew = torch.triu(pk[:, :n, :])
+            rs = torch.cat([rnew, rs[ncomb * a_l :]]) if rem else rnew
         levels.append((pk, tl, ncomb * a_l + len(rem), a_l))
     return TSQRFactors(packed, ts, tuple(levels), rs[0], lr, (m, n), tuple(plan))
 
@@ -145,7 +148,8 @@ def _level_apply(tops: torch.Tensor, level, pk: torch.Tensor, tl: torch.Tensor,
     """One tree level's block reflectors on the stacked top blocks, in place."""
     ncomb, a_l, flat, _ = level
     n, pcols = tops.shape[1:]
-    gather = torch.tensor(flat, device=tops.device)
+    with span("tileqr_torch.sync.tree_index"):  # a copy from a Python list
+        gather = torch.tensor(flat, device=tops.device)
     stack = tops[gather].reshape(ncomb, a_l * n, pcols)
     tops[gather] = _larfb(pk, tl, stack, trans, precision).reshape(ncomb * a_l, n, pcols)
 

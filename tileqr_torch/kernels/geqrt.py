@@ -55,6 +55,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from tileqr_torch.core.trace import span
 from tileqr_torch.kernels import _build
 
 # a matrix of 4·(m·n + n·n + m) bytes up to this takes the small route (its
@@ -444,7 +445,8 @@ def _geqrt_one_block(a: torch.Tensor, ib: int) -> Tuple[torch.Tensor, ...]:
 def _tall_ops(n: int, ib: int, w: int, device: torch.device) -> torch.Tensor:
     """``tall_schedule(n, ib, w)`` as an int32 tensor on ``device``, built
     and copied there once a shape (the copy blocks the host)."""
-    return torch.tensor(tall_schedule(n, ib, w), dtype=torch.int32, device=device)
+    with span("tileqr_torch.sync.tall_ops"):
+        return torch.tensor(tall_schedule(n, ib, w), dtype=torch.int32, device=device)
 
 
 def _geqrt_tall(a: torch.Tensor, plan: TallPlan) -> Tuple[torch.Tensor, ...]:

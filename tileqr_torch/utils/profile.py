@@ -29,8 +29,10 @@ It prints the device time of every CUDA kernel name
 (launches, total ms, share of the device total), the same summed over
 groups (this package's kernels by name, cuBLAS GEMMs as "torch.matmul",
 everything else as "other torch ops"), the wall time of the profiled call
-and the device's idle share of it. With ``--health`` (hr only) it also prints
-each panel's round-1 orthogonality defect, whose max is the hr health.
+and the device's idle share of it, then the device time inside each of
+the program's spans (``span_times``) and the host's. With ``--health`` (hr
+only) it also prints each panel's round-1 orthogonality defect, whose max
+is the hr health.
 The card's name and power limit from nvidia-smi head the output. Needs a
 CUDA device.
 """
@@ -38,6 +40,7 @@ CUDA device.
 from __future__ import annotations
 
 import argparse
+import bisect
 import subprocess
 import time
 from collections import defaultdict
@@ -69,6 +72,10 @@ OWN = {
 }
 
 
+# the program's spans (``core/trace.py``)
+SPAN_PREFIX = "tileqr_torch."
+
+
 def group_of(name: str) -> str:
     for frag, g in OWN.items():
         if frag in name:
@@ -90,6 +97,70 @@ def kernel_times(prof) -> dict:
     return {k: tuple(v) for k, v in out.items()}
 
 
+def _nest(spans: list) -> list:
+    """The parent index of each span of a list sorted by (start, -end),
+    nesting by time (one that starts as another ends follows it): None
+    where no span holds it."""
+    parent, open_ = [], []
+    for i, (s, e, _) in enumerate(spans):
+        while open_ and spans[open_[-1]][1] <= s:
+            open_.pop()
+        parent.append(open_[-1] if open_ else None)
+        open_.append(i)
+    return parent
+
+
+def span_times(events) -> dict:
+    """Device and host time of the program's spans (``core/trace.py``) in a
+    torch.profiler trace of whole calls made on one host thread, in
+    seconds. Each device operation is charged to the spans that were open
+    when the host launched it: its runtime call (``cudaLaunchKernel``,
+    ``cudaMemcpyAsync``, ...) carries the same correlation id, and the
+    launch time decides, not the device time, since the device runs up to
+    a call behind the host. "inclusive" {name: s} counts an operation once
+    for each name open around its launch, "exclusive" {name: s} for the
+    innermost alone, "unattributed" the operations launched outside every
+    span (or whose launch the trace lacks); "device" is all of them. On
+    the host: "calls", the outermost spans; "host_s", their time; "syncs"
+    and "sync_s", the ``sync.*`` spans."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    spans, launch, ops = [], {}, []
+    for e in events:
+        if e.device_type == cpu and e.name.startswith(SPAN_PREFIX):
+            spans.append((e.time_range.start, e.time_range.end, e.name))
+        elif e.device_type == cpu and e.name.startswith("cu"):  # the runtime's calls
+            launch[e.id] = e.time_range.start
+        elif (e.device_type == cuda and not getattr(e, "is_user_annotation", False)
+              and not e.name.startswith((SPAN_PREFIX, "qrbench."))):
+            ops.append((e.id, (e.time_range.end - e.time_range.start) / 1e6))
+    spans.sort(key=lambda sp: (sp[0], -sp[1]))
+    parent = _nest(spans)
+    starts = [sp[0] for sp in spans]
+    inclusive, exclusive = defaultdict(float), defaultdict(float)
+    unattributed = 0.0
+    for cid, sec in ops:
+        t = launch.get(cid)
+        j = None if t is None else bisect.bisect_right(starts, t) - 1
+        while j is not None and j >= 0 and spans[j][1] < t:
+            j = parent[j]
+        if j is None or j < 0:
+            unattributed += sec
+            continue
+        exclusive[spans[j][2]] += sec
+        names = set()
+        while j is not None:
+            names.add(spans[j][2])
+            j = parent[j]
+        for name in names:
+            inclusive[name] += sec
+    outer = [sp for sp, p in zip(spans, parent) if p is None]
+    syncs = [sp for sp in spans if sp[2].startswith(SPAN_PREFIX + "sync.")]
+    return {"inclusive": dict(inclusive), "exclusive": dict(exclusive),
+            "unattributed": unattributed, "device": sum(sec for _, sec in ops),
+            "calls": len(outer), "host_s": sum(e - s for s, e, _ in outer) / 1e6,
+            "syncs": len(syncs), "sync_s": sum(e - s for s, e, _ in syncs) / 1e6}
+
+
 def panel_health(a: torch.Tensor, cfg) -> list:
     """Each panel's round-1 defect over the hr driver's panel loop on A
     (``square_hr.hr_steps``), unscaled: prescaling by a power of two
@@ -102,7 +173,7 @@ def panel_health(a: torch.Tensor, cfg) -> list:
 
 def profile_call(args, shape, n: int, tileqr_torch):
     """One warm call of the method on a gaussian A, then one under
-    torch.profiler: (kernel times, wall ms)."""
+    torch.profiler: (kernel times, wall ms, ``span_times``)."""
     rng = np.random.default_rng(args.seed)
     a = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
     if args.method == "tsqr":
@@ -132,7 +203,7 @@ def profile_call(args, shape, n: int, tileqr_torch):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     del out
-    return kernel_times(prof), wall_ms
+    return kernel_times(prof), wall_ms, span_times(prof.events())
 
 
 def sharded_rank(mesh, n: int, seed: int, precision: str, method: str = "hh"):
@@ -206,8 +277,9 @@ def main(argv=None) -> int:
             n=n, seed=args.seed, precision=args.precision,
             method="hr" if args.method == "sharded_hr" else "hh"))
         kt = {k: tuple(v) for k, v in kt.items()}
+        spans = None
     else:
-        kt, wall_ms = profile_call(args, shape, n, tileqr_torch)
+        kt, wall_ms, spans = profile_call(args, shape, n, tileqr_torch)
     total = sum(ms for _, ms in kt.values())
     print(f"{what} {'x'.join(map(str, shape))}: wall {wall_ms:.3f} ms under the profiler, "
           f"device total {total:.3f} ms, idle share {max(0.0, 1 - total / wall_ms):.4f}"
@@ -232,6 +304,13 @@ def main(argv=None) -> int:
     print("kernel | launches | device ms | share")
     for name, (cnt, ms) in sorted(kt.items(), key=lambda kv: -kv[1][1])[:25]:
         print(f"{name[:110]} | {cnt} | {ms:.3f} | {ms / max(total, 1e-9):.4f}")
+    if spans:
+        print(f"span | device ms inside | device ms innermost "
+              f"(unattributed {spans['unattributed'] * 1e3:.3f}); host ms "
+              f"{spans['host_s'] * 1e3:.3f}, {spans['syncs']} syncs "
+              f"{spans['sync_s'] * 1e3:.3f} ms")
+        for name, sec in sorted(spans["inclusive"].items(), key=lambda kv: -kv[1]):
+            print(f"{name} | {sec * 1e3:.3f} | {spans['exclusive'].get(name, 0.0) * 1e3:.3f}")
     if args.health and args.method == "hr":
         a = torch.from_numpy(np.random.default_rng(args.seed).standard_normal(
             shape, dtype=np.float32)).cuda()
