@@ -401,7 +401,11 @@ class KernelRecord:
 
 
 def phase1(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
-    """Each hh kernel against its plain version at the hh path's shapes."""
+    """Each hh kernel against its plain version at the hh path's shapes. The
+    hh path runs a panel's K1 and K2 as one launch (``chain.panel_column``,
+    counted as ``panel_factor``), so the ``panel_factor`` row is that
+    launch's: its comparison, time and bound; K1 alone (B13's launch) is
+    compared and timed beside it."""
     from tileqr_torch.kernels import chain, panel
 
     mt = a.shape[0] // NB
@@ -411,7 +415,7 @@ def phase1(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
     # K1: GEQRT of tile (0, 0) + the 3 head couples of panel 0
     got = panel.panel_factor(a, 0, NB, IB, n_head)
     want = panel.panel_factor_plain(a, 0, NB, IB, n_head)
-    rec.compare("panel_factor", "k=0 n_head=3", got, want)
+    rec.compare("panel_factor", "K1 alone k=0 n_head=3", got, want)
     r_k, v_stack, tg, t2h = want
 
     # K2: the 7 chunk couples of 4·nb rows below the head
@@ -420,31 +424,49 @@ def phase1(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
     rec.compare("panel_chain", f"n_chunks={n_chunks} rows={br}", got, want)
     _, v_chunks, t2t = want
 
+    # the hh path's launch: K1 and K2 of panel 0 in one, against the plain
+    # K1 then K2
+    column = lambda: chain.panel_column(a, 0, NB, IB, n_head, 1, n_chunks, br)  # noqa: E731
+    rec.compare("panel_factor", f"K1 + K2 in one launch n_head={n_head} n_chunks={n_chunks}",
+                column(), (want[0], v_stack, tg, t2h, v_chunks, t2t))
+
     # bounds at these shapes (fp32, 4 bytes an element)
     head_rows = (1 + n_head) * NB
-    rec.set_bound("panel_factor", geqrf_flops(head_rows, NB),
-                  4 * (head_rows * NB + NB * NB * (2 + 2 * (1 + n_head))))
+    head_bound = rec.bound_of(geqrf_flops(head_rows, NB),
+                              4 * (head_rows * NB + NB * NB * (2 + 2 * (1 + n_head))))
     chain_rows = NB + n_chunks * br
     rec.set_bound("panel_chain", geqrf_flops(chain_rows, NB),
                   4 * (2 * n_chunks * br * NB + 2 * NB * NB + n_chunks * NB * NB))
+    column_rows = head_rows + n_chunks * br
+    rec.set_bound("panel_factor", geqrf_flops(column_rows, NB),
+                  4 * (2 * column_rows * NB + NB * NB * (2 + (1 + n_head) + n_chunks)))
 
     # the PyTorch calls that compute the same functions (yardsticks, never
     # called by the port): geqrf of the panel blocks, ormqr of their
     # reflectors on the same strip
     head_blk = a[:head_rows, :NB].contiguous()
     chain_blk = torch.cat([r_k, a[br : br * (1 + n_chunks), :NB]]).contiguous()
+    column_blk = a[:column_rows, :NB].contiguous()
     strip_kernels(a, rec, card, (v_stack, tg, t2h, v_chunks, t2t), "highest",
                   strip_libraries(a, r_k))
 
     # times at the same shapes
+    rec.time("panel_factor", column,
+             lambda: (panel.panel_factor_plain(a, 0, NB, IB, n_head),
+                      chain.panel_chain_plain(a, r_k, 0, NB, 1, n_chunks, br, IB)),
+             lambda: torch.geqrf(column_blk), 5, 1, card)
     rec.time("panel_factor", lambda: panel.panel_factor(a, 0, NB, IB, n_head),
              lambda: panel.panel_factor_plain(a, 0, NB, IB, n_head),
-             lambda: torch.geqrf(head_blk), 5, 1, card)
+             lambda: torch.geqrf(head_blk), 5, 1, card, label="K1 alone", bound=head_bound)
     rec.time("panel_chain", lambda: chain.panel_chain(a, r_k, 0, NB, 1, n_chunks, br, IB),
              lambda: chain.panel_chain_plain(a, r_k, 0, NB, 1, n_chunks, br, IB),
              lambda: torch.geqrf(chain_blk), 5, 1, card)
     print_cluster("panel_factor", 2 * NB, IB)
     print_cluster("panel_chain", NB + br, IB)
+    print_pipeline("panel_factor (K1 alone)", 1 + n_head, 2 * NB)
+    print_pipeline("panel_chain", n_chunks, NB + br, full_first=True)
+    print_pipeline("panel_column (K1 + K2, the hh driver's launch)", 1 + n_head + n_chunks,
+                   NB + br)
 
 
 def strip_libraries(a: torch.Tensor, r_k: torch.Tensor):
@@ -471,6 +493,22 @@ def print_cluster(name: str, rows: int, ib: int) -> None:
     print(f"cluster {name}: couple rows {rows}, C={plan.ctas} CTAs, "
           f"{plan.rows_per_cta} rows and {plan.smem_bytes} shared bytes per CTA, "
           f"active block resident in shared memory: {plan.resident}")
+
+
+def print_pipeline(name: str, steps: int, rows: int, full_first: bool = False) -> None:
+    """Whether a K1/K2 launch of ``steps`` couples runs pipelined by ib
+    block (``kernels/panel.py:pipeline_plan``), its q stages and each
+    stage's cluster."""
+    from tileqr_torch.kernels import panel
+
+    plan = panel.pipeline_plan(NB, IB, steps, rows, full_first)
+    engaged = panel._pipelined(NB, IB, steps, rows, full_first) is not None
+    c = plan.cluster
+    print(f"pipeline {name}: {steps} steps, q={plan.stages} stages (R rows {plan.windows}), "
+          f"each a cluster of C={c.ctas} CTAs over at most {plan.rows} rows "
+          f"({c.rows_per_cta} a CTA, {c.smem_bytes} shared bytes, resident {c.resident}); "
+          f"pipelined: {engaged}")
+    require(engaged, f"{name} did not take the pipeline")
 
 
 def compare_mode(rec: KernelRecord, name: str, mode: str, label: str, got, want,
@@ -666,7 +704,9 @@ def run_path(a: torch.Tensor, cfg, path: str, card: str):
     import tileqr_torch
     from tileqr_torch.kernels import _build
 
-    own = _build.HH_KERNELS if path == "hh" else _build.HR_KERNELS + _build.APPLY_KERNELS
+    # the hh path runs a panel's K1 and K2 as one pipelined K1 launch
+    own = (tuple(k for k in _build.HH_KERNELS if k != "panel_chain") if path == "hh"
+           else _build.HR_KERNELS + _build.APPLY_KERNELS)
     torch.cuda.synchronize()
     with warnings.catch_warnings():
         warnings.simplefilter("error")  # a guard trip fails the run
@@ -675,7 +715,13 @@ def run_path(a: torch.Tensor, cfg, path: str, card: str):
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
         plain = dict(_build.PLAIN_CALLS)
-    print(f"{path} path launches {json.dumps(launches)} plain_calls {json.dumps(plain)}")
+    print(f"{path} path launches {json.dumps(launches)} plain_calls {json.dumps(plain)} "
+          f"pipelined {json.dumps(_build.PIPELINE)}")
+    if path == "hh":
+        panels = min(a.shape) // NB
+        require(_build.PIPELINE["launches"] == launches["panel_factor"] - 1 == panels - 1,
+                f"hh: {_build.PIPELINE['launches']} of {launches['panel_factor']} panel "
+                f"launches pipelined")
     require(all(launches[k] >= 1 for k in own), f"a {path} kernel never launched: {launches}")
     require(not any(v for k, v in launches.items() if k not in own),
             f"the {path} path launched other kernels")
@@ -1518,7 +1564,7 @@ def mode_path(a: torch.Tensor, path: str, mode: str, card: str) -> dict:
 
     n = a.shape[0]
     cfg = tileqr_torch.QRConfig(square_method=path, precision=mode)
-    own = (("panel_factor", "panel_chain", f"couple_strip[{mode}]", f"larfb_strip[{mode}]")
+    own = (("panel_factor", f"couple_strip[{mode}]", f"larfb_strip[{mode}]")
            if path == "hh" else
            ("potrf_batched", "modified_lu", f"panel_apply_carry[{mode}]", f"panel_apply[{mode}]"))
     (q, r), launches = run_counted(lambda: tileqr_torch.qr(a, config=cfg), own, {},
@@ -2167,6 +2213,9 @@ def main() -> int:
     # the sharded paths: their new kernels' launches over the world's ranks
     sh, sh_hr = phase10(rec, rng, card)
     launches.update({k: sh[k] for k in _build.SHARDED_KERNELS + _build.SITE_KERNELS})
+    # K2 launches alone on the sharded path: the hh driver runs its panels'
+    # K2 couples inside K1's pipelined launch
+    launches["panel_chain"] += sh["panel_chain"]
     launches.update({k: sh_hr[k] for k in KERNEL_INFO if k.split("[")[0] in SHARDED_HR_KERNELS})
     # the one-block kernel keeps only stacks that no path runs (one_block)
     idle = [k for k in KERNEL_INFO if not launches[k] and k != "geqrt_batched"]

@@ -117,6 +117,222 @@ def test_cluster_kernels_rerun_bitwise(cuda):
         assert all(torch.equal(u, v) for u, v in zip(x, y))
 
 
+# the pipelined chain (csrc/panel_pipe.cuh): K1 and K2 alone and a panel's
+# K1 and K2 in one launch (chain.panel_column), at the cluster geometries
+# (nb 512 / ib 128: four stages; 512 / 256: the global workspace) and at
+# the main path's panel 0 of 8192²
+PIPE_GEOS = CLUSTER_GEOS + [(96, 64)]
+
+
+def pipeline_engages(nb, ib, steps, rows, full_first=False):
+    plan = panel._pipelined(nb, ib, steps, rows, full_first)
+    return plan is not None and plan.stages == -(-nb // ib)
+
+
+@pytest.mark.parametrize("nb,ib", PIPE_GEOS, ids=str)
+@pytest.mark.parametrize("n_head,n_chunks,chunk", [(0, 1, 1), (1, 2, 2), (3, 2, 4), (2, 0, 1)],
+                         ids=str)
+def test_panel_column_pipelined_matches_plain(cuda, nb, ib, n_head, n_chunks, chunk):
+    """One launch for the panel's K1 and K2 (its chunks from the first
+    chunk boundary below the head), pipelined, against K1 then K2 in the
+    plain versions; the counters; bitwise reruns."""
+    br, base = chunk * nb, (1 + n_head) * nb
+    a = torch.from_numpy(np.random.default_rng(nb + ib + n_head).standard_normal(
+        (base + n_chunks * br, nb), dtype=np.float32)).to(cuda)
+    steps = 1 + n_head + n_chunks
+    piped = pipeline_engages(nb, ib, steps, nb + br if n_chunks else 2 * nb)
+    run = lambda: chain.panel_column(a, 0, nb, ib, n_head, base // br, n_chunks, br)  # noqa: E731
+    _build.reset_counts()
+    got = run()
+    torch.cuda.synchronize()
+    assert _build.PIPELINE == {"launches": int(piped), "overlapped_steps": (steps - 1) * piped}
+    assert _build.LAUNCHES["panel_factor"] == 1 and not any(_build.PLAIN_CALLS.values())
+    assert _build.LAUNCHES["panel_chain"] == int(n_chunks > 0 and not piped)
+    k1 = panel.panel_factor_plain(a, 0, nb, ib, n_head)
+    want = list(k1)
+    if n_chunks:
+        k2 = chain.panel_chain_plain(a, k1[0], 0, nb, base // br, n_chunks, br, ib)
+        want = [k2[0], *k1[1:], k2[1], k2[2]]
+    errs = [rel(g, w) for g, w in zip(got, want)]
+    print(f"panel nb={nb} ib={ib} head={n_head} chunks={n_chunks}x{br} pipelined={piped}: "
+          f"rel {max(errs):.3e}")
+    assert all(e <= TOL for e in errs)
+    assert torch.equal(torch.tril(got[0], -1), torch.zeros_like(got[0]))
+    again = run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_pipelined_kernels_engage_and_rerun_bitwise(cuda):
+    """At the main path's shapes every entry takes the pipeline: K1 with 3
+    head couples (B13's launch), K2 with 7 chunks of 4·nb, panel 0 of
+    8192² in one launch, the nb = 512 tsqr
+    chain's four stages; reruns give the same bits; and each is within the
+    kernel tolerance of the serial loop (K1 then K2, one cluster)."""
+    nb, ib = 256, 128
+    a = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (8192, nb), dtype=np.float32)).to(cuda)
+    r_k = panel.panel_factor_plain(a, 0, nb, ib, 3)[0]
+    calls = {
+        "K1": lambda: panel.panel_factor(a, 0, nb, ib, 3),
+        "K2": lambda: chain.panel_chain(a, r_k, 0, nb, 1, 7, 4 * nb, ib),
+        "panel": lambda: chain.panel_column(a, 0, nb, ib, 3, 1, 7, 4 * nb),
+    }
+    for name, fn in calls.items():
+        _build.reset_counts()
+        x, y = fn(), fn()
+        torch.cuda.synchronize()
+        assert _build.PIPELINE["launches"] == 2, (name, _build.PIPELINE)
+        assert all(torch.equal(u, v) for u, v in zip(x, y)), name
+    want = chain.panel_chain_plain(a, r_k, 0, nb, 1, 7, 4 * nb, ib)
+    got = calls["panel"]()
+    assert rel(got[0], want[0]) <= TOL and rel(got[4], want[1]) <= TOL
+    t = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (20 * 512, 512), dtype=np.float32)).to(cuda)
+    _build.reset_counts()
+    got = chain.panel_column(t, 0, 512, 128, 3, 1, 4, 2048)
+    assert _build.PIPELINE == {"launches": 1, "overlapped_steps": 7}
+    k1 = panel.panel_factor_plain(t, 0, 512, 128, 3)
+    k2 = chain.panel_chain_plain(t, k1[0], 0, 512, 1, 4, 2048, 128)
+    for g, w in zip(got, [k2[0], *k1[1:], k2[1], k2[2]]):
+        assert rel(g, w) <= TOL
+
+
+@pytest.mark.parametrize("nb,ib", [(256, 128), (512, 128)], ids=str)
+def test_panel_chain_reads_r_ins_upper_triangle(cuda, nb, ib):
+    """K2 with a full r_in at 3 chunks: the pipelined launch, the serial
+    loop (one couple a launch, the R carried between them) and the plain
+    version all take r_in's upper triangle, so they agree; r_in and
+    triu(r_in) give the same bits."""
+    rng = np.random.default_rng(nb + ib)
+    n_chunks, br = 3, 2 * nb
+    a = torch.from_numpy(rng.standard_normal((n_chunks * br, nb), dtype=np.float32)).to(cuda)
+    r_in = torch.from_numpy(rng.standard_normal((nb, nb), dtype=np.float32)).to(cuda)
+    assert pipeline_engages(nb, ib, n_chunks, nb + br, full_first=True)
+    _build.reset_counts()
+    piped = chain.panel_chain(a, r_in, 0, nb, 0, n_chunks, br, ib)
+    again = chain.panel_chain(a, torch.triu(r_in), 0, nb, 0, n_chunks, br, ib)
+    torch.cuda.synchronize()
+    assert _build.PIPELINE["launches"] == 2
+    assert all(torch.equal(x, y) for x, y in zip(piped, again))
+    r, serial_v, serial_t = r_in, [], []
+    for c in range(n_chunks):  # one couple a launch: the serial loop
+        r, v, t = chain.panel_chain(a, r, 0, nb, c, 1, br, ib)
+        serial_v.append(v[0])
+        serial_t.append(t[0])
+    assert _build.PIPELINE["launches"] == 2
+    serial = (r, torch.stack(serial_v), torch.stack(serial_t))
+    want = chain.panel_chain_plain(a.double(), r_in.double(), 0, nb, 0, n_chunks, br, ib)
+    for got in (piped, serial):
+        assert torch.equal(torch.tril(got[0], -1), torch.zeros_like(got[0]))
+        errs = [rel(g, w) for g, w in zip(got, want)]
+        assert all(e <= TOL for e in errs), errs
+    assert all(rel(x, y) <= TOL for x, y in zip(piped, serial))
+
+
+def test_pipeline_of_many_stages(cuda):
+    """nb 256 at ib 16: 16 stage clusters of 16 CTAs, more CTAs than the
+    card has SMs (a stage waits only on stages that took their tickets
+    before it, so the launch finishes however few clusters the card holds
+    at once); against the plain K1 then K2; bitwise reruns."""
+    nb, ib, n_head, n_chunks, br = 256, 16, 3, 2, 4 * 256
+    a = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        ((1 + n_head) * nb + n_chunks * br, nb), dtype=np.float32)).to(cuda)
+    plan = panel.pipeline_plan(nb, ib, 1 + n_head + n_chunks, nb + br)
+    assert plan.stages == 16 and plan.stages * plan.cluster.ctas > _build.sm_count(a)
+    _build.reset_counts()
+    got = chain.panel_column(a, 0, nb, ib, n_head, 1, n_chunks, br)
+    again = chain.panel_column(a, 0, nb, ib, n_head, 1, n_chunks, br)
+    torch.cuda.synchronize()
+    assert _build.PIPELINE["launches"] == 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    k1 = panel.panel_factor_plain(a, 0, nb, ib, n_head)
+    k2 = chain.panel_chain_plain(a, k1[0], 0, nb, 1, n_chunks, br, ib)
+    for g, w in zip(got, [k2[0], *k1[1:], k2[1], k2[2]]):
+        assert rel(g, w) <= TOL
+
+
+def test_no_pipeline_inside_a_cuda_graph(cuda):
+    """A panel captured in a CUDA graph runs the serial loop (a replay of a
+    pipelined launch would reuse its epoch): the replays give the eager
+    pipelined answer within the kernel tolerance, and the same bits each
+    time; pipelined launches after the capture still run."""
+    nb, ib, n_head, n_chunks, br = 256, 128, 3, 2, 4 * 256
+    a = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        ((1 + n_head) * nb + n_chunks * br, nb), dtype=np.float32)).to(cuda)
+    run = lambda: chain.panel_column(a, 0, nb, ib, n_head, 1, n_chunks, br)  # noqa: E731
+    eager = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    _build.reset_counts()
+    with torch.cuda.graph(graph):
+        out = run()
+    assert _build.PIPELINE["launches"] == 0
+    assert _build.LAUNCHES["panel_factor"] == 1 and _build.LAUNCHES["panel_chain"] == 1
+    graph.replay()
+    torch.cuda.synchronize()
+    first = [x.clone() for x in out]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, out))
+    assert all(rel(x, y) <= TOL for x, y in zip(first, eager))
+    _build.reset_counts()
+    after = run()
+    torch.cuda.synchronize()
+    assert _build.PIPELINE["launches"] == 1
+    assert all(torch.equal(x, y) for x, y in zip(after, eager))
+
+
+def test_qr_pipelines_31_of_32_panels(cuda):
+    """hh qr at 8192²: one K1 launch a panel, all but the last (a lone
+    GEQRT) pipelined, 160 of the 192 couple steps overlapped; no K2 launch."""
+    a = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (8192, 8192), dtype=np.float32)).to(cuda)
+    _build.reset_counts()
+    f = tileqr_torch.qr_factor(a)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["panel_factor"] == 32 and _build.LAUNCHES["panel_chain"] == 0
+    assert _build.PIPELINE == {"launches": 31, "overlapped_steps": 160}
+    r = tileqr_torch.qr(a)[1]
+    assert backward_error_f64(a, tileqr_torch.apply_q(f, a, trans=True), r) <= 1e-6
+
+
+# sha256 prefixes of the outputs of the routes that share geqrt_cluster.cuh
+# with K1/K2 but are not pipelined, from the build before the pipeline on
+# the card (the batched GEQRT's cluster route, TTQRT, tsqrt and K1 with one
+# step run the same code paths, so the same bits)
+PARENT_BITS = {"cluster 2x2048x512": "c893b6cec3ff6c0d", "cluster 1x256x256": "70149b49d33fb125",
+               "ttqrt 256": "bcf527c12338416b", "tsqrt 256": "e8651fcc6a3b7a00",
+               "panel_factor 1 step": "e0ad2b04ebfbd9c3"}
+
+
+def test_cluster_route_and_ttqrt_keep_their_bits(cuda):
+    import hashlib
+
+    from tileqr_torch.kernels import tsqrt, ttqrt
+
+    def bits(ts):
+        d = hashlib.sha256()
+        for t in ts:
+            d.update(t.detach().cpu().contiguous().numpy().tobytes())
+        return d.hexdigest()[:16]
+
+    got = {}
+    for b, m, n, ib in [(2, 2048, 512, 128), (1, 256, 256, 128)]:
+        a = torch.from_numpy(np.random.default_rng(b + m).standard_normal(
+            (b, m, n), dtype=np.float32)).to(cuda)
+        got[f"cluster {b}x{m}x{n}"] = bits(geqrt.geqrt_batched(a, ib))
+    rng = np.random.default_rng(256)
+    r1, r2 = (torch.from_numpy(np.triu(rng.standard_normal((256, 256), dtype=np.float32)))
+              .to(cuda) for _ in range(2))
+    got["ttqrt 256"] = bits(ttqrt.ttqrt(r1, r2, 128))
+    got["tsqrt 256"] = bits(tsqrt.tsqrt(r1, r2, 128))
+    a = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (256, 256), dtype=np.float32)).to(cuda)
+    got["panel_factor 1 step"] = bits(panel.panel_factor(a, 0, 256, 128, 0))
+    assert got == PARENT_BITS
+
+
 @pytest.mark.parametrize("nb", [64, 256])
 @pytest.mark.parametrize("trans,reverse", [(True, False), (False, True), (True, True)])
 @pytest.mark.parametrize("fused", [False, True])

@@ -13,6 +13,13 @@
 // cluster barrier and a pass over rpc = m / C shared-memory rows a column
 // (geqrt.cuh's single-block design walks m rows through L2 on one SM).
 //
+// r_in is upper triangular (its wrapper, kernels/chain.py, passes r_in's
+// upper triangle). A launch of two or more couples runs them pipelined by
+// ib block instead (panel.cu: tq_panel_pipe, panel_pipe.cuh); the loop here
+// stays for one couple (B15's tsqrt) and for q = 1. The hh driver runs its
+// panels' K2 couples inside K1's pipelined launch
+// (kernels/chain.py:panel_column).
+//
 // K3 (couple_strip) and K4 (larfb_strip), the strip apply, are in
 // strip.cu.
 #include "geqrt_cluster.cuh"

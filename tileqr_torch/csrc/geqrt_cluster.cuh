@@ -20,12 +20,14 @@
 // The design: one cluster of C CTAs (C in {1, 2, 4, 8, 16}, CL_THREADS
 // threads each, chosen by kernels/panel.py:cluster_plan from nb, m and
 // ib) holds the couple's rows. Which rows a block walks and how the CTAs
-// split them is the block's row set (FullRows, TriRows below). K1/K2
-// (FullRows): every row, split contiguously: CTA q owns couple rows
-// [q*rpc, (q+1)*rpc), rpc = ceil(m / C), so the carried R (the top nb rows)
-// sits on the first CTAs. Every row is walked, R's zero rows too, as the
-// plain version walks them (K2 takes any r_in), so the split is balanced.
-// TTQRT (TriRows, sized by panel.py:ttqrt_plan): only the block's live
+// split them is the block's row set (FullRows, PipeRows, TriRows below).
+// K1/K2's serial loop (FullRows): every row, split contiguously: CTA q owns
+// couple rows [q*rpc, (q+1)*rpc), rpc = ceil(m / C), so the carried R (the
+// top nb rows) sits on the first CTAs. Every row is walked, R's zero rows
+// too, as the plain version walks them (K2 takes any r_in), so the split is
+// balanced. K1/K2 pipelined by ib block (PipeRows, panel_pipe.cuh: one
+// cluster a block, couple_block on one block of each couple in turn): the
+// rows the block can change, split contiguously. TTQRT (TriRows, sized by panel.py:ttqrt_plan): only the block's live
 // rows, dealt out cyclically, each column's dots and update over its
 // reflector's support only.
 //   - While ib-block [s, s+ibk) is eliminated, each CTA holds its rows of
@@ -153,6 +155,7 @@ struct Cta {
   int ld;        // ib + 1
   int ib;
   int rank, ctas;
+  int slot;      // the stage timer's row: 0, or a pipeline stage's (panel_pipe.cuh)
 };
 
 // The couple's rows: R (r_rows rows, 0 or nb) on top of B. Before the first
@@ -172,21 +175,25 @@ __device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
 
 // Stage timer, compiled only with TQ_CL_STAGES (utils/cluster_stages.py
 // builds the kernels so and prints the split): thread 0 of CTA 0 adds each
-// stage's globaltimer nanoseconds to cl_stage_ns: 0 the slab's load and
-// store, 1 P and its reduction, 2 Tb, 3 the off-diagonal T, 4 the apply;
-// in the column loop 5 the dots, 6 the partials' exchange and the cluster
-// barrier, 7 LARFG and the rank-1 update.
+// stage's globaltimer nanoseconds to its row w.slot of cl_stage_ns (0; a
+// pipelined panel launch's stage s, panel_pipe.cuh, its own row s, stages
+// from CL_SLOTS on untimed): 0 the slab's load and store, 1 P and its
+// reduction, 2 Tb, 3 the off-diagonal T, 4 the apply; in the column loop 5
+// the dots, 6 the partials' exchange and the cluster barrier, 7 LARFG and
+// the rank-1 update; 8 a pipeline stage's wait on the hand-off flag of the
+// stage before it.
 #ifdef TQ_CL_STAGES
-__device__ unsigned long long cl_stage_ns[8];
-__device__ unsigned long long cl_stage_last;
-#define CL_STAGE(i)                                                              \
-  do {                                                                           \
-    if (threadIdx.x == 0 && cg::this_cluster().block_rank() == 0) {              \
-      unsigned long long t_;                                                     \
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                     \
-      if ((i) >= 0) cl_stage_ns[(i) < 0 ? 0 : (i)] += t_ - cl_stage_last;        \
-      cl_stage_last = t_;                                                        \
-    }                                                                            \
+constexpr int CL_SLOTS = 8, CL_NSTAGES = 9;
+__device__ unsigned long long cl_stage_ns[CL_SLOTS][CL_NSTAGES];
+__device__ unsigned long long cl_stage_last[CL_SLOTS];
+#define CL_STAGE(i)                                                                 \
+  do {                                                                              \
+    if (threadIdx.x == 0 && cg::this_cluster().block_rank() == 0 && w.slot < CL_SLOTS) { \
+      unsigned long long t_;                                                        \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                        \
+      if ((i) >= 0) cl_stage_ns[w.slot][(i) < 0 ? 0 : (i)] += t_ - cl_stage_last[w.slot]; \
+      cl_stage_last[w.slot] = t_;                                                   \
+    }                                                                               \
   } while (0)
 #else
 #define CL_STAGE(i) \
@@ -292,13 +299,14 @@ __device__ void cta_gemm(int I, int J, int K, FA a, FB b, FS store, float* stage
 // Split the kernel's buffers: `smem` is the dynamic shared memory, `work`
 // the global workspace of ws_floats(nb, rows, ib, C, RES) floats.
 template <bool RES>
-__device__ Cta carve(float* smem, float* work, int nb, int rows, int ib) {
+__device__ Cta carve(float* smem, float* work, int nb, int rows, int ib, int slot = 0) {
   cg::cluster_group cluster = cg::this_cluster();
   Cta w;
   w.rank = (int)cluster.block_rank();
   w.ctas = (int)cluster.num_blocks();
   w.ld = ib + 1;
   w.ib = ib;
+  w.slot = slot;
   const Sizes z = sizes(nb, rows, ib, w.ctas);
   CL_STAGE(-1);
   w.pred = work;
@@ -479,6 +487,41 @@ struct TriRows {
   }
 };
 
+// PipeRows (a stage of a pipelined K1/K2 launch, panel_pipe.cuh): block s
+// walks only the rows at or below its first diagonal that it can change, so
+// that the stages running beside it on other couples touch none of them.
+// A TS couple [R; B] (R upper triangular, r_rows = nb): R's rows [s, s +
+// ibk), then every B row; reflector j lives on R's row j and on B, so R's
+// rows past the block hold zeros in its columns, its apply leaves them as
+// they are, and earlier blocks' reflectors are zero on the block's R rows.
+// A full couple (the GEQRT step's tile, r_rows = 0, or the first couple of
+// a K2 launch, whose R rows of later blocks come from r_in): every row from
+// s on, [s, m), the rows above s being final R rows that no reflector j >= s
+// touches.
+// Rows in couple order, split contiguously over the CTAs (live index li,
+// the block's first diagonal at li = 0); every row past a column's
+// diagonal is its tail.
+struct PipeRows {
+  static constexpr bool moves = false, split_tail = false;
+  int n, d0, s, ibk, r_rows;
+  bool full;
+  __device__ PipeRows(const Couple& cp, int s_, int ibk_, bool full_)
+      : n(full_ ? cp.m - s_ : ibk_ + cp.m - cp.r_rows), d0(0), s(s_), ibk(ibk_),
+        r_rows(cp.r_rows), full(full_) {}
+  __device__ Mine mine(int q, int C) const {
+    const int rpc = ceil_div(n, C);
+    return Mine{q * rpc, 0, max(0, min(rpc, n - q * rpc))};
+  }
+  __device__ int tail_lo(int jj) const { return jj + 1; }
+  __device__ int tail_hi(int) const { return n; }
+  __device__ int row(int li) const { return (full || li < ibk) ? s + li : r_rows + li - ibk; }
+  __device__ bool fresh(int) const { return s == 0; }
+  __device__ float vprev(const Couple& cp, int li, int c) const {
+    // row > c: the packed value from its home; a TS couple's R rows: zero
+    return (full || li >= ibk) ? ldcg(home_at(cp, row(li), c)) : 0.f;
+  }
+};
+
 // The Householder column loop over an ibk-column block on this CTA's rows
 // `mine` of the block's row set: column jj's diagonal row is live index
 // rows.d0 + jj, and its reflector lives there and on its tail. One cluster
@@ -593,142 +636,152 @@ __device__ void column_loop(const Cta& w, const Rows& rows, const Mine& mine, in
 // the live rows of a TTQRT couple's largest block: its slab's row count
 __host__ __device__ inline int tri_rows_max(int nb, int ib) { return nb + (ib < nb ? ib : nb); }
 
+// Block [s, s + ibk) of the couple cp over the rows of its set `rows`, in
+// place (its homes): the slab's load, the column loop, the slab's store, P,
+// Tb, the off-diagonal T and the apply to the columns right of the block; T's
+// columns [s, s + ibk) into cp.t_out. Called by every thread of every CTA of
+// the cluster.
+template <bool RES, class Rows>
+__device__ void couple_block(const Couple& cp, const Cta& w, const Rows& rows, int s, int ibk) {
+  const int tid = threadIdx.x, ld = w.ld, nb = cp.nb;
+  const int q = w.rank, C = w.ctas;
+  float* slab = w.slab;
+  const Mine mine = rows.mine(q, C);
+  const int nr = mine.nr, d0 = rows.d0;
+  auto src = [&](int li, int c) { return src_at(cp, rows.row(li), c, rows.fresh(li)); };
+
+  // ---- the block's rows of this CTA into the slab; the column loop ----
+  for (int idx = tid; idx < nr * ibk; idx += CL_THREADS) {
+    const int r = div_small(idx, ibk), c = idx - r * ibk;
+    slab[r * ld + c] = src(mine.li(r), s + c);
+  }
+  __syncthreads();
+  CL_STAGE(0);
+  column_loop(w, rows, mine, ibk);
+  for (int idx = tid; idx < nr * ibk; idx += CL_THREADS) {
+    const int r = div_small(idx, ibk), c = idx - r * ibk;
+    *home_at(cp, rows.row(mine.li(r)), s + c) = slab[r * ld + c];
+  }
+  CL_STAGE(0);
+
+  // ---- P = Vb^T [V_prev | Vb | A_rest], reduced over the cluster ----
+  for (int c0 = 0; c0 < nb; c0 += CL_CW) {
+    const int cw = min(CL_CW, nb - c0);
+    cta_gemm(
+        ibk, cw, nr,
+        [&](int r, int a) { return vmask(mine.li(r), d0 + a, slab[r * ld + a]); },
+        [&](int r, int jc) {
+          const int c = c0 + jc, li = mine.li(r);
+          if (c < s) return rows.vprev(cp, li, c);
+          if (c < s + ibk) return vmask(li, d0 + c - s, slab[r * ld + c - s]);
+          return src(li, c);
+        },
+        [&](int a, int jc, float v) { w.ybuf[a * cw + jc] = v; }, w.stage);
+    cluster_sync_global();
+    const int e_all = ibk * cw, share = ceil_div(e_all, C);
+    for (int e = q * share + tid; e < min(e_all, (q + 1) * share); e += CL_THREADS) {
+      const int a = div_small(e, cw);
+      w.pred[(long long)a * nb + c0 + e - a * cw] = sum_ranks<RES>(w, e);
+    }
+    cluster_sync_global();
+  }
+  CL_STAGE(1);
+
+  // ---- Tb by doubling, transposed (tb = Tb^T), on every CTA; G (from
+  // the reduced P) in the slab's place meanwhile: Vb is in its home ----
+  float* G = slab;  // G(a, k) = G[a * ld + k]
+  for (int idx = tid; idx < ibk * ibk; idx += CL_THREADS) {
+    const int a = div_small(idx, ibk), b = idx - a * ibk;
+    w.tb[a * ld + b] = (a == b) ? w.tau[a] : 0.f;
+    G[a * ld + b] = ldcg(w.pred + (long long)a * nb + s + b);
+  }
+  __syncthreads();
+  float* X = w.ybuf;
+  for (int bsz = 1, lb = 0; bsz < ibk; bsz *= 2, ++lb) {
+    // X = (G o M) Tb^T on the pairs (odd block A, even block B = A - 1)
+    for (int idx = tid; idx < ibk * bsz; idx += CL_THREADS) {
+      const int a = idx >> lb, ea = a >> lb;
+      if (!(ea & 1)) continue;
+      const int b = (ea - 1) * bsz + (idx & (bsz - 1));
+      float t = 0.f;
+      for (int k = b; k < ea * bsz; ++k) t = fmaf(G[a * ld + k], w.tb[k * ld + b], t);
+      X[idx] = t;
+    }
+    __syncthreads();
+    for (int idx = tid; idx < ibk * bsz; idx += CL_THREADS) {
+      const int a = idx >> lb, ea = a >> lb, bo = idx & (bsz - 1);
+      if (!(ea & 1)) continue;
+      float t = 0.f;
+      for (int k = ea * bsz; k <= a; ++k) t = fmaf(w.tb[a * ld + k], X[k * bsz + bo], t);
+      w.tb[a * ld + (ea - 1) * bsz + bo] = -t;
+    }
+    __syncthreads();
+  }
+  if (q == 0) {
+    for (int idx = tid; idx < ibk * ibk; idx += CL_THREADS) {
+      const int a = div_small(idx, ibk), b = idx - a * ibk;
+      cp.t_out[(long long)(s + a) * nb + s + b] = w.tb[b * ld + a];
+    }
+  }
+  for (int idx = tid; idx < nr * ibk; idx += CL_THREADS) {
+    const int r = div_small(idx, ibk), c = idx - r * ibk;
+    slab[r * ld + c] = ldcg(home_at(cp, rows.row(mine.li(r)), s + c));
+  }
+  __syncthreads();
+  CL_STAGE(2);
+
+  // ---- off-diagonal T[0:s, block] = -T1 (V1^T Vb) Tb, rows dealt out ----
+  if (s > 0) {
+    const int sh = ceil_div(s, C), a0 = q * sh, na = max(0, min(sh, s - a0));
+    // M2 = T1[a0:a0+na, :] Z, Z(k, b) = P(b, k), T1 upper triangular
+    cta_gemm(
+        na, ibk, s,
+        [&](int k, int i) {
+          return k >= a0 + i ? ldcg(cp.t_out + (long long)(a0 + i) * nb + k) : 0.f;
+        },
+        [&](int k, int b) { return ldcg(w.pred + (long long)b * nb + k); },
+        [&](int i, int b, float v) { w.ybuf[i * ibk + b] = v; }, w.stage);
+    for (int idx = tid; idx < na * ibk; idx += CL_THREADS) {
+      const int al = div_small(idx, ibk), a = a0 + al, b = idx - al * ibk;
+      float t = 0.f;
+      for (int k = 0; k <= b; ++k) t = fmaf(w.tb[b * ld + k], w.ybuf[al * ibk + k], t);
+      cp.t_out[(long long)a * nb + s + b] = -t;
+      cp.t_out[(long long)(s + b) * nb + a] = 0.f;
+    }
+    __syncthreads();
+  }
+  CL_STAGE(3);
+
+  // ---- A_rest <- A_rest - Vb (Tb^T W), chunk by chunk, on own rows ----
+  for (int c0 = s + ibk; c0 < nb; c0 += CL_CW) {
+    const int cw = min(CL_CW, nb - c0);
+    cta_gemm(
+        ibk, cw, ibk, [&](int k, int a) { return k <= a ? w.tb[a * ld + k] : 0.f; },
+        [&](int k, int jc) { return ldcg(w.pred + (long long)k * nb + c0 + jc); },
+        [&](int a, int jc, float v) { w.ybuf[a * cw + jc] = v; }, w.stage);
+    cta_gemm(
+        nr, cw, ibk, [&](int k, int r) { return vmask(mine.li(r), d0 + k, slab[r * ld + k]); },
+        [&](int k, int jc) { return w.ybuf[k * cw + jc]; },
+        [&](int r, int jc, float v) {
+          const int li = mine.li(r), c = c0 + jc;
+          *home_at(cp, rows.row(li), c) = src(li, c) - v;
+        },
+        w.stage);
+  }
+  __syncthreads();
+  CL_STAGE(4);
+}
+
 // Factor the couple cp in place (its homes), T into cp.t_out, each block
 // over the rows of its set (FullRows or TriRows). Called by every thread of
 // every CTA of the cluster.
 template <bool RES, class Rows = FullRows>
 __device__ void geqrt_couple_cluster(const Couple& cp, const Cta& w) {
-  const int tid = threadIdx.x, ld = w.ld, ib = w.ib, nb = cp.nb;
-  const int q = w.rank, C = w.ctas;
-  float* slab = w.slab;
-  for (int s = 0; s < nb; s += ib) {
-    const int ibk = min(ib, nb - s);
+  for (int s = 0; s < cp.nb; s += w.ib) {
+    const int ibk = min(w.ib, cp.nb - s);
     const Rows rows(cp, s, ibk);
-    const Mine mine = rows.mine(q, C);
-    const int nr = mine.nr, d0 = rows.d0;
-    auto src = [&](int li, int c) { return src_at(cp, rows.row(li), c, rows.fresh(li)); };
     if (Rows::moves && s > 0) cluster_sync_global();
-
-    // ---- the block's rows of this CTA into the slab; the column loop ----
-    for (int idx = tid; idx < nr * ibk; idx += CL_THREADS) {
-      const int r = div_small(idx, ibk), c = idx - r * ibk;
-      slab[r * ld + c] = src(mine.li(r), s + c);
-    }
-    __syncthreads();
-    CL_STAGE(0);
-    column_loop(w, rows, mine, ibk);
-    for (int idx = tid; idx < nr * ibk; idx += CL_THREADS) {
-      const int r = div_small(idx, ibk), c = idx - r * ibk;
-      *home_at(cp, rows.row(mine.li(r)), s + c) = slab[r * ld + c];
-    }
-    CL_STAGE(0);
-
-    // ---- P = Vb^T [V_prev | Vb | A_rest], reduced over the cluster ----
-    for (int c0 = 0; c0 < nb; c0 += CL_CW) {
-      const int cw = min(CL_CW, nb - c0);
-      cta_gemm(
-          ibk, cw, nr,
-          [&](int r, int a) { return vmask(mine.li(r), d0 + a, slab[r * ld + a]); },
-          [&](int r, int jc) {
-            const int c = c0 + jc, li = mine.li(r);
-            if (c < s) return rows.vprev(cp, li, c);
-            if (c < s + ibk) return vmask(li, d0 + c - s, slab[r * ld + c - s]);
-            return src(li, c);
-          },
-          [&](int a, int jc, float v) { w.ybuf[a * cw + jc] = v; }, w.stage);
-      cluster_sync_global();
-      const int e_all = ibk * cw, share = ceil_div(e_all, C);
-      for (int e = q * share + tid; e < min(e_all, (q + 1) * share); e += CL_THREADS) {
-        const int a = div_small(e, cw);
-        w.pred[(long long)a * nb + c0 + e - a * cw] = sum_ranks<RES>(w, e);
-      }
-      cluster_sync_global();
-    }
-    CL_STAGE(1);
-
-    // ---- Tb by doubling, transposed (tb = Tb^T), on every CTA; G (from
-    // the reduced P) in the slab's place meanwhile: Vb is in its home ----
-    float* G = slab;  // G(a, k) = G[a * ld + k]
-    for (int idx = tid; idx < ibk * ibk; idx += CL_THREADS) {
-      const int a = div_small(idx, ibk), b = idx - a * ibk;
-      w.tb[a * ld + b] = (a == b) ? w.tau[a] : 0.f;
-      G[a * ld + b] = ldcg(w.pred + (long long)a * nb + s + b);
-    }
-    __syncthreads();
-    float* X = w.ybuf;
-    for (int bsz = 1, lb = 0; bsz < ibk; bsz *= 2, ++lb) {
-      // X = (G o M) Tb^T on the pairs (odd block A, even block B = A - 1)
-      for (int idx = tid; idx < ibk * bsz; idx += CL_THREADS) {
-        const int a = idx >> lb, ea = a >> lb;
-        if (!(ea & 1)) continue;
-        const int b = (ea - 1) * bsz + (idx & (bsz - 1));
-        float t = 0.f;
-        for (int k = b; k < ea * bsz; ++k) t = fmaf(G[a * ld + k], w.tb[k * ld + b], t);
-        X[idx] = t;
-      }
-      __syncthreads();
-      for (int idx = tid; idx < ibk * bsz; idx += CL_THREADS) {
-        const int a = idx >> lb, ea = a >> lb, bo = idx & (bsz - 1);
-        if (!(ea & 1)) continue;
-        float t = 0.f;
-        for (int k = ea * bsz; k <= a; ++k) t = fmaf(w.tb[a * ld + k], X[k * bsz + bo], t);
-        w.tb[a * ld + (ea - 1) * bsz + bo] = -t;
-      }
-      __syncthreads();
-    }
-    if (q == 0) {
-      for (int idx = tid; idx < ibk * ibk; idx += CL_THREADS) {
-        const int a = div_small(idx, ibk), b = idx - a * ibk;
-        cp.t_out[(long long)(s + a) * nb + s + b] = w.tb[b * ld + a];
-      }
-    }
-    for (int idx = tid; idx < nr * ibk; idx += CL_THREADS) {
-      const int r = div_small(idx, ibk), c = idx - r * ibk;
-      slab[r * ld + c] = ldcg(home_at(cp, rows.row(mine.li(r)), s + c));
-    }
-    __syncthreads();
-    CL_STAGE(2);
-
-    // ---- off-diagonal T[0:s, block] = -T1 (V1^T Vb) Tb, rows dealt out ----
-    if (s > 0) {
-      const int sh = ceil_div(s, C), a0 = q * sh, na = max(0, min(sh, s - a0));
-      // M2 = T1[a0:a0+na, :] Z, Z(k, b) = P(b, k), T1 upper triangular
-      cta_gemm(
-          na, ibk, s,
-          [&](int k, int i) {
-            return k >= a0 + i ? ldcg(cp.t_out + (long long)(a0 + i) * nb + k) : 0.f;
-          },
-          [&](int k, int b) { return ldcg(w.pred + (long long)b * nb + k); },
-          [&](int i, int b, float v) { w.ybuf[i * ibk + b] = v; }, w.stage);
-      for (int idx = tid; idx < na * ibk; idx += CL_THREADS) {
-        const int al = div_small(idx, ibk), a = a0 + al, b = idx - al * ibk;
-        float t = 0.f;
-        for (int k = 0; k <= b; ++k) t = fmaf(w.tb[b * ld + k], w.ybuf[al * ibk + k], t);
-        cp.t_out[(long long)a * nb + s + b] = -t;
-        cp.t_out[(long long)(s + b) * nb + a] = 0.f;
-      }
-      __syncthreads();
-    }
-    CL_STAGE(3);
-
-    // ---- A_rest <- A_rest - Vb (Tb^T W), chunk by chunk, on own rows ----
-    for (int c0 = s + ibk; c0 < nb; c0 += CL_CW) {
-      const int cw = min(CL_CW, nb - c0);
-      cta_gemm(
-          ibk, cw, ibk, [&](int k, int a) { return k <= a ? w.tb[a * ld + k] : 0.f; },
-          [&](int k, int jc) { return ldcg(w.pred + (long long)k * nb + c0 + jc); },
-          [&](int a, int jc, float v) { w.ybuf[a * cw + jc] = v; }, w.stage);
-      cta_gemm(
-          nr, cw, ibk, [&](int k, int r) { return vmask(mine.li(r), d0 + k, slab[r * ld + k]); },
-          [&](int k, int jc) { return w.ybuf[k * cw + jc]; },
-          [&](int r, int jc, float v) {
-            const int li = mine.li(r), c = c0 + jc;
-            *home_at(cp, rows.row(li), c) = src(li, c) - v;
-          },
-          w.stage);
-    }
-    __syncthreads();
-    CL_STAGE(4);
+    couple_block<RES>(cp, w, rows, s, ibk);
   }
 }
 
@@ -787,11 +840,12 @@ int launch_cluster(void (*kernel)(Exp...), int ctas, size_t smem, cudaStream_t s
 }
 
 #ifdef TQ_CL_STAGES
-// copy the stage nanoseconds to `out` (8 values) and zero them
+// copy the stage nanoseconds to `out` (CL_SLOTS x CL_NSTAGES values, row by
+// row) and zero them
 inline int read_stages(unsigned long long* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, cl_stage_ns, sizeof(cl_stage_ns));
   if (e != cudaSuccess) return (int)e;
-  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  const unsigned long long zero[CL_SLOTS][CL_NSTAGES] = {};
   return (int)cudaMemcpyToSymbol(cl_stage_ns, zero, sizeof(zero));
 }
 #endif

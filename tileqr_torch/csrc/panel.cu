@@ -18,7 +18,14 @@
 // through L2 on one SM (geqrt.cuh's one-block design). One launch per panel;
 // R crosses from step to step through r_out (L2), with a cluster barrier
 // between steps because step 0's row split differs from the couples'.
-#include "geqrt_cluster.cuh"
+//
+// A launch of two or more steps runs them pipelined instead (tq_panel_pipe,
+// panel_pipe.cuh): nb / ib clusters, block s of each couple on cluster s,
+// beside block s - 1 of the next; the hh driver's launch also runs the
+// panel's K2 couples after K1's (kernels/chain.py:panel_column), the
+// pipeline carried across, and K2 alone pipelines through the same entry.
+// The serial loop stays for one step (K1 with no couple) and for q = 1.
+#include "panel_pipe.cuh"
 
 namespace {
 
@@ -87,6 +94,27 @@ extern "C" int tq_panel_factor(const float* a, long long lda, int k, int nb, int
                               ib, n_couples, r_out, v_stack, t_geqrt, t2_stack, work);
   return cl::launch_cluster(panel_factor_kernel<false>, ctas, (size_t)smem, st, a, lda, k, nb,
                             ib, n_couples, r_out, v_stack, t_geqrt, t2_stack, work);
+}
+
+// A chain of couples pipelined by ib block (panel_pipe.cuh: PipeArgs, in
+// its order), then the launch's: `stages` clusters of `ctas` CTAs, smem and
+// resident (kernels/panel.py:pipeline_plan; `rows`, the largest a stage
+// walks, is its cluster's); work: stages x tq_cluster_work_floats(nb, rows,
+// ib, ctas, resident) floats; sync: the hand-off buffer (1 + steps x stages
+// words); epoch: this launch's number. geqrt = 1: K1's GEQRT, n_head head
+// couples, then n_chunks chunk couples (K1, or a panel's K1 and K2); geqrt
+// = 0: K2's n_chunks chunk couples after r_in.
+extern "C" int tq_panel_pipe(const float* a, long long lda, int k, int nb, int ib, int rows,
+                             int geqrt, int n_head, int n_chunks, int block_rows,
+                             long long chunk_row0, const float* r_in, float* r_out,
+                             float* v_stack, float* t_geqrt, float* t2_stack, float* v_chunks,
+                             float* t2_chunks, float* work, unsigned long long* sync,
+                             long long epoch, int stages, int ctas, long long smem, int resident,
+                             void* stream) {
+  const cl::PipeArgs p{a, lda, k, nb, ib, rows, geqrt, n_head, n_chunks, block_rows, chunk_row0,
+                       r_in, r_out, v_stack, t_geqrt, t2_stack, v_chunks, t2_chunks, work, sync,
+                       (unsigned long long)epoch};
+  return cl::launch_pipe(p, stages, ctas, smem, resident, static_cast<cudaStream_t>(stream));
 }
 
 #ifdef TQ_CL_STAGES

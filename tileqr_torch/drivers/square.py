@@ -1,7 +1,8 @@
 """Right-looking tiled QR driver (counterpart of ``tileqr/drivers/square.py``).
 
 A host loop over panels launches K1-K4 (``kernels/panel.py``,
-``kernels/chain.py``) with integer offsets. It stands in for both of the
+``kernels/chain.py``) with integer offsets; a panel's K1 and K2 are one
+pipelined launch on the card (``chain.panel_column``). It stands in for both of the
 JAX package's drivers: ``square.py`` (trace-unrolled) and ``square_dyn.py``
 (run-time offsets, which exists only to bound TPU compile time).
 
@@ -26,8 +27,7 @@ from typing import Tuple
 import torch
 
 from tileqr_torch.core.trace import span
-from tileqr_torch.kernels.chain import couple_strip, larfb_strip, panel_chain
-from tileqr_torch.kernels.panel import panel_factor
+from tileqr_torch.kernels.chain import couple_strip, larfb_strip, panel_column
 
 
 def _chunk_for(mt: int, chunk: int) -> int:
@@ -63,12 +63,8 @@ def qr_tiled(a: torch.Tensor, nb: int, ib: int = 128, chunk: int = 4,
     for k in range(k_max):
         n_head, base, nc = _segments(k, mt, c)
         with span("tileqr_torch.hh.panel"):
-            r_k, v_stack, tg_k, t2h = panel_factor(a, k, nb, ib=ib, n_couples=n_head)
-            if nc > 0:
-                r_k, v_chunks, t2t = panel_chain(a, r_k, k, nb, base, nc, c * nb, ib=ib)
-            else:
-                v_chunks = a.new_zeros((0, c * nb, nb))
-                t2t = a.new_zeros((0, nb, nb))
+            r_k, v_stack, tg_k, t2h, v_chunks, t2t = panel_column(a, k, nb, ib, n_head, base,
+                                                                  nc, c * nb)
         r_diag.append(r_k)
         t_geqrt.append(tg_k)
         panels.append((v_stack, t2h, v_chunks, t2t))

@@ -64,6 +64,11 @@ KERNELS = (HH_KERNELS + HR_KERNELS + TS_KERNELS + APPLY_KERNELS + SHARDED_KERNEL
            + tuple(f"{k}[{m}]" for k in MODE_KERNELS + ("ssrfb",) for m in EMULATED_MODES))
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
+# K1/K2 launches that ran their couple chain pipelined by ib block
+# (``csrc/panel_pipe.cuh``), and their couple steps that ran overlapped (a
+# step's later blocks beside the next step's first): every step of such a
+# launch but its last
+PIPELINE = {"launches": 0, "overlapped_steps": 0}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tileqr_torch"
@@ -83,6 +88,12 @@ SIGNATURES = {
     "tq_panel_chain": (_P, _L, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _L, _I, _P),
     # K1/K2 cluster workspace floats (int64): nb, rows, ib, ctas, resident
     "tq_cluster_work_floats": (_I, _I, _I, _I, _I),
+    # the pipelined chain (csrc/panel_pipe.cuh: TQ_PIPE_PARAMS): a, lda, k,
+    # nb, ib, rows, geqrt, n_head, n_chunks, block_rows, chunk_row0, r_in,
+    # r_out, v_stack, t_geqrt, t2_stack, v_chunks, t2_chunks, work, sync,
+    # epoch, stages, ctas, smem, resident, stream
+    "tq_panel_pipe": (_P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _L, _I, _I, _L, _I, _P),
     # v_stack, t2_stack, c, ldc, strip, lds, width, stack_base, base_block,
     # n_chunks, block_rows, nb, col_start, trans, reverse, vkk, tg, passes,
     # work, the plan (proj tile rows, columns, groups, sub tile rows,
@@ -136,6 +147,8 @@ def reset_counts() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
         PLAIN_CALLS[k] = 0
+    for k in PIPELINE:
+        PIPELINE[k] = 0
 
 
 def _nvcc() -> str:

@@ -3,7 +3,9 @@
 Counterparts of ``tileqr/kernels/chain.py``:
 
 - ``panel_chain`` (K2): TSQRT on ``n_chunks`` couples [R; B], B of
-  ``block_rows`` rows, against the carried R;
+  ``block_rows`` rows, against the carried R, seeded from r_in's upper
+  triangle (tileqr's K2 walks a full r_in's strict lower part too; every
+  driver passes a triangular one);
 - ``couple_strip`` (K3): the SSRFB sweep of the trailing update, with the
   diagonal LARFB fused in at the first couple (forward order) or after the
   last (``reverse``, the Q-apply order);
@@ -37,10 +39,11 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from tileqr_torch.kernels import _build
-from tileqr_torch.kernels.common import counter_key, dot, dot_t, passes_of
+from tileqr_torch.kernels.common import counter_key, dot, dot_t, passes_of, triu
 from tileqr_torch.kernels.geqrt import geqrt_in_place
 from tileqr_torch.kernels.larfb import larfb_body
-from tileqr_torch.kernels.panel import _cluster_args
+from tileqr_torch.kernels.panel import (_cluster_args, _pipelined, _steps, launch_pipelined,
+                                        panel_factor)
 from tileqr_torch.kernels.panel_apply import sub_plan, tile_count, tiles_for
 from tileqr_torch.kernels.ssrfb import ssrfb_body
 
@@ -49,7 +52,8 @@ def _check_chain(a, r_in, k, nb, base_block, n_chunks, block_rows):
     m, n = a.shape
     if n_chunks < 1 or block_rows % nb or (k + 1) * nb > n:
         raise ValueError("panel_chain: bad chunk geometry")
-    if (base_block + n_chunks) * block_rows > m or tuple(r_in.shape) != (nb, nb):
+    if (base_block + n_chunks) * block_rows > m or (r_in is not None
+                                                    and tuple(r_in.shape) != (nb, nb)):
         raise ValueError("panel_chain: chunks run past A or r_in is not (nb, nb)")
 
 
@@ -61,7 +65,7 @@ def panel_chain_plain(a, r_in, k: int, nb: int, base_block: int, n_chunks: int,
     kw = dict(dtype=a.dtype, device=a.device)
     v_chunks = torch.empty((n_chunks, block_rows, nb), **kw)
     t2 = torch.empty((n_chunks, nb, nb), **kw)
-    r = r_in.clone()
+    r = triu(r_in)
     for i in range(n_chunks):
         r0 = (base_block + i) * block_rows
         at = torch.empty((nb, nb + block_rows), **kw)
@@ -78,7 +82,10 @@ def panel_chain_plain(a, r_in, k: int, nb: int, base_block: int, n_chunks: int,
 def panel_chain(a, r_in, k: int, nb: int, base_block: int, n_chunks: int,
                 block_rows: int, ib: int = 128):
     """TSQRT-chain ``n_chunks`` couples of ``block_rows`` rows of panel
-    column k against the carried R (seeded from ``r_in``). A is read only.
+    column k against the carried R, seeded from ``r_in``'s upper triangle
+    (its strict lower part is not read). On the card two or more couples run
+    pipelined by ib block (``panel.pipeline_plan``, the first couple walked
+    whole). A is read only.
     Returns (r_out, v_chunks, t2_stack)."""
     if not _build.is_cuda(a, r_in):
         return panel_chain_plain(a, r_in, k, nb, base_block, n_chunks, block_rows, ib)
@@ -87,18 +94,61 @@ def panel_chain(a, r_in, k: int, nb: int, base_block: int, n_chunks: int,
     _build.require_contiguous(r_in=r_in)
     _check_chain(a, r_in, k, nb, base_block, n_chunks, block_rows)
     kw = dict(dtype=a.dtype, device=a.device)
+    r_in = triu(r_in)  # the kernels take R upper triangular
+    plan = _pipelined(nb, ib, n_chunks, nb + block_rows, full_first=True)
     r = torch.empty((nb, nb), **kw)
     v_chunks = torch.empty((n_chunks, block_rows, nb), **kw)
     t2 = torch.empty((n_chunks, nb, nb), **kw)
-    lib, work, ctas, smem, resident = _cluster_args(nb, nb + block_rows, ib, kw)
-    rc = lib.tq_panel_chain(
-        a.data_ptr(), a.stride(0), r_in.data_ptr(), k, nb, base_block, n_chunks,
-        block_rows, ib, r.data_ptr(), v_chunks.data_ptr(), t2.data_ptr(),
-        work.data_ptr(), ctas, smem, resident, _build.stream(),
-    )
-    _build.check(rc, "panel_chain")
+    if plan is not None:
+        launch_pipelined(plan, a, k, nb, ib, 0, 0, n_chunks, block_rows, base_block * block_rows,
+                         r_in, r, (None, None, None), (v_chunks, t2))
+    else:
+        lib, work, ctas, smem, resident = _cluster_args(nb, nb + block_rows, ib, kw)
+        rc = lib.tq_panel_chain(
+            a.data_ptr(), a.stride(0), r_in.data_ptr(), k, nb, base_block, n_chunks,
+            block_rows, ib, r.data_ptr(), v_chunks.data_ptr(), t2.data_ptr(),
+            work.data_ptr(), ctas, smem, resident, _build.stream(),
+        )
+        _build.check(rc, "panel_chain")
     _build.LAUNCHES["panel_chain"] += 1
     return r, v_chunks, t2
+
+
+def panel_column(a, k: int, nb: int, ib: int, n_head: int, base_block: int, n_chunks: int,
+                 block_rows: int):
+    """Panel column k of A whole: K1 (the GEQRT of tile (k, k) and the
+    ``n_head`` head couples below it), then K2 (``n_chunks`` couples of
+    ``block_rows`` rows from row block ``base_block``) against K1's R. On
+    the card, where the chain is pipelined (``panel.pipeline_plan``), ONE
+    launch runs all of its couples, the pipeline carried from K1's steps
+    into K2's (counted once, as ``panel_factor``); otherwise, and on the
+    CPU, ``panel_factor`` then ``panel_chain``. A is read only. Returns
+    (r, v_stack, t_geqrt, t2_stack, v_chunks, t2_chunks), K1's and K2's
+    outputs; with no chunk, empty chunk stacks."""
+    kw = dict(dtype=a.dtype, device=a.device)
+    plan = None
+    if n_chunks > 0 and _build.is_cuda(a):
+        _build.require_fp32(a)
+        _build.require_row_major(a=a)
+        steps = _steps(a, k, nb, n_head)
+        _check_chain(a, None, k, nb, base_block, n_chunks, block_rows)
+        plan = _pipelined(nb, ib, steps + n_chunks, nb + block_rows)
+    if plan is None:
+        r, v_stack, t_geqrt, t2_stack = panel_factor(a, k, nb, ib, n_couples=n_head)
+        if n_chunks == 0:
+            return (r, v_stack, t_geqrt, t2_stack, a.new_zeros((0, block_rows, nb)),
+                    a.new_zeros((0, nb, nb)))
+        r, v_chunks, t2_chunks = panel_chain(a, r, k, nb, base_block, n_chunks, block_rows, ib)
+        return r, v_stack, t_geqrt, t2_stack, v_chunks, t2_chunks
+    r = torch.empty((nb, nb), **kw)
+    k1_out = (torch.empty((steps, nb, nb), **kw), torch.empty((nb, nb), **kw),
+              torch.empty((steps, nb, nb), **kw))
+    k2_out = (torch.empty((n_chunks, block_rows, nb), **kw),
+              torch.empty((n_chunks, nb, nb), **kw))
+    launch_pipelined(plan, a, k, nb, ib, 1, n_head, n_chunks, block_rows, base_block * block_rows,
+                     None, r, k1_out, k2_out)
+    _build.LAUNCHES["panel_factor"] += 1
+    return (r, *k1_out, *k2_out)
 
 
 def _check_strip(v_stack, t2_stack, c, strip, stack_base, base_block, n_chunks,

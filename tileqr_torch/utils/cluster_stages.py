@@ -12,13 +12,17 @@ add the ``globaltimer`` nanoseconds of each stage of
 P = Vbᵀ[V_prev | Vb | A_rest] with its cluster reduction, the block T, the
 off-diagonal T, the block apply, and the column loop's three phases (the
 dots, the exchange of partials with its cluster barrier, LARFG with the
-rank-1 update). Runs K1 (GEQRT and 3 head
-couples) and K2 (7 couples of 4·nb rows) at ``chip_smoke.py`` phase 1's
-shapes on a gaussian A and prints each stage's mean ms per call beside the
-call's time from CUDA events (the instrumented build; the timer adds one
-global store per stage), for each ``--rows-per-cta`` value given (the
-rows a CTA the cluster plan aims at, ``kernels/panel.py:ROWS_PER_CTA``;
-default: the plan's own). TTQRT (``csrc/ttqrt.cu``, the same routine on
+rank-1 update), and in a pipelined launch (``csrc/panel_pipe.cuh``) each
+stage's wait on the hand-off flag of the stage before it. Runs K1 (GEQRT
+and 3 head couples), K2 (7 couples of 4·nb rows) and the two in one launch
+(``chain.panel_column``, the hh driver's panel 0) at ``chip_smoke.py``
+phase 1's shapes on a gaussian A, each pipelined by ib block, and prints
+each stage cluster's mean ms per call in every stage, with its share of
+the cluster's time, beside the call's time from CUDA events (the
+instrumented build; the timer adds one global store per stage), for each
+``--rows-per-cta`` value given (the rows a CTA the cluster plan aims at,
+``kernels/panel.py:ROWS_PER_CTA``; default: the plan's own); the stage
+clusters' busy times (all but the wait) give the balance of the ib blocks. TTQRT (``csrc/ttqrt.cu``, the same routine on
 the live rows) on two upper-triangular (nb, nb) tiles: the same stages,
 at each ``--ttqrt-ctas`` (default: ``ttqrt_plan``'s). B8 (``csrc/modlu.cu``)
 on an orthonormal factor's top block at each ``--modlu-nb``: every CTA's
@@ -60,7 +64,12 @@ SMALL_STAGES = ("load", "LARFG", "warp 0 dots + updates", "column barrier",
                 "store")
 PO_STAGES = ("load/store", "own row steps", "cluster barrier", "panel copy", "SYRK")
 STAGES = ("slab load/store", "P + reduction", "block T", "off-diagonal T", "apply",
-          "column dots", "exchange + cluster barrier", "LARFG + rank-1 update")
+          "column dots", "exchange + cluster barrier", "LARFG + rank-1 update",
+          "hand-off wait")
+# the stage timer's rows (csrc/geqrt_cluster.cuh: CL_SLOTS): one a stage
+# cluster of a pipelined launch (stages past them untimed), row 0 for one
+# cluster
+CL_SLOTS = 8
 LU_STAGES = ("load/store", "own panels", "cluster barrier", "L copy", "U12", "trailing")
 TALL_STAGES = ("copy-in + panel loads", "panel stores", "inner T", "in-block update",
                "trailing update", "off-diagonal T", "column loop: sums + LARFG",
@@ -161,7 +170,8 @@ def main() -> int:
 
 
 def cluster_kernels(args, lib, rng) -> None:
-    """K1, K2 and TTQRT's stages (``csrc/geqrt_cluster.cuh``)."""
+    """K1, K2 and the two in one launch (each pipelined, a row of stages a
+    stage cluster) and TTQRT's stages (``csrc/geqrt_cluster.cuh``)."""
     from tileqr_torch.kernels import chain, panel
 
     nb, ib, c = args.nb, args.ib, args.chunk
@@ -172,15 +182,22 @@ def cluster_kernels(args, lib, rng) -> None:
     r_k = panel.panel_factor(a, 0, nb, ib, n_head)[0]
     calls = {
         "panel_factor": (lambda: panel.panel_factor(a, 0, nb, ib, n_head),
-                         lib.tq_cl_stages_panel, 2 * nb),
+                         (1 + n_head, 2 * nb, False)),
         "panel_chain": (lambda: chain.panel_chain(a, r_k, 0, nb, 1, n_chunks, c * nb, ib),
-                        lib.tq_cl_stages_chain, nb + c * nb),
+                        (n_chunks, nb + c * nb, True)),
+        "panel_column": (lambda: chain.panel_column(a, 0, nb, ib, n_head, 1, n_chunks, c * nb),
+                         (1 + n_head + n_chunks, nb + c * nb, False)),
     }
-    out = (ctypes.c_ulonglong * len(STAGES))()
+    out = (ctypes.c_ulonglong * (CL_SLOTS * len(STAGES)))()
     for rows_per_cta in args.rows_per_cta or [panel.ROWS_PER_CTA]:
         panel.ROWS_PER_CTA = rows_per_cta
-        for name, (fn, read, rows) in calls.items():
-            time_stages(name, fn, read, panel.cluster_plan(nb, rows, ib), out, args.reps)
+        for name, (fn, (steps, rows, full_first)) in calls.items():
+            plan = panel.pipeline_plan(nb, ib, steps, rows, full_first)
+            # K2's serial loop is chain.cu's; the pipelined launches are
+            # panel.cu's (tq_panel_pipe)
+            serial_k2 = name == "panel_chain" and plan.stages == 1
+            read = lib.tq_cl_stages_chain if serial_k2 else lib.tq_cl_stages_panel
+            time_stages(name, fn, read, plan, out, args.reps, slots=min(plan.stages, CL_SLOTS))
     r1, r2 = (torch.from_numpy(np.triu(rng.standard_normal((nb, nb), dtype=np.float32))).cuda()
               for _ in range(2))
     for ctas in args.ttqrt_ctas or [None]:
@@ -203,18 +220,25 @@ def time_lu_stages(fn, read, plan, n: int, out, reps: int) -> None:
         print(f"  CTA {r}: " + ", ".join(f"{s} {t:.4f} ms" for s, t in zip(LU_STAGES, split)))
 
 
-def time_stages(name, fn, read, plan, out, reps: int, stages=STAGES) -> None:
-    """One call's time by CUDA events and its stages by the device timer."""
+def time_stages(name, fn, read, plan, out, reps: int, stages=STAGES, slots: int = 1) -> None:
+    """One call's time by CUDA events and its stages by the device timer:
+    CTA 0's of the one cluster, or of each of ``slots`` stage clusters."""
     fn()
     torch.cuda.synchronize()
     _build.check(read(ctypes.addressof(out)), name)
     ms = cuda_ms(fn, reps)
     _build.check(read(ctypes.addressof(out)), name)
-    split = [v / 1e6 / reps for v in out]
-    print(f"{name} {plan}: {ms:.3f} ms per call (CUDA events); "
-          f"stages on CTA 0: " + ", ".join(
-              f"{s} {t:.4f} ms ({t / max(sum(split), 1e-9):.1%})"
-              for s, t in zip(stages, split)))
+    print(f"{name} {plan}: {ms:.3f} ms per call (CUDA events)")
+    k = len(stages)
+    busy = []
+    for slot in range(slots):
+        split = [out[slot * k + i] / 1e6 / reps for i in range(k)]
+        busy.append(sum(split[:8]) if stages is STAGES else sum(split))
+        print(f"  {'stage ' + str(slot) if slots > 1 else 'stages'} on CTA 0: " + ", ".join(
+            f"{s} {t:.4f} ms ({t / max(sum(split), 1e-9):.1%})" for s, t in zip(stages, split)))
+    if slots > 1:
+        print(f"  busy (less the hand-off wait) by stage: " + ", ".join(
+            f"{t:.4f} ms ({t / max(sum(busy), 1e-9):.1%})" for t in busy))
 
 
 def time_cta_stages(name, fn, read, plan, stages, out, reps: int) -> None:

@@ -30,7 +30,9 @@ It prints the device time of every CUDA kernel name
 groups (this package's kernels by name, cuBLAS GEMMs as "torch.matmul",
 everything else as "other torch ops"), the wall time of the profiled call
 and the device's idle share of it, then the device time inside each of
-the program's spans (``span_times``) and the host's. With ``--health`` (hr
+the program's spans (``span_times``) and the host's, and how many of the
+profiled call's K1/K2 launches ran pipelined by ib block, with their couple
+steps that overlapped (``_build.PIPELINE``). With ``--health`` (hr
 only) it also prints each panel's round-1 orthogonality defect, whose max
 is the hr health.
 The card's name and power limit from nvidia-smi head the output. Needs a
@@ -194,8 +196,11 @@ def profile_call(args, shape, n: int, tileqr_torch):
             return tileqr_torch.qr(a, config=cfg)
         return tileqr_torch.qr_factor(a, cfg)
 
+    from tileqr_torch.kernels import _build
+
     call()  # warm: build, cuBLAS handles, allocator
     torch.cuda.synchronize()
+    _build.reset_counts()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -281,6 +286,10 @@ def main(argv=None) -> int:
     else:
         kt, wall_ms, spans = profile_call(args, shape, n, tileqr_torch)
     total = sum(ms for _, ms in kt.values())
+    if not sharded:
+        k1 = _build.LAUNCHES["panel_factor"] + _build.LAUNCHES["panel_chain"]
+        print(f"K1/K2 launches pipelined by ib block: {_build.PIPELINE['launches']} of {k1}; "
+              f"couple steps overlapped: {_build.PIPELINE['overlapped_steps']}")
     print(f"{what} {'x'.join(map(str, shape))}: wall {wall_ms:.3f} ms under the profiler, "
           f"device total {total:.3f} ms, idle share {max(0.0, 1 - total / wall_ms):.4f}"
           f"{' (of rank 0 alone)' if sharded else ''} [{card}]")
