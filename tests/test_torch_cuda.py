@@ -1524,10 +1524,11 @@ def test_plans_refuse_what_their_layouts_lack(cuda):
                  False, None, None, "highest", bad)
 
 
-@pytest.mark.parametrize("case", ["qr", "tree-r", "cholqr2-factor", "tree-reduced", "upload"])
+@pytest.mark.parametrize("case", ["qr", "tree-r", "cholqr2-factor", "tree-reduced", "upload",
+                                  "batched-hh", "batched-cholqr2"])
 def test_every_host_sync_is_a_sync_span(cuda, case):
     """One call of each benchmark cell's entry at a small shape (and the
-    tree's Q, and a numpy input) under ``set_sync_debug_mode("warn")``:
+    tree's Q, and a numpy input; the batched cells' on 512 members) under ``set_sync_debug_mode("warn")``:
     every synchronising CUDA operation warns, and the warnings are as many
     as the ``tileqr_torch.sync.*`` spans, so the spans miss no sync. The
     tall route's schedule is dropped first, so that its one-time copy
@@ -1540,7 +1541,13 @@ def test_every_host_sync_is_a_sync_span(cuda, case):
     tall = torch.from_numpy(rng.standard_normal((262144, 512), dtype=np.float32)).to(cuda)
     cfg = tileqr_torch.QRConfig(nb=512)
     host = sq.cpu().numpy()
+    # a stack of the batched cells' members, G + 4·√n·I
+    stack = torch.from_numpy(rng.standard_normal((512, 128, 128), dtype=np.float32)).to(cuda)
+    stack += 4 * 128 ** 0.5 * torch.eye(128, device=cuda)
+    chol = tileqr_torch.QRConfig(batched_method="cholqr2")
     call = {"qr": lambda: tileqr_torch.qr(sq),
+            "batched-hh": lambda: tileqr_torch.qr_batched(stack),
+            "batched-cholqr2": lambda: tileqr_torch.qr_batched(stack, config=chol),
             "tree-r": lambda: tileqr_torch.tsqr(tall, "r", cfg, strategy="tree"),
             "cholqr2-factor": lambda: tileqr_torch.tsqr(tall, "factor", cfg),
             "tree-reduced": lambda: tileqr_torch.tsqr(tall, "reduced", cfg, strategy="tree"),
@@ -1561,6 +1568,7 @@ def test_every_host_sync_is_a_sync_span(cuda, case):
     syncs = [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
     spans = [e.name for e in prof.events() if e.name.startswith("tileqr_torch.sync.")]
     want = {"qr": [], "tree-r": ["tall_ops"], "cholqr2-factor": ["guard"],
-            "tree-reduced": ["tall_ops"] + ["tree_index"] * 4, "upload": ["upload"]}[case]
+            "tree-reduced": ["tall_ops"] + ["tree_index"] * 4, "upload": ["upload"],
+            "batched-hh": [], "batched-cholqr2": ["guard"]}[case]
     assert sorted(spans) == sorted(f"tileqr_torch.sync.{s}" for s in want)
     assert len(syncs) == len(spans), syncs

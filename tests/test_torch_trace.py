@@ -1,8 +1,8 @@
 """The port's phase spans (``core/trace.py``) on the CPU: the no-op with no
 profiler, the names, nesting and counts that each entry records under
-torch.profiler, results bitwise equal with and without it, and
-``utils/profile.span_times``, which charges device time to the spans, on
-synthetic events and on a real CPU trace."""
+torch.profiler, results bitwise equal with and without it, the guard's
+counter ``trace.GUARD``, and ``utils/profile.span_times``, which charges
+device time to the spans, on synthetic events and on a real CPU trace."""
 
 import collections
 import types
@@ -14,6 +14,7 @@ import torch
 import tileqr_torch as tq
 from tileqr_torch.core import trace
 from tileqr_torch.drivers import tsqr as tsqr_driver
+from tileqr_torch.kernels import _build
 from tileqr_torch.utils.profile import _nest, span_times
 
 P = "tileqr_torch."
@@ -52,6 +53,7 @@ SQA, TALLA = _a(256, 256), _a(65536, 64, seed=1)
 HRA = _a(256, 256, seed=2) + 64 * torch.eye(256)  # G + 4·√n·I: the guard holds
 B = _a(256, 3, seed=3)
 STACK = _a(8, 64, 16, seed=4)
+SHIFTED = _a(6, 40, 36, seed=6) + 24 * torch.eye(40, 36)  # G + 4·√n·I, each member
 
 # (call, {span: count}, {span: its parent})
 CASES = {
@@ -82,8 +84,13 @@ CASES = {
                              "sync.guard": "tsqr"}),
     "qr_batched_cholqr2": (lambda: tq.qr_batched(STACK, config=tq.QRConfig(
                                batched_method="cholqr2")),
-                           {"qr_batched": 1, "hr.round1": 1, "hr.round2": 1, "sync.guard": 1},
-                           {"hr.round2": "qr_batched"}),
+                           {"qr_batched": 1, "prep": 1, "hr.round1": 1, "hr.round2": 1,
+                            "sync.guard": 1},
+                           {"prep": "qr_batched", "hr.round2": "qr_batched"}),
+    "qr_batched_hh": (lambda: tq.qr_batched(STACK, config=tq.QRConfig()),
+                      {"qr_batched": 1, "prep": 1, "batched.geqrt": 1, "batched.form_q": 1},
+                      {"prep": "qr_batched", "batched.geqrt": "qr_batched",
+                       "batched.form_q": "qr_batched"}),
 }
 
 
@@ -153,6 +160,34 @@ def test_a_guard_trip_records_its_sync_and_falls_back():
     assert got == {P + "tsqr": 2, P + "prep": 2, P + "hr.round1": 1, P + "hr.round2": 1,
                    P + "hr.reconstruct": 1, P + "sync.guard": 1, P + "tree.leaves": 1,
                    P + "tree.level": 1}
+
+
+def test_guard_counts_a_check_on_a_well_conditioned_stack():
+    _build.reset_counts()
+    tq.qr_batched(SHIFTED, config=tq.QRConfig(batched_method="cholqr2"))
+    assert trace.GUARD == {"qr_batched/cholqr2": {"checks": 1, "trips": 0}}
+    tq.qr_batched(SHIFTED, "r", tq.QRConfig(batched_method="cholqr2", hr_guard="off"))
+    assert trace.GUARD == {"qr_batched/cholqr2": {"checks": 1, "trips": 0}}  # no check made
+    _build.reset_counts()
+    assert trace.GUARD == {}
+
+
+def test_guard_counts_a_trip_and_the_batch_falls_back_to_hh():
+    """One rank-deficient member: one check, one trip, and the whole stack
+    goes to the batched GEQRT, whose spans follow a second prep."""
+    a = SHIFTED.clone()
+    a[3, :, 1] = a[3, :, 0]
+    _build.reset_counts()
+    with pytest.warns(UserWarning, match="hr guard"):
+        (q, r), events = _profiled(lambda: tq.qr_batched(a, config=tq.QRConfig(
+            batched_method="cholqr2")))
+    assert trace.GUARD == {"qr_batched/cholqr2": {"checks": 1, "trips": 1}}
+    assert _build.PLAIN_CALLS["potrf_batched"] == 1 and _build.PLAIN_CALLS["geqrt_batched"] == 1
+    got = collections.Counter(n for n, _ in _spans(events))
+    assert got == {P + "qr_batched": 1, P + "prep": 2, P + "hr.round1": 1, P + "hr.round2": 1,
+                   P + "sync.guard": 1, P + "batched.geqrt": 1, P + "batched.form_q": 1}
+    hq, hr = tq.qr_batched(a, config=tq.QRConfig())
+    assert torch.equal(q, hq) and torch.equal(r, hr)
 
 
 # synthetic profiler events: host spans and launches, and device operations

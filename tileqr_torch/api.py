@@ -377,33 +377,37 @@ def qr_batched(a, mode: str = "reduced", config: Optional[QRConfig] = None, devi
     (the batched GEQRT kernel at ``batched_ib``, every batch size) or
     "cholqr2" (rows padded only; one bad member trips the guard and sends
     the whole batch to the hh route under hr_guard="fallback")."""
-    shape = tuple(a.shape) if hasattr(a, "shape") else tuple(np.shape(a))
-    if len(shape) != 3 or 0 in shape:
-        raise ValueError(
-            f"qr_batched expects a (B, m, n) stack with no zero-size dimension, got shape {shape}"
-        )
-    if mode not in ("reduced", "r"):
-        raise ValueError(f"unknown mode {mode!r}")
-    cfg = _cfg(config)
-    passes_of(cfg.precision)
-    if cfg.batched_method not in ("hh", "cholqr2"):
-        raise ValueError(f"unknown batched_method {cfg.batched_method!r} (hh/cholqr2)")
-    a = _to_device(a, cfg.dtype, device)
-    b, m, n = a.shape
-    if m < n:
-        raise ValueError(f"qr_batched requires m >= n, got ({m}, {n})")
-    mp, np_ = round_up(m, 8), round_up(n, 8)
-    if cfg.batched_method == "cholqr2":
-        # column padding would make the gram singular: rows only
+    with span("tileqr_torch.prep"):
+        shape = tuple(a.shape) if hasattr(a, "shape") else tuple(np.shape(a))
+        if len(shape) != 3 or 0 in shape:
+            raise ValueError(
+                f"qr_batched expects a (B, m, n) stack with no zero-size dimension, "
+                f"got shape {shape}"
+            )
+        if mode not in ("reduced", "r"):
+            raise ValueError(f"unknown mode {mode!r}")
+        cfg = _cfg(config)
+        passes_of(cfg.precision)
+        if cfg.batched_method not in ("hh", "cholqr2"):
+            raise ValueError(f"unknown batched_method {cfg.batched_method!r} (hh/cholqr2)")
+        a = _to_device(a, cfg.dtype, device)
+        b, m, n = a.shape
+        if m < n:
+            raise ValueError(f"qr_batched requires m >= n, got ({m}, {n})")
+        mp, np_ = round_up(m, 8), round_up(n, 8)
+        cholqr2 = cfg.batched_method == "cholqr2"
+        # column padding would make the gram singular: rows only for cholqr2
+        ap = torch.nn.functional.pad(a, (0, 0 if cholqr2 else np_ - n, 0, mp - m))
+    if cholqr2:
         stats = cfg.hr_guard != "off"
-        out = cholqr2_batched(torch.nn.functional.pad(a, (0, 0, 0, mp - m)), mode=mode,
-                              stats=stats, precision=cfg.precision)
+        out = cholqr2_batched(ap, mode=mode, stats=stats, precision=cfg.precision)
         health = out[-1] if stats else None
         if not (guard_trips(health, cfg, "qr_batched/cholqr2") and cfg.hr_guard == "fallback"):
             if mode == "r":
                 return out[0] if stats else out
             return out[0][:, :m, :], out[1]
-    ap = torch.nn.functional.pad(a, (0, np_ - n, 0, mp - m))
+        with span("tileqr_torch.prep"):
+            ap = torch.nn.functional.pad(a, (0, np_ - n, 0, mp - m))
     out = _qr_batched(ap, mode=mode, ib=cfg.batched_ib, precision=cfg.precision)
     if mode == "r":
         return out[:, :n, :n]

@@ -6,12 +6,17 @@ microsecond, a ``record_function`` with no profiler running about ten.
 So spans show up whenever someone profiles, beside the device operations
 their phase launched, and there is no switch to set. ``SPANS`` names them
 all; ``utils/profile.py:span_times`` charges device time to them.
+
+``GUARD`` counts the CholeskyQR breakdown guard's host checks and trips
+(``drivers/cholqr.py:guard_trips``) by call site, whether or not a
+profiler runs; ``kernels/_build.py:reset_counts`` clears it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+from typing import Dict
 
 import torch
 
@@ -20,9 +25,19 @@ ENTRIES = tuple(f"tileqr_torch.{e}" for e in
 SYNCS = tuple(f"tileqr_torch.sync.{s}" for s in ("guard", "tree_index", "tall_ops", "upload"))
 SPANS = ENTRIES + tuple(f"tileqr_torch.{p}" for p in (
     "prep", "assemble_r", "hh.panel", "hh.update", "tree.leaves", "tree.level",
-    "hr.round1", "hr.round2", "hr.reconstruct")) + SYNCS
+    "hr.round1", "hr.round2", "hr.reconstruct", "batched.geqrt", "batched.form_q")) + SYNCS
+
+# {call site: {"checks": n, "trips": n}} of the breakdown guard
+GUARD: Dict[str, Dict[str, int]] = {}
 
 _OFF = contextlib.nullcontext()
+
+
+def count_guard(where: str, tripped: bool) -> None:
+    """One host check of the guard at ``where``, and whether it tripped."""
+    site = GUARD.setdefault(where, {"checks": 0, "trips": 0})
+    site["checks"] += 1
+    site["trips"] += int(tripped)
 
 
 def span(name: str):

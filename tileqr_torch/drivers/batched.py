@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from tileqr_torch.core.trace import span
 from tileqr_torch.drivers.cholqr import _highest
 from tileqr_torch.kernels.common import refuse_xla_site, unit_lower
 from tileqr_torch.kernels.geqrt import geqrt_batched
@@ -34,12 +35,14 @@ def qr_batched(a: torch.Tensor, mode: str = "reduced", ib: int = 32,
     b, m, n = a.shape
     if n > m:
         raise ValueError("qr_batched requires m >= n")
-    packed, t = geqrt_batched(a, ib)
-    r = torch.triu(packed[:, :n, :])
+    with span("tileqr_torch.batched.geqrt"):
+        packed, t = geqrt_batched(a, ib)
+        r = torch.triu(packed[:, :n, :])
     if mode == "r":
         return r
-    v = unit_lower(packed)
-    eye = torch.eye(m, n, dtype=a.dtype, device=a.device)
-    with _highest():
-        q = eye - v @ (t @ v[:, :n, :].transpose(1, 2))
+    with span("tileqr_torch.batched.form_q"):
+        v = unit_lower(packed)
+        eye = torch.eye(m, n, dtype=a.dtype, device=a.device)
+        with _highest():
+            q = eye - v @ (t @ v[:, :n, :].transpose(1, 2))
     return q, r

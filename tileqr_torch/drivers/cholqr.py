@@ -19,7 +19,7 @@ import warnings
 
 import torch
 
-from tileqr_torch.core.trace import span
+from tileqr_torch.core.trace import count_guard, span
 from tileqr_torch.kernels.common import refuse_xla_site
 from tileqr_torch.kernels.potrf import potrf_batched
 
@@ -73,12 +73,15 @@ def guard_trips(health, cfg, where: str) -> bool:
     orthogonality defect). True ⇒ it exceeds cfg.hr_guard_tau (or is NaN)
     and a warning was emitted; the caller decides fallback or keep from
     cfg.hr_guard. The reference's tracer branch has no counterpart: torch
-    runs eagerly, so the scalar is always concrete."""
+    runs eagerly, so the scalar is always concrete. Each check and trip is
+    counted under ``where`` in ``core/trace.py:GUARD``."""
     if health is None:
         return False
     with span("tileqr_torch.sync.guard"):
         h = float(health)
-    if h <= cfg.hr_guard_tau:  # NaN fails the comparison → guard trips
+    tripped = not h <= cfg.hr_guard_tau  # NaN fails the comparison → guard trips
+    count_guard(where, tripped)
+    if not tripped:
         return False
     action = (
         "falling back to the unconditionally stable Householder path"

@@ -34,6 +34,8 @@ from typing import Optional
 
 import torch
 
+from tileqr_torch.core import trace
+
 HH_KERNELS = ("panel_factor", "panel_chain", "couple_strip", "larfb_strip")
 HR_KERNELS = ("modified_lu", "potrf_batched", "panel_apply_carry")
 # the batched GEQRT's four routes, counted apart: the one-block kernel
@@ -149,6 +151,7 @@ def reset_counts() -> None:
         PLAIN_CALLS[k] = 0
     for k in PIPELINE:
         PIPELINE[k] = 0
+    trace.GUARD.clear()
 
 
 def _nvcc() -> str:

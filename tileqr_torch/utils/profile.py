@@ -32,7 +32,8 @@ everything else as "other torch ops"), the wall time of the profiled call
 and the device's idle share of it, then the device time inside each of
 the program's spans (``span_times``) and the host's, and how many of the
 profiled call's K1/K2 launches ran pipelined by ib block, with their couple
-steps that overlapped (``_build.PIPELINE``). With ``--health`` (hr
+steps that overlapped (``_build.PIPELINE``), and the CholeskyQR guard's
+checks and trips by call site (``core/trace.py:GUARD``). With ``--health`` (hr
 only) it also prints each panel's round-1 orthogonality defect, whose max
 is the hr health.
 The card's name and power limit from nvidia-smi head the output. Needs a
@@ -256,6 +257,7 @@ def main(argv=None) -> int:
         raise SystemExit("profile needs a CUDA device")
 
     import tileqr_torch
+    from tileqr_torch.core import trace
     from tileqr_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -290,6 +292,7 @@ def main(argv=None) -> int:
         k1 = _build.LAUNCHES["panel_factor"] + _build.LAUNCHES["panel_chain"]
         print(f"K1/K2 launches pipelined by ib block: {_build.PIPELINE['launches']} of {k1}; "
               f"couple steps overlapped: {_build.PIPELINE['overlapped_steps']}")
+        print(f"CholeskyQR guard checks and trips by site: {trace.GUARD or 'none'}")
     print(f"{what} {'x'.join(map(str, shape))}: wall {wall_ms:.3f} ms under the profiler, "
           f"device total {total:.3f} ms, idle share {max(0.0, 1 - total / wall_ms):.4f}"
           f"{' (of rank 0 alone)' if sharded else ''} [{card}]")
