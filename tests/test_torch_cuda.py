@@ -297,6 +297,71 @@ def test_qr_pipelines_31_of_32_panels(cuda):
     assert backward_error_f64(a, tileqr_torch.apply_q(f, a, trans=True), r) <= 1e-6
 
 
+# K3's kernels (csrc/strip.cu, csrc/panel_apply.cu's phase 2) by name
+# fragment; K1/K2's names hold "chain_kernel" too, so they are taken out first
+K1K2 = ("panel_factor_kernel", "panel_chain_kernel")
+K3_KERNELS = ("proj_f32_kernel", "proj_wg_kernel", "chain_kernel", "sub_f32_kernel",
+              "sub_wg_kernel")
+
+
+def test_qr_lookahead_runs_panels_beside_the_rest(cuda):
+    """hh qr_factor at 8192² (nt = 32) under torch.profiler: 30 updates
+    split, panels 1-30 launched on the side stream beside a rest update,
+    and at least nt - 4 of those panels' kernels overlap a K3 kernel on the
+    card (any K3 kernel that overlaps panel k+1 is rest k's: narrow k+1
+    waits for rest k, and rest k+1 for panel k+1); a rerun gives the same
+    bits and the explicit-Q residual stays under 3e-6."""
+    from tileqr_torch.core import trace
+
+    n, nb = 8192, 256
+    nt = n // nb
+    a = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        (n, n), dtype=np.float32)).to(cuda)
+    f0 = tileqr_torch.qr_factor(a)
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        f1 = tileqr_torch.qr_factor(a)
+        torch.cuda.synchronize()
+    assert trace.LOOKAHEAD == {"split": nt - 2, "beside": nt - 2}
+    ops = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    panels = sorted(o for o in ops if any(f in o[2] for f in K1K2))
+    k3 = [o for o in ops if not any(f in o[2] for f in K1K2)
+          and any(f in o[2] for f in K3_KERNELS)]
+    assert len(panels) == nt and k3
+    beside = [p for p in panels[1 : nt - 1] if any(s < p[1] and p[0] < e for s, e, _ in k3)]
+    assert len(beside) >= nt - 4, (len(beside), nt - 2)
+    flat = lambda f: [f.packed, f.r_diag, f.t_geqrt] + [x for p in f.panels for x in p]  # noqa: E731
+    assert all(torch.equal(x, y) for x, y in zip(flat(f0), flat(f1)))
+    del f0, f1
+    q, r = tileqr_torch.qr(a)
+    assert residuals_f64(a, q, r)["relerr"] <= 3e-6
+
+
+def test_qr_inside_a_cuda_graph_runs_on_one_stream(cuda):
+    """qr captured in a CUDA graph splits its updates as ever but runs them
+    on the one capturing stream (nothing beside), and a replay gives the
+    eager answer within the kernel tolerance and the accuracy gates."""
+    from tileqr_torch.core import trace
+
+    a = torch.from_numpy(np.random.default_rng(18).standard_normal(
+        (1024, 1024), dtype=np.float32)).to(cuda)
+    eager_q, eager_r = tileqr_torch.qr(a)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    _build.reset_counts()
+    with torch.cuda.graph(graph):
+        q, r = tileqr_torch.qr(a)
+    assert trace.LOOKAHEAD == {"split": 2, "beside": 0}
+    graph.replay()
+    torch.cuda.synchronize()
+    assert rel(q, eager_q) <= TOL and rel(r, eager_r) <= TOL
+    res = residuals_f64(a, q, r)
+    assert res["relerr"] <= 2e-6 and res["orth"] <= 1e-4
+
+
 # sha256 prefixes of the outputs of the routes that share geqrt_cluster.cuh
 # with K1/K2 but are not pipelined, from the build before the pipeline on
 # the card (the batched GEQRT's cluster route, TTQRT, tsqrt and K1 with one

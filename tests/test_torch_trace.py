@@ -18,7 +18,7 @@ from tileqr_torch.kernels import _build
 from tileqr_torch.utils.profile import _nest, span_times
 
 P = "tileqr_torch."
-SQ = tq.QRConfig(nb=64, ib=32, chunk=2)  # 256² is 4 panels, 3 updates
+SQ = tq.QRConfig(nb=64, ib=32, chunk=2)  # 256² is 4 panels, 3 updates, 2 of them split
 HR = tq.QRConfig(nb=64, ib=32, square_method="hr")
 TALL = tq.QRConfig(nb=64, ib=32)  # 65536×64: 4 leaves of 16384 rows, one level
 
@@ -58,7 +58,7 @@ SHIFTED = _a(6, 40, 36, seed=6) + 24 * torch.eye(40, 36)  # G + 4·√n·I, each
 # (call, {span: count}, {span: its parent})
 CASES = {
     "qr": (lambda: tq.qr(SQA, config=SQ),
-           {"qr": 1, "qr_factor": 1, "prep": 1, "hh.panel": 4, "hh.update": 3,
+           {"qr": 1, "qr_factor": 1, "prep": 1, "hh.panel": 4, "hh.update": 5,
             "assemble_r": 1, "orgqr": 1},
            {"qr": None, "qr_factor": "qr", "prep": "qr_factor", "hh.panel": "qr_factor",
             "hh.update": "qr_factor", "assemble_r": "qr", "orgqr": "qr"}),
@@ -67,7 +67,7 @@ CASES = {
                "hr.reconstruct": 4, "sync.guard": 1, "assemble_r": 1, "orgqr": 1},
               {"hr.round1": "qr_factor", "sync.guard": "qr_factor", "orgqr": "qr"}),
     "lstsq": (lambda: tq.lstsq(SQA, B, config=SQ),
-              {"lstsq": 1, "qr_factor": 1, "prep": 1, "hh.panel": 4, "hh.update": 3,
+              {"lstsq": 1, "qr_factor": 1, "prep": 1, "hh.panel": 4, "hh.update": 5,
                "apply_q": 1, "assemble_r": 1},
               {"qr_factor": "lstsq", "apply_q": "lstsq", "assemble_r": "lstsq"}),
     "tsqr_r_tree": (lambda: tq.tsqr(TALLA, "r", TALL, strategy="tree"),

@@ -9,7 +9,10 @@ all; ``utils/profile.py:span_times`` charges device time to them.
 
 ``GUARD`` counts the CholeskyQR breakdown guard's host checks and trips
 (``drivers/cholqr.py:guard_trips``) by call site, whether or not a
-profiler runs; ``kernels/_build.py:reset_counts`` clears it.
+profiler runs. ``LOOKAHEAD`` counts the hh driver's updates split in two
+for its lookahead (``drivers/square.py:qr_tiled``; on any device) and the
+panel launches enqueued on its side stream beside a rest update (the card
+only). ``kernels/_build.py:reset_counts`` clears both.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ SPANS = ENTRIES + tuple(f"tileqr_torch.{p}" for p in (
 
 # {call site: {"checks": n, "trips": n}} of the breakdown guard
 GUARD: Dict[str, Dict[str, int]] = {}
+# the hh driver's lookahead: updates split in two, panels launched beside a rest
+LOOKAHEAD = {"split": 0, "beside": 0}
 
 _OFF = contextlib.nullcontext()
 

@@ -2,9 +2,11 @@
 
 A host loop over panels launches K1-K4 (``kernels/panel.py``,
 ``kernels/chain.py``) with integer offsets; a panel's K1 and K2 are one
-pipelined launch on the card (``chain.panel_column``). It stands in for both of the
-JAX package's drivers: ``square.py`` (trace-unrolled) and ``square_dyn.py``
-(run-time offsets, which exists only to bound TPU compile time).
+pipelined launch on the card (``chain.panel_column``), and panel k+1 runs
+on a second stream beside the bulk of update k (``qr_tiled``'s lookahead).
+It stands in for both of the JAX package's drivers: ``square.py``
+(trace-unrolled) and ``square_dyn.py`` (run-time offsets, which exists
+only to bound TPU compile time).
 
 Both ``qr_tiled`` and ``apply_q_tiled`` update their matrix IN PLACE: the
 row strip of panel k is a view of it, and the couple kernels write their
@@ -22,10 +24,12 @@ Factor layout (as the JAX static driver's):
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from tileqr_torch.core import trace
 from tileqr_torch.core.trace import span
 from tileqr_torch.kernels.chain import couple_strip, larfb_strip, panel_column
 
@@ -47,10 +51,47 @@ def _segments(k: int, mt: int, c: int) -> Tuple[int, int, int]:
     return n_head, align // c, n_chunks
 
 
+# the side stream of each card, by device index
+_SIDE: Dict[int, torch.cuda.Stream] = {}
+
+
+def _side_stream(a: torch.Tensor) -> Optional[torch.cuda.Stream]:
+    """The high-priority stream of A's card that panels and narrow updates
+    run on, made once a card; None on the CPU and while the current stream
+    is captured in a CUDA graph (everything then runs on the one current
+    stream, in the same order)."""
+    if a.device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+        return None
+    idx = a.device.index if a.device.index is not None else torch.cuda.current_device()
+    side = _SIDE.get(idx)
+    if side is None:
+        side = _SIDE[idx] = torch.cuda.Stream(idx, priority=torch.cuda.Stream.priority_range()[1])
+    return side
+
+
+def _on(stream: Optional[torch.cuda.Stream]):
+    """Make ``stream`` the current one for the block (None: leave it)."""
+    return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
+
+
 def qr_tiled(a: torch.Tensor, nb: int, ib: int = 128, chunk: int = 4,
              precision: str = "highest"):
     """Factor A (M, N; multiples of nb) in place, the trailing updates in
     the precision mode.
+
+    Depth-1 lookahead: where panel k leaves two or more column tiles to
+    update (nt - k - 1 >= 2), its update is two calls, the narrow one of
+    column tile k+1 (all panel k+1 reads) and the rest, of tiles k+2
+    onward; panel k+1 is factored between them. On the card, panels and
+    narrow updates run on a high-priority side stream (``_side_stream``)
+    and the rest on the caller's stream, ordered by events alone: narrow k
+    waits for rest k-1 (which wrote tile k+1), panel k+1 follows narrow k
+    on the side stream, and rest k waits for narrow k, so panel k+1's
+    clusters and rest k's K3 become ready together and share the card. The
+    caller's stream waits for the side stream before the return. On the
+    CPU and under CUDA graph capture the same calls run in the same order
+    on the one current stream. ``trace.LOOKAHEAD`` counts the split
+    updates and the panels launched beside a rest.
 
     Returns (a, r_diag, t_geqrt, panels) in the module-docstring layout.
     """
@@ -58,31 +99,69 @@ def qr_tiled(a: torch.Tensor, nb: int, ib: int = 128, chunk: int = 4,
     mt, nt = m // nb, n // nb
     k_max = min(mt, nt)
     c = _chunk_for(mt, chunk)
+    side = _side_stream(a)
+    main = torch.cuda.current_stream(a.device) if side is not None else None
+    if side is not None:
+        side.wait_stream(main)
+
+    def factor(k):
+        n_head, base, nc = _segments(k, mt, c)
+        with _on(side), span("tileqr_torch.hh.panel"):
+            out = panel_column(a, k, nb, ib, n_head, base, nc, c * nb)
+        if side is not None:
+            for t in out:  # read on the caller's stream by the rest and by later calls
+                t.record_stream(main)
+        return out
+
+    def update(k, lo, hi, panel):
+        """Panel k's reflectors on column tiles [lo, hi) of A: K3 with the
+        diagonal LARFB fused in, or K4 where the panel has no couples."""
+        n_head, base, nc = _segments(k, mt, c)
+        _, v_stack, tg, t2h, v_chunks, t2t = panel
+        cm = a[:, : hi * nb]
+        strip = a[k * nb : (k + 1) * nb, lo * nb : hi * nb]
+        mode = dict(trans=True, precision=precision)
+        with span("tileqr_torch.hh.update"):
+            if n_head > 0:
+                couple_strip(v_stack, t2h, cm, strip, 1, k + 1, n_head, nb, nb, lo,
+                             vkk=v_stack[0], tg=tg, **mode)
+                if nc > 0:
+                    couple_strip(v_chunks, t2t, cm, strip, 0, base, nc, c * nb, nb, lo, **mode)
+            elif nc > 0:
+                couple_strip(v_chunks, t2t, cm, strip, 0, base, nc, c * nb, nb, lo,
+                             vkk=v_stack[0], tg=tg, **mode)
+            else:
+                larfb_strip(v_stack[0], tg, strip, nb, **mode)
 
     r_diag, t_geqrt, panels = [], [], []
+    rest_done = None  # rest k-1's event on the caller's stream
+    nxt = factor(0)
     for k in range(k_max):
-        n_head, base, nc = _segments(k, mt, c)
-        with span("tileqr_torch.hh.panel"):
-            r_k, v_stack, tg_k, t2h, v_chunks, t2t = panel_column(a, k, nb, ib, n_head, base,
-                                                                  nc, c * nb)
-        r_diag.append(r_k)
-        t_geqrt.append(tg_k)
-        panels.append((v_stack, t2h, v_chunks, t2t))
-        if nt - k - 1 == 0:
-            continue
-        with span("tileqr_torch.hh.update"):
-            strip = a[k * nb : (k + 1) * nb, (k + 1) * nb :]
-            if n_head > 0:
-                couple_strip(v_stack, t2h, a, strip, 1, k + 1, n_head, nb, nb, k + 1,
-                             trans=True, vkk=v_stack[0], tg=tg_k, precision=precision)
-                if nc > 0:
-                    couple_strip(v_chunks, t2t, a, strip, 0, base, nc, c * nb, nb,
-                                 k + 1, trans=True, precision=precision)
-            elif nc > 0:
-                couple_strip(v_chunks, t2t, a, strip, 0, base, nc, c * nb, nb, k + 1,
-                             trans=True, vkk=v_stack[0], tg=tg_k, precision=precision)
-            else:
-                larfb_strip(v_stack[0], tg_k, strip, nb, trans=True, precision=precision)
+        cur = nxt
+        r_diag.append(cur[0])
+        t_geqrt.append(cur[2])
+        panels.append((cur[1], cur[3], cur[4], cur[5]))
+        split = nt - k - 1 >= 2
+        narrow_done = None
+        if nt - k - 1 > 0:
+            with _on(side):
+                if rest_done is not None:
+                    side.wait_event(rest_done)
+                update(k, k + 1, k + 2 if split else nt, cur)
+                if split and side is not None:
+                    narrow_done = side.record_event()
+        if k + 1 < k_max:
+            nxt = factor(k + 1)
+            trace.LOOKAHEAD["beside"] += int(narrow_done is not None)
+        if split:
+            trace.LOOKAHEAD["split"] += 1
+            if narrow_done is not None:
+                main.wait_event(narrow_done)
+            update(k, k + 2, nt, cur)
+            if side is not None:
+                rest_done = main.record_event()
+    if side is not None:
+        main.wait_stream(side)
     return a, torch.stack(r_diag), torch.stack(t_geqrt), tuple(panels)
 
 

@@ -151,6 +151,8 @@ def reset_counts() -> None:
         PLAIN_CALLS[k] = 0
     for k in PIPELINE:
         PIPELINE[k] = 0
+    for k in trace.LOOKAHEAD:
+        trace.LOOKAHEAD[k] = 0
     trace.GUARD.clear()
 
 

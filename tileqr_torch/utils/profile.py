@@ -32,7 +32,9 @@ everything else as "other torch ops"), the wall time of the profiled call
 and the device's idle share of it, then the device time inside each of
 the program's spans (``span_times``) and the host's, and how many of the
 profiled call's K1/K2 launches ran pipelined by ib block, with their couple
-steps that overlapped (``_build.PIPELINE``), and the CholeskyQR guard's
+steps that overlapped (``_build.PIPELINE``), the hh driver's updates split
+for its lookahead and its panels launched beside a rest update
+(``core/trace.py:LOOKAHEAD``), and the CholeskyQR guard's
 checks and trips by call site (``core/trace.py:GUARD``). With ``--health`` (hr
 only) it also prints each panel's round-1 orthogonality defect, whose max
 is the hr health.
@@ -292,6 +294,8 @@ def main(argv=None) -> int:
         k1 = _build.LAUNCHES["panel_factor"] + _build.LAUNCHES["panel_chain"]
         print(f"K1/K2 launches pipelined by ib block: {_build.PIPELINE['launches']} of {k1}; "
               f"couple steps overlapped: {_build.PIPELINE['overlapped_steps']}")
+        print(f"hh lookahead: updates split {trace.LOOKAHEAD['split']}, panel launches beside "
+              f"a rest update {trace.LOOKAHEAD['beside']} of {_build.LAUNCHES['panel_factor']}")
         print(f"CholeskyQR guard checks and trips by site: {trace.GUARD or 'none'}")
     print(f"{what} {'x'.join(map(str, shape))}: wall {wall_ms:.3f} ms under the profiler, "
           f"device total {total:.3f} ms, idle share {max(0.0, 1 - total / wall_ms):.4f}"
