@@ -486,8 +486,8 @@ def strip_libraries(a: torch.Tensor, r_k: torch.Tensor):
 
 def print_cluster(name: str, rows: int, ib: int) -> None:
     """The thread-block cluster a K1/K2 launch of couples of ``rows`` rows
-    runs on (``kernels/panel.py:cluster_plan``)."""
-    from tileqr_torch.kernels.panel import cluster_plan
+    runs on (``kernels/geqrt.py:cluster_plan``)."""
+    from tileqr_torch.kernels.geqrt import cluster_plan
 
     plan = cluster_plan(NB, rows, ib)
     print(f"cluster {name}: couple rows {rows}, C={plan.ctas} CTAs, "
@@ -690,12 +690,13 @@ def print_phases(y: torch.Tensor, t: torch.Tensor, win: torch.Tensor, mr: int, m
     n = win.shape[1]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     tm = t.T.contiguous()
-    w = pa._launch_project(y, tm, win, mr, mode)
-    t1 = cuda_ms(lambda: pa._launch_project(y, tm, win, mr, mode), 5)
-    pa._launch_sub(y, w, win, mode)
-    t2 = cuda_ms(lambda: pa._launch_sub(y, w, win, mode), 5)
-    print(f"time {label} ({mode}): phase 1 {t1:.4f} ms on {pa.project_plan(m, n, nb, mr, sms, mode, True)}, "
-          f"phase 2 {t2:.4f} ms on {pa.sub_plan(m, n, nb, sms, mode)} [{card}]")
+    p1, p2 = pa.project_plan(m, n, nb, mr, sms, mode, True), pa.sub_plan(m, n, nb, sms, mode)
+    w = pa._launch_project(y, tm, win, mr, mode, p1)
+    t1 = cuda_ms(lambda: pa._launch_project(y, tm, win, mr, mode, p1), 5)
+    pa._launch_sub(y, w, win, mode, p2)
+    t2 = cuda_ms(lambda: pa._launch_sub(y, w, win, mode, p2), 5)
+    print(f"time {label} ({mode}): phase 1 {t1:.4f} ms on {p1}, "
+          f"phase 2 {t2:.4f} ms on {p2} [{card}]")
 
 
 def run_path(a: torch.Tensor, cfg, path: str, card: str):
@@ -839,8 +840,8 @@ def phase4(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
             y, t, _ = square_hr.hr_panel(a[s:, s : s + NB])
         m, w = n - s, n - s - NB
         # phase 1's row-block groups on the card (1 on panel 0, 2 on 48)
-        groups = panel_apply.card_groups(y, a[s:, s + NB :], panel_apply._block(m, NB, 512),
-                                         "highest", fold=True)
+        groups = panel_apply.card_project_plan(y, a[s:, s + NB :], panel_apply._block(m, NB, 512),
+                                               "highest", fold=True).groups
         outs = []
         for fn, kw in ((panel_apply.panel_apply_carry, {}),
                        (panel_apply.panel_apply_carry_plain, {"groups": groups})):
@@ -1040,7 +1041,6 @@ def tree_levels(rec: KernelRecord, rs: torch.Tensor, p: int, n: int, lr: int, ca
     level 1 (128 stacks) the tall route's. Returns each level's route."""
     from tileqr_torch.drivers import tsqr as dtsqr
     from tileqr_torch.kernels import geqrt
-    from tileqr_torch.utils.plan_sweep import geqrt_at
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     routes = []
@@ -1066,9 +1066,9 @@ def tree_levels(rec: KernelRecord, rs: torch.Tensor, p: int, n: int, lr: int, ca
                      lambda: geqrt.geqrt_batched_plain(stack, IB), lambda: torch.geqrf(stack),
                      3, 1, card, label=label, bound=bound)
         if plan.route in ("cluster", "tall"):
-            geqrt_at(stack, IB, 1)
+            geqrt._geqrt_one_block(stack, IB)
             print(f"time geqrt_batched {label}: the one-block kernel on the same stack "
-                  f"{cuda_ms(lambda: geqrt_at(stack, IB, 1), 2):.4f} ms [{card}]")
+                  f"{cuda_ms(lambda: geqrt._geqrt_one_block(stack, IB), 2):.4f} ms [{card}]")
         rnew = torch.triu(got[0][:, :n])
         rs = torch.cat([rnew, rs[ncomb * a_l :]]) if rem else rnew
         del got, stack
@@ -1100,7 +1100,8 @@ def tsqr_factor_b3(a: torch.Tensor, f, rf: torch.Tensor, rec: KernelRecord, card
     y, t = f.panels[0]
     nb = y.shape[1]
     mr = pa._block(m, nb, 1024)
-    groups = pa.card_groups(y, a, mr, "b3", fold=True)
+    plan = pa.card_project_plan(y, a, mr, "b3", fold=True)
+    groups = plan.groups
     tm = t.T.contiguous()
     with _highest():
         # phase 1 alone: its plan runs the row blocks in G > 1 groups here
@@ -1108,7 +1109,7 @@ def tsqr_factor_b3(a: torch.Tensor, f, rf: torch.Tensor, rec: KernelRecord, card
         # same groups
         compare_mode(rec, "panel_apply", "b3",
                      f"tsqr factor phase 1 ({m}, {n}) nb={nb} G={groups}",
-                     pa._launch_project(y, tm, a, mr, "b3"),
+                     pa._launch_project(y, tm, a, mr, "b3", plan),
                      tm @ pa._project_plain(y, a, mr, "b3", groups),
                      tm @ pa._project_plain(y, a, mr, "highest", groups))
         outs = []
@@ -1124,9 +1125,9 @@ def tsqr_factor_b3(a: torch.Tensor, f, rf: torch.Tensor, rec: KernelRecord, card
         rec.time(b7, lambda: pa.panel_apply(y, t, c, precision="b3"),
                  lambda: pa.panel_apply_plain(y, t, c, precision="b3", groups=groups), None, 3, 1,
                  card, label=f"tsqr factor ({m}, {n}) nb={nb}", bound=bound)
-        w = pa._launch_project(y, tm, c, mr, "b3")
-        p1 = cuda_ms(lambda: pa._launch_project(y, tm, c, mr, "b3"), 3)
-        p2 = cuda_ms(lambda: pa._launch_sub(y, w, c, "b3"), 3)
+        w = pa._launch_project(y, tm, c, mr, "b3", plan)
+        p1 = cuda_ms(lambda: pa._launch_project(y, tm, c, mr, "b3", plan), 3)
+        p2 = cuda_ms(lambda: pa._sub_on_card(y, w, c, "b3"), 3)
         print(f"time {b7} tsqr factor ({m}, {n}) nb={nb}: phase 1 (G={groups}) {p1:.4f} ms, "
               f"phase 2 {p2:.4f} ms [{card}]")
         del c, w
@@ -1142,7 +1143,6 @@ def phase7(rec: KernelRecord, rng, card: str):
     from tileqr_torch.drivers import tsqr as dtsqr
     from tileqr_torch.drivers.square_hr import apply_q_hr
     from tileqr_torch.kernels import geqrt
-    from tileqr_torch.utils.plan_sweep import geqrt_at
     from tileqr_torch.utils.verify import backward_error_f64, residuals_f64
 
     m, n = M_TS, N_TS
@@ -1175,9 +1175,9 @@ def phase7(rec: KernelRecord, rng, card: str):
     rec.time(leaf_key, lambda: geqrt.geqrt_batched(leaves, IB),
              lambda: geqrt.geqrt_batched_plain(leaves, IB), lambda: torch.geqrf(leaves),
              3, 1, card)
-    geqrt_at(leaves, IB, 1)
+    geqrt._geqrt_one_block(leaves, IB)
     print(f"time geqrt_batched tsqr leaves ({p}, {lr}, {n}): the one-block kernel on the same "
-          f"stack {cuda_ms(lambda: geqrt_at(leaves, IB, 1), 1):.4f} ms [{card}]")
+          f"stack {cuda_ms(lambda: geqrt._geqrt_one_block(leaves, IB), 1):.4f} ms [{card}]")
     torch.cuda.empty_cache()
 
     # the path: tsqr r (auto → tree): the leaves and every level, each on
@@ -1300,7 +1300,6 @@ def tall_tiles(rec: KernelRecord, card: str) -> None:
     same stack. Its stack comes from a generator of its own, so the phases
     after it draw from the shared stream what they drew before."""
     from tileqr_torch.kernels import geqrt
-    from tileqr_torch.utils.plan_sweep import geqrt_at
 
     rng = np.random.default_rng(13)
     b, n = 4096, 2 * N_BA
@@ -1316,9 +1315,9 @@ def tall_tiles(rec: KernelRecord, card: str) -> None:
     del got
     rec.time(key, lambda: geqrt.geqrt_batched(a, IB), lambda: geqrt.geqrt_batched_plain(a, IB),
              lambda: torch.geqrf(a), 5, 1, card, label=label, bound=geqrt_bound(b, n, n))
-    geqrt_at(a, IB, 1)
+    geqrt._geqrt_one_block(a, IB)
     print(f"time geqrt_batched {label}: the one-block kernel on the same stack "
-          f"{cuda_ms(lambda: geqrt_at(a, IB, 1), 3):.4f} ms [{card}]")
+          f"{cuda_ms(lambda: geqrt._geqrt_one_block(a, IB), 3):.4f} ms [{card}]")
     del a
     torch.cuda.empty_cache()
 
@@ -1329,7 +1328,6 @@ def phase8(rec: KernelRecord, rng, card: str) -> int:
     import tileqr_torch
     from tileqr_torch.drivers import cholqr
     from tileqr_torch.kernels import _build, geqrt, potrf
-    from tileqr_torch.utils.plan_sweep import geqrt_at
 
     b, n = B_BA, N_BA
     hh = tileqr_torch.QRConfig()
@@ -1382,7 +1380,7 @@ def phase8(rec: KernelRecord, rng, card: str) -> int:
              lambda: geqrt.geqrt_batched_plain(tile[None], IB), lambda: torch.geqrf(tile),
              20, 2, card, label=label, bound=geqrt_bound(1, 2 * n, 2 * n))
     print(f"time geqrt_batched {label}: the one-block kernel on the same tile "
-          f"{cuda_ms(lambda: geqrt_at(tile[None], IB, 1), 10):.4f} ms [{card}]")
+          f"{cuda_ms(lambda: geqrt._geqrt_one_block(tile[None], IB), 10):.4f} ms [{card}]")
     one_block(rec, card)
     tall_tiles(rec, card)
 
@@ -1481,8 +1479,8 @@ def apply_kernels(a: torch.Tensor, rec: KernelRecord, card: str, mode: str) -> N
                 s = k * NB
                 y, t = panel_pair(a, k)
                 m, w = n - s, n - s - NB
-                groups = pa.card_groups(y, a[s:, s + NB :], pa._block(m, NB, 512), mode,
-                                        fold=True)
+                groups = pa.card_project_plan(y, a[s:, s + NB :], pa._block(m, NB, 512), mode,
+                                              fold=True).groups
                 outs = []
                 for fn, prec in ((pa.panel_apply_carry, mode), (pa.panel_apply_carry_plain, mode),
                                  (pa.panel_apply_carry_plain, "highest")):
@@ -1515,7 +1513,8 @@ def apply_kernels(a: torch.Tensor, rec: KernelRecord, card: str, mode: str) -> N
             s = k * NB
             y, t = panel_pair(a, k)
             m = n - s
-            groups = pa.card_groups(y, a[s:, s:], pa._block(m, NB, 1024), mode, fold=True)
+            groups = pa.card_project_plan(y, a[s:, s:], pa._block(m, NB, 1024), mode,
+                                          fold=True).groups
             for trans in trans_list:
                 outs = []
                 for fn, prec in ((pa.panel_apply, mode), (pa.panel_apply_plain, mode),
@@ -1690,10 +1689,10 @@ def sharded_kernels(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
     rec.set_bound("ttqrt", 2.0 * nb ** 3 / 3.0, 4 * 5 * nb * nb)
     rec.time("ttqrt", lambda: ttqrt.ttqrt(r1, r2), lambda: ttqrt.ttqrt_plain(r1, r2),
              lambda: torch.geqrf(couple), 20, 3, card)
-    plan = panel.ttqrt_plan(nb, ttqrt.TREE_IB)
+    plan = ttqrt.ttqrt_plan(nb, ttqrt.TREE_IB)
     ts_ms = cuda_ms(lambda: tsqrt.tsqrt(r1, r2), 20)
     print(f"cluster ttqrt nb={nb} ib={ttqrt.TREE_IB}: C={plan.ctas} CTAs, largest block's live "
-          f"rows {panel.ttqrt_rows(nb, ttqrt.TREE_IB)} of the couple's {2 * nb}, "
+          f"rows {ttqrt.ttqrt_rows(nb, ttqrt.TREE_IB)} of the couple's {2 * nb}, "
           f"{plan.rows_per_cta} rows and {plan.smem_bytes} shared bytes per CTA, active block "
           f"resident in shared memory: {plan.resident}; time ttqrt {rec.ms['ttqrt']:.4f} ms "
           f"against the TSQRT kernel (K2, all {2 * nb} rows) {ts_ms:.4f} ms on the same couple "
@@ -1827,7 +1826,7 @@ def sharded_hr_kernels(a: torch.Tensor, rec: KernelRecord, card: str) -> None:
         for mode in ("highest",) + EMULATED_MODES:
             p = passes_of(mode)
             label = f"Y ({m}, {NB}), C ({m}, {n}), mr {pa._block(m, NB, 512)}"
-            groups = pa.card_groups(y, c0, pa._block(m, NB, 512), mode, fold=False)
+            groups = pa.card_project_plan(y, c0, pa._block(m, NB, 512), mode, fold=False).groups
             compare_mode(rec, "panel_project", mode, f"{label}, G {groups}",
                          pa.panel_project(y, c0, mode),
                          pa.panel_project_plain(y, c0, mode, groups),

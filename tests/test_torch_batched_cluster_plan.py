@@ -25,7 +25,8 @@ import torch
 
 from tileqr.kernels import geqrt as jgeqrt
 from tileqr_torch.kernels import _build, geqrt
-from tileqr_torch.kernels.panel import CLUSTER_SIZES, SMEM_LIMIT, cluster_smem_bytes
+from tileqr_torch.kernels._build import CLUSTER_SIZES, SMEM_LIMIT
+from tileqr_torch.kernels.geqrt import cluster_smem_bytes
 
 H100_SMS = 132
 

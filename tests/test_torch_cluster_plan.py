@@ -1,4 +1,4 @@
-"""``kernels/panel.py:cluster_plan``, the cluster of a K1/K2 launch, on the
+"""``kernels/geqrt.py:cluster_plan``, the cluster of a K1/K2 launch, on the
 CPU: for every geometry the drivers hand K1 and K2 the plan fits one CTA's
 shared memory (232,448 bytes on the H100, reduction scratch included), its
 C CTAs split the couple's rows with none idle, the main path's shapes keep
@@ -10,8 +10,8 @@ import torch
 
 from tileqr_torch.drivers import sharded, square
 from tileqr_torch.kernels import _build, chain, panel
-from tileqr_torch.kernels.panel import (CLUSTER_SIZES, ROWS_PER_CTA, SMEM_LIMIT,
-                                        cluster_plan, cluster_smem_bytes)
+from tileqr_torch.kernels._build import CLUSTER_SIZES, SMEM_LIMIT
+from tileqr_torch.kernels.geqrt import ROWS_PER_CTA, cluster_plan, cluster_smem_bytes
 
 
 def square_geometries(m, n, nb, ib, chunk=4):

@@ -25,7 +25,6 @@ import torch
 
 import tileqr_torch
 from tileqr_torch.kernels import _build, chain, geqrt, modlu, panel, panel_apply, potrf
-from tileqr_torch.utils.plan_sweep import project_at, strip_at, strip_plan_at, sub_at
 from tileqr_torch.utils.verify import backward_error_f64, residuals_f64
 
 pytestmark = pytest.mark.cuda_only
@@ -75,7 +74,7 @@ CLUSTER_GEOS = [(32, 16), (64, 32), (256, 128), (512, 256), (512, 128)]
 def test_panel_factor_cluster_matches_plain(cuda, nb, ib, n_couples):
     a = torch.from_numpy(np.random.default_rng(nb + ib).standard_normal(
         ((1 + n_couples) * nb, nb), dtype=np.float32)).to(cuda)
-    plan = panel.cluster_plan(nb, 2 * nb if n_couples else nb, ib)
+    plan = geqrt.cluster_plan(nb, 2 * nb if n_couples else nb, ib)
     _build.reset_counts()
     got = panel.panel_factor(a, 0, nb, ib, n_couples)
     torch.cuda.synchronize()
@@ -94,7 +93,7 @@ def test_panel_chain_cluster_matches_plain(cuda, nb, ib, n_chunks, chunk):
     a = torch.from_numpy(rng.standard_normal(
         (nb + n_chunks * chunk * nb, nb), dtype=np.float32)).to(cuda)
     r_in = panel.panel_factor_plain(a, 0, nb, ib, 0)[0]
-    plan = panel.cluster_plan(nb, nb + chunk * nb, ib)
+    plan = geqrt.cluster_plan(nb, nb + chunk * nb, ib)
     _build.reset_counts()
     got = chain.panel_chain(a[nb:], r_in, 0, nb, 0, n_chunks, chunk * nb, ib)
     torch.cuda.synchronize()
@@ -576,15 +575,14 @@ def test_modified_lu_cluster_matches_plain(cuda, nb, kind):
 
 def test_modified_lu_wrapper_takes_the_plan(cuda):
     """The wrapper launches at modlu_plan(nb): C >= 2 and resident at nb =
-    256 and 512, the same bits as the sweep tool's launch at that plan, and
-    reruns bitwise."""
-    from tileqr_torch.utils.plan_sweep import modlu_at
-
+    256 and 512, the same bits as the launcher at ``modlu_plan_at`` of that
+    C, and reruns bitwise."""
     for nb in (256, 512):
         plan = modlu.modlu_plan(nb)
         assert plan.ctas >= 2 and plan.resident
         q_top = q_top_of(nb, "q", nb).to(cuda)
-        runs = [modlu.modified_lu(q_top) for _ in range(2)] + [modlu_at(q_top, plan)]
+        runs = ([modlu.modified_lu(q_top) for _ in range(2)]
+                + [modlu._launch_modlu(q_top, modlu.modlu_plan_at(nb, plan.ctas))])
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for run in runs[1:] for x, y in zip(run, runs[0]))
 
@@ -711,15 +709,8 @@ def test_geqrt_small_t_blocks_are_the_recurrence(cuda, b, m, n, ib):
 def tall_plans(b, m, n, ib, sms):
     """Every plan the tall route's kernel is built for at this shape: each
     width whose panel fits."""
-    from tileqr_torch.utils.plan_sweep import tall_plan_at
-
-    plans = []
-    for w in geqrt.TALL_WIDTHS:
-        try:
-            plans.append(tall_plan_at(b, m, n, ib, sms, w))
-        except ValueError:
-            pass
-    return plans
+    plans = (geqrt.tall_plan_at(b, m, n, ib, sms, w) for w in geqrt.TALL_WIDTHS)
+    return [p for p in plans if p is not None]
 
 
 # (B, m, n, ib) through the direct entry: the leaves' shape at a small B, an
@@ -1065,16 +1056,15 @@ def test_panel_apply_raises_past_its_nb(cuda):
 def test_panel_project_without_t_is_the_bare_sum(cuda, passes):
     """``tq_panel_project`` with a null T returns Σᵢ Yᵢᵀ Cᵢ itself (the
     entry B7's half ``panel_project`` takes), Kahan-summed over 2 row
-    blocks, in "highest" and in b3."""
+    blocks at G = 1 (W written directly), in "highest" and in b3."""
     nb, m, n = 64, 512, 96
+    mode = {0: "highest", 3: "b3"}[passes]
     rng = np.random.default_rng(passes)
     y = torch.from_numpy(rng.standard_normal((m, nb), dtype=np.float32)).to(cuda)
     c = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32)).to(cuda)
-    w = torch.empty((nb, n), device=cuda)
-    rc = _build.lib().tq_panel_project(y.data_ptr(), None, c.data_ptr(), c.stride(0), m, n,
-                                       nb, m // 2, w.data_ptr(), None, 1, passes,
-                                       _build.stream())
-    assert rc == 0
+    plan = panel_apply.project_plan_at(m, n, nb, m // 2, 1, mode)
+    assert plan.groups == 1 and plan.workspace == 0
+    w = panel_apply._launch_project(y, None, c, m // 2, mode, plan)
     torch.cuda.synchronize()
     assert rel(w, y.double().T @ c.double()) <= (1e-6 if passes == 0 else 1e-5)
 
@@ -1108,8 +1098,10 @@ def test_panel_project_groups_match_plain(cuda, case, mode, groups, fold):
     c = big[:, off : off + n]
     tm = (torch.from_numpy(rng.standard_normal((nb, nb), dtype=np.float32)).to(cuda) / nb
           if fold else None)
-    got = project_at(y, tm, c, mr, mode, groups)
-    again = project_at(y, tm, c, mr, mode, groups)
+    plan = panel_apply.project_plan_at(m, n, nb, mr, groups, mode, fold)
+    assert plan.groups == groups
+    got = panel_apply._launch_project(y, tm, c, mr, mode, plan)
+    again = panel_apply._launch_project(y, tm, c, mr, mode, plan)
     own = panel_apply._project_plain(y, c, mr, mode, groups=groups)
     hi = panel_apply._project_plain(y, c, mr, "highest", groups=groups)
     if fold:
@@ -1218,7 +1210,7 @@ def test_ttqrt_cluster_matches_plain_and_tsqrt_kernel(cuda, nb, ib):
     from tileqr_torch.kernels import tsqrt, ttqrt
 
     r1, r2 = tri_pair(cuda, nb, nb + ib)
-    plan = panel.ttqrt_plan(nb, ib)
+    plan = ttqrt.ttqrt_plan(nb, ib)
     _build.reset_counts()
     got = ttqrt.ttqrt(r1, r2, ib)
     torch.cuda.synchronize()
@@ -1469,16 +1461,16 @@ def test_couple_strip_at_every_plan(cuda, geo, trans, reverse, fused, mode):
     a, (_, v_stack, tg, _), (_, v_chunks, t2) = strip_case(cuda, nb, cols, br, nc)
     width = cols - cs * nb
     large, small = panel_apply.tiles_for(mode)
-    plan = strip_plan_at(nb, width, br, nc, mode, large if ptile == "large" else small,
-                         groups, large if stile == "large" else small, fused)
+    plan = chain.strip_plan_at(nb, width, br, nc, large if ptile == "large" else small, groups,
+                               large if stile == "large" else small, fused)
     vkk, tgf = (v_stack[0], tg) if fused else (None, None)
     outs = []
-    for fn, prec in ((strip_at, mode), (strip_at, mode), (chain.couple_strip_plain, mode),
-                     (chain.couple_strip_plain, "highest")):
+    for fn, prec in ((chain._launch_strip, mode), (chain._launch_strip, mode),
+                     (chain.couple_strip_plain, mode), (chain.couple_strip_plain, "highest")):
         c = a.clone()
         args = (v_chunks, t2, c, c[:nb, cs * nb :], 0, 1, nc, br, nb, cs, trans, reverse, vkk,
                 tgf, prec)
-        if fn is strip_at:
+        if fn is chain._launch_strip:
             fn(*args, plan)
         else:
             fn(*args, groups=plan.groups)
@@ -1554,7 +1546,7 @@ def test_phase2_at_any_nb_and_tile(cuda, nb, tile, mode):
     outs = []
     for _ in range(2):
         b = big.clone()
-        sub_at(y, w, b[:, 3 : 3 + n], mode, t)
+        panel_apply._launch_sub(y, w, b[:, 3 : 3 + n], mode, panel_apply.SubPlan(t))
         outs.append(b)
     own = big.clone()
     own[:, 3 : 3 + n] -= panel_apply.dot(y, w, mode)
@@ -1580,13 +1572,13 @@ def test_plans_refuse_what_their_layouts_lack(cuda):
     for mode, tile in (("highest", (32, 32)), ("highest", (128, 64)), ("b3", (128, 128)),
                        ("b3", (64, 128))):
         with pytest.raises(RuntimeError, match="panel_sub"):
-            sub_at(y, w, c, mode, tile)
+            panel_apply._launch_sub(y, w, c, mode, panel_apply.SubPlan(tile))
     nb = 64
     a, (_, v_stack, tg, _), (_, v_chunks, t2) = factors(cuda, nb)
     bad = chain.StripPlan((128, 128), 3, 64, (128, 128), 64, 2 * 4 * nb * 2 * nb)
     with pytest.raises(RuntimeError, match="couple_strip"):
-        strip_at(v_chunks, t2, a.clone(), a.clone()[:nb, nb:], 0, 1, 2, 2 * nb, nb, 1, True,
-                 False, None, None, "highest", bad)
+        chain._launch_strip(v_chunks, t2, a.clone(), a.clone()[:nb, nb:], 0, 1, 2, 2 * nb, nb,
+                            1, True, False, None, None, "highest", bad)
 
 
 @pytest.mark.parametrize("case", ["qr", "tree-r", "cholqr2-factor", "tree-reduced", "upload",

@@ -29,7 +29,7 @@ import torch
 
 from tileqr.drivers import batched as jbatched
 from tileqr_torch.kernels import geqrt
-from tileqr_torch.kernels.panel import SMEM_LIMIT
+from tileqr_torch.kernels._build import SMEM_LIMIT
 
 
 def rel(got, want):

@@ -30,7 +30,7 @@ import torch
 
 from tileqr.drivers import tsqr as jtsqr
 from tileqr_torch.kernels import geqrt
-from tileqr_torch.kernels.panel import SMEM_LIMIT
+from tileqr_torch.kernels._build import SMEM_LIMIT
 
 H100_SMS = 132
 

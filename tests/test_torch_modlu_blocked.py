@@ -1,7 +1,7 @@
 """B8's blocked LU and TTQRT's live-row cluster on the CPU: their plans and
 B8's blocked order.
 
-- ``kernels/modlu.py:modlu_plan`` and ``kernels/panel.py:ttqrt_plan``, the
+- ``kernels/modlu.py:modlu_plan`` and ``kernels/ttqrt.py:ttqrt_plan``, the
   clusters of the two kernels: for every geometry the drivers hand them
   (the hr square and sharded hr paths at the default nb = 256, the tsqr
   factor at nb = 512, the sharded hh tree's TTQRT at nb = 256 and TREE_IB)
@@ -9,7 +9,8 @@ B8's blocked order.
   CTA (232,448 bytes) and equal the kernels' own layout; the main path's
   shapes run on a cluster with the block in shared memory; a bad geometry
   raises before the kernel library is touched. Likewise the plans of one
-  fixed cluster size that ``utils/plan_sweep.py`` measures.
+  fixed cluster size (``modlu_plan_at``, ``ttqrt_plan_at``), which
+  ``utils/plan_sweep.py`` measures.
 - A float64 model of ``csrc/modlu.cu``'s order of operations (the panels
   are the ib-column pieces of C CTAs' column slabs; each panel's column
   loop, then U12 = L11⁻¹·A12 by the rank-1 steps on the panel's rows, then
@@ -31,11 +32,11 @@ import torch
 from tileqr.kernels.modlu import modified_lu as jmodified_lu
 from tileqr_torch.core.config import QRConfig
 from tileqr_torch.kernels import _build, modlu, ttqrt
-from tileqr_torch.kernels.modlu import (MODLU_COLS_PER_CTA, MODLU_IB, modlu_plan,
+from tileqr_torch.kernels._build import CLUSTER_SIZES, SMEM_LIMIT
+from tileqr_torch.kernels.geqrt import cluster_smem_bytes
+from tileqr_torch.kernels.modlu import (MODLU_COLS_PER_CTA, MODLU_IB, modlu_plan, modlu_plan_at,
                                         modlu_smem_bytes)
-from tileqr_torch.kernels.panel import (CLUSTER_SIZES, SMEM_LIMIT, cluster_smem_bytes,
-                                        ttqrt_plan, ttqrt_rows)
-from tileqr_torch.utils.plan_sweep import modlu_plan_at, ttqrt_plan_at
+from tileqr_torch.kernels.ttqrt import ttqrt_plan, ttqrt_plan_at, ttqrt_rows
 
 NB = QRConfig().nb
 # B8: the hr square and sharded hr paths' panels (nb), the tsqr factor's one

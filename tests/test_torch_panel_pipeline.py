@@ -33,7 +33,9 @@ from tileqr_torch.drivers import sharded, square
 from tileqr_torch.kernels import _build, chain, panel
 from tileqr_torch.kernels.common import triu
 from tileqr_torch.kernels.geqrt import geqrt_in_place
-from tileqr_torch.kernels.panel import SMEM_LIMIT, cluster_plan, pipeline_plan, stage_rows
+from tileqr_torch.kernels._build import SMEM_LIMIT
+from tileqr_torch.kernels.geqrt import cluster_plan
+from tileqr_torch.kernels.panel import pipeline_plan, stage_rows
 
 
 # ---- the plan at the drivers' launches ----

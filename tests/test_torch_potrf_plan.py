@@ -25,7 +25,7 @@ import torch
 
 from tileqr.drivers import cholqr as jcholqr
 from tileqr_torch.kernels import _build, potrf
-from tileqr_torch.kernels.panel import CLUSTER_SIZES, SMEM_LIMIT
+from tileqr_torch.kernels._build import CLUSTER_SIZES, SMEM_LIMIT
 
 H100_SMS = 132
 

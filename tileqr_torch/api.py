@@ -38,7 +38,7 @@ from tileqr_torch.drivers.batched import qr_batched as _qr_batched
 from tileqr_torch.dist.mesh import Mesh, rank_device
 from tileqr_torch.drivers import sharded as _sh
 from tileqr_torch.drivers import sharded_hr as _shr
-from tileqr_torch.drivers.cholqr import _highest, cholqr2_batched, guard_trips
+from tileqr_torch.drivers.cholqr import _highest, cholqr2_batched, guard_falls_back
 from tileqr_torch.drivers.sharded import ShardedFactors
 from tileqr_torch.drivers.sharded_hr import ShardedHRFactors
 from tileqr_torch.drivers.square import apply_q_tiled, assemble_r, qr_tiled
@@ -164,7 +164,7 @@ def qr_factor(a, config: Optional[QRConfig] = None, device=None):
         stats = cfg.hr_guard != "off"
         r, panels, health = qr_hr(ap, cfg.nb, stats=stats, precision=cfg.precision)
         f = HRFactors(r, panels, cfg.nb, (m, n), scale, health)
-        if not guard_trips(health, cfg, "qr_factor/hr") or cfg.hr_guard != "fallback":
+        if not guard_falls_back(health, cfg, "qr_factor/hr"):
             return f
         # fall through to the hh path: `a` is already prescaled and `scale`
         # already captured, so the fallback reuses both
@@ -348,13 +348,12 @@ def tsqr(a, mode: str = "r", config: Optional[QRConfig] = None, strategy: str = 
             with _highest():
                 out = hr_panel(ap, stats=stats)
             health = out[3] if stats else None
-            if guard_trips(health, cfg, "tsqr(factor, strategy='cholqr2')") and \
-                    cfg.hr_guard == "fallback":
+            if guard_falls_back(health, cfg, "tsqr(factor, strategy='cholqr2')"):
                 return tsqr(a, "factor", cfg, "tree")
             return HRFactors(out[2], ((out[0], out[1]),), nbp, (m, n), 1.0, health)
         out = cholqr2_batched(a[None], mode=mode, stats=stats, precision=cfg.precision)
         health = out[-1] if stats else None
-        if guard_trips(health, cfg, "tsqr(strategy='cholqr2')") and cfg.hr_guard == "fallback":
+        if guard_falls_back(health, cfg, "tsqr(strategy='cholqr2')"):
             return tsqr(a, mode, cfg, "tree")
         if mode == "r":
             return (out[0] if stats else out)[0]
@@ -402,7 +401,7 @@ def qr_batched(a, mode: str = "reduced", config: Optional[QRConfig] = None, devi
         stats = cfg.hr_guard != "off"
         out = cholqr2_batched(ap, mode=mode, stats=stats, precision=cfg.precision)
         health = out[-1] if stats else None
-        if not (guard_trips(health, cfg, "qr_batched/cholqr2") and cfg.hr_guard == "fallback"):
+        if not guard_falls_back(health, cfg, "qr_batched/cholqr2"):
             if mode == "r":
                 return out[0] if stats else out
             return out[0][:, :m, :], out[1]
@@ -448,7 +447,7 @@ def qr_sharded(a, mesh: Optional[Mesh] = None, config: Optional[QRConfig] = None
     if cfg.square_method == "hr":
         fh = _shr.qr_sharded_factor_hr(a, mesh, cfg.nb, cfg.precision)
         health = fh.health if cfg.hr_guard != "off" else None
-        if not (guard_trips(health, cfg, "qr_sharded/hr") and cfg.hr_guard == "fallback"):
+        if not guard_falls_back(health, cfg, "qr_sharded/hr"):
             return fh if mode == "factor" else _sh.assemble_r_sharded(fh, mesh)
     chunk = 1 if cfg.resolve_driver(*shape) == "static" else cfg.chunk
     f = _sh.qr_sharded_factor(a, mesh, cfg.nb, cfg.ib, chunk, cfg.precision)

@@ -8,7 +8,7 @@ their phase launched, and there is no switch to set. ``SPANS`` names them
 all; ``utils/profile.py:span_times`` charges device time to them.
 
 ``GUARD`` counts the CholeskyQR breakdown guard's host checks and trips
-(``drivers/cholqr.py:guard_trips``) by call site, whether or not a
+(``drivers/cholqr.py:guard_falls_back``) by call site, whether or not a
 profiler runs. ``LOOKAHEAD`` counts the hh driver's updates split in two
 for its lookahead (``drivers/square.py:qr_tiled``; on any device) and the
 panel launches enqueued on its side stream beside a rest update (the card

@@ -2,7 +2,7 @@
 
 Counterparts of ``tileqr/drivers/cholqr.py``: ``cholqr2_batched``, the
 pairwise tall contraction ``bdot_pair_rows``, the breakdown guard
-``guard_trips``, the matmul-only triangular inverse (``_diag_of``,
+``guard_falls_back``, the matmul-only triangular inverse (``_diag_of``,
 ``_inv_factors``, ``_apply_rinv``, ``_triu_inv_doubling``), ``_up_half``
 the matmul-only second round (``_correction``) and the health
 (``_defect``). The POTRF kernel
@@ -68,13 +68,15 @@ def bdot_pair_rows(x: torch.Tensor, y: torch.Tensor, blk: int = 512,
     return parts[:, 0]
 
 
-def guard_trips(health, cfg, where: str) -> bool:
+def guard_falls_back(health, cfg, where: str) -> bool:
     """Host check of a CholeskyQR breakdown scalar (the round-1
-    orthogonality defect). True ⇒ it exceeds cfg.hr_guard_tau (or is NaN)
-    and a warning was emitted; the caller decides fallback or keep from
-    cfg.hr_guard. The reference's tracer branch has no counterpart: torch
-    runs eagerly, so the scalar is always concrete. Each check and trip is
-    counted under ``where`` in ``core/trace.py:GUARD``."""
+    orthogonality defect): whether the caller falls back to the Householder
+    path. The guard trips where the scalar exceeds cfg.hr_guard_tau (or is
+    NaN), which warns; the caller falls back where it tripped under
+    cfg.hr_guard = "fallback", and keeps the CholeskyQR result otherwise.
+    The reference's tracer branch has no counterpart: torch runs eagerly,
+    so the scalar is always concrete. Each check and trip is counted under
+    ``where`` in ``core/trace.py:GUARD``."""
     if health is None:
         return False
     with span("tileqr_torch.sync.guard"):
@@ -93,7 +95,7 @@ def guard_trips(health, cfg, where: str) -> bool:
         f"defect {h:.3e} exceeds hr_guard_tau={cfg.hr_guard_tau:.1e} — the "
         f"conditioning contract (cond ≲ 1e3 in fp32) is broken; {action}."
     )
-    return True
+    return cfg.hr_guard == "fallback"
 
 
 def _diag_of(r: torch.Tensor) -> torch.Tensor:
@@ -163,7 +165,7 @@ def cholqr2_batched(a: torch.Tensor, mode: str = "reduced", stats: bool = False,
 
     stats=True appends the round-1 orthogonality defect max ‖Q₁ᵀQ₁ − I‖_max
     over the batch (NaN if E has a NaN), the breakdown detector that
-    ``guard_trips`` reads."""
+    ``guard_falls_back`` reads."""
     refuse_xla_site(precision, "cholqr2_batched")
     m, n = a.shape[1:]
     eye = torch.eye(n, dtype=a.dtype, device=a.device)

@@ -46,7 +46,7 @@ import torch
 
 from tileqr_torch.core.layout import round_up
 from tileqr_torch.dist.mesh import Mesh
-from tileqr_torch.kernels.chain import couple_strip, larfb_strip, panel_chain
+from tileqr_torch.kernels.chain import panel_chain, strip_sweep
 from tileqr_torch.kernels.panel import panel_head
 from tileqr_torch.kernels.ttqrt import ttmqr, ttqrt
 
@@ -191,31 +191,15 @@ def planned_launches(grid: Tuple[int, int, int, int], chunk: int, r: int) -> dic
 def _sweep(mat, strip, f_bufs, k: int, geo, c: int, nb: int, col_start: int,
            trans: bool, precision: str) -> None:
     """K4/K3 of panel k on the row strip (a view of mat's row tile ls_blk
-    from column tile col_start), in place: LARFB then the head and chunk
-    couples (trans), or the reverse order (Q·C)."""
+    from column tile col_start), in place, by ``chain.strip_sweep``: LARFB
+    then the head and chunk couples (trans), or the reverse order (Q·C)."""
     v_heads, tg_all, t2_heads, v_chunks, t2_chunks, cb = f_bufs
     ls_blk, n_head, cstart, nch = geo
     hb = k * c
-    vkk, tg = v_heads[hb], tg_all[k]
     heads = (v_heads, t2_heads, mat, strip, hb + 1, ls_blk + 1, n_head, nb, nb, col_start)
     chunks = (v_chunks, t2_chunks, mat, strip, cb, cstart, nch, c * nb, nb, col_start)
-    if trans:
-        if n_head > 0:
-            couple_strip(*heads, trans=True, vkk=vkk, tg=tg, precision=precision)
-            if nch > 0:
-                couple_strip(*chunks, trans=True, precision=precision)
-        elif nch > 0:
-            couple_strip(*chunks, trans=True, vkk=vkk, tg=tg, precision=precision)
-        else:
-            larfb_strip(vkk, tg, strip, nb, trans=True, precision=precision)
-        return
-    if nch > 0:
-        fuse = dict(vkk=vkk, tg=tg) if n_head == 0 else {}
-        couple_strip(*chunks, trans=False, reverse=True, precision=precision, **fuse)
-    if n_head > 0:
-        couple_strip(*heads, trans=False, reverse=True, vkk=vkk, tg=tg, precision=precision)
-    if n_head == 0 and nch == 0:
-        larfb_strip(vkk, tg, strip, nb, trans=False, precision=precision)
+    strip_sweep(heads if n_head > 0 else None, chunks if nch > 0 else None, v_heads[hb],
+                tg_all[k], strip, nb, trans, precision)
 
 
 def _strip_tree(mesh: Mesh, strip: torch.Tensor, tv: torch.Tensor, tt: torch.Tensor,

@@ -1,9 +1,10 @@
 """Right-looking tiled QR driver (counterpart of ``tileqr/drivers/square.py``).
 
 A host loop over panels launches K1-K4 (``kernels/panel.py``,
-``kernels/chain.py``) with integer offsets; a panel's K1 and K2 are one
-pipelined launch on the card (``chain.panel_column``), and panel k+1 runs
-on a second stream beside the bulk of update k (``qr_tiled``'s lookahead).
+``kernels/chain.py``; K3/K4 through ``chain.strip_sweep``) with integer
+offsets; a panel's K1 and K2 are one pipelined launch on the card
+(``chain.panel_column``), and panel k+1 runs on a second stream beside
+the bulk of update k (``qr_tiled``'s lookahead).
 It stands in for both of the JAX package's drivers: ``square.py``
 (trace-unrolled) and ``square_dyn.py`` (run-time offsets, which exists
 only to bound TPU compile time).
@@ -31,7 +32,7 @@ import torch
 
 from tileqr_torch.core import trace
 from tileqr_torch.core.trace import span
-from tileqr_torch.kernels.chain import couple_strip, larfb_strip, panel_column
+from tileqr_torch.kernels.chain import panel_column, strip_sweep
 
 
 def _chunk_for(mt: int, chunk: int) -> int:
@@ -49,6 +50,18 @@ def _segments(k: int, mt: int, c: int) -> Tuple[int, int, int]:
     align = k + 1 + n_head
     n_chunks = (mt - align) // c
     return n_head, align // c, n_chunks
+
+
+def _sweep(panel: Tuple, tg: torch.Tensor, mat: torch.Tensor, strip: torch.Tensor, k: int,
+           mt: int, c: int, nb: int, col_start: int, trans: bool, precision: str) -> None:
+    """Panel k's reflectors (its ``panels`` entry and GEQRT T) on its row
+    strip of ``mat`` from column tile ``col_start``: ``chain.strip_sweep``
+    on its head and chunk couples."""
+    n_head, base, nc = _segments(k, mt, c)
+    v_stack, t2h, v_chunks, t2t = panel
+    heads = (v_stack, t2h, mat, strip, 1, k + 1, n_head, nb, nb, col_start) if n_head else None
+    chunks = (v_chunks, t2t, mat, strip, 0, base, nc, c * nb, nb, col_start) if nc else None
+    strip_sweep(heads, chunks, v_stack[0], tg, strip, nb, trans, precision)
 
 
 # the side stream of each card, by device index
@@ -114,24 +127,12 @@ def qr_tiled(a: torch.Tensor, nb: int, ib: int = 128, chunk: int = 4,
         return out
 
     def update(k, lo, hi, panel):
-        """Panel k's reflectors on column tiles [lo, hi) of A: K3 with the
-        diagonal LARFB fused in, or K4 where the panel has no couples."""
-        n_head, base, nc = _segments(k, mt, c)
+        """Panel k's reflectors on column tiles [lo, hi) of A."""
         _, v_stack, tg, t2h, v_chunks, t2t = panel
         cm = a[:, : hi * nb]
         strip = a[k * nb : (k + 1) * nb, lo * nb : hi * nb]
-        mode = dict(trans=True, precision=precision)
         with span("tileqr_torch.hh.update"):
-            if n_head > 0:
-                couple_strip(v_stack, t2h, cm, strip, 1, k + 1, n_head, nb, nb, lo,
-                             vkk=v_stack[0], tg=tg, **mode)
-                if nc > 0:
-                    couple_strip(v_chunks, t2t, cm, strip, 0, base, nc, c * nb, nb, lo, **mode)
-            elif nc > 0:
-                couple_strip(v_chunks, t2t, cm, strip, 0, base, nc, c * nb, nb, lo,
-                             vkk=v_stack[0], tg=tg, **mode)
-            else:
-                larfb_strip(v_stack[0], tg, strip, nb, **mode)
+            _sweep((v_stack, t2h, v_chunks, t2t), tg, cm, strip, k, mt, c, nb, lo, True, precision)
 
     r_diag, t_geqrt, panels = [], [], []
     rest_done = None  # rest k-1's event on the caller's stream
@@ -196,33 +197,7 @@ def apply_q_tiled(panels: Tuple, t_geqrt: torch.Tensor, c_mat: torch.Tensor, nb:
         if triangular and k * nb >= p:
             # the window starts right of C's last column: an exact no-op
             continue
-        n_head, base, nc = _segments(k, mt, c)
-        v_stack, t2h, v_chunks, t2t = panels[k]
-        tg = t_geqrt[k]
         cs = k if triangular else 0
         strip = c_mat[k * nb : (k + 1) * nb, cs * nb :]
-        mode = dict(precision=precision)
-        if trans:
-            if n_head > 0:
-                couple_strip(v_stack, t2h, c_mat, strip, 1, k + 1, n_head, nb, nb, 0,
-                             trans=True, vkk=v_stack[0], tg=tg, **mode)
-                if nc > 0:
-                    couple_strip(v_chunks, t2t, c_mat, strip, 0, base, nc, c * nb, nb, 0,
-                                 trans=True, **mode)
-            elif nc > 0:
-                couple_strip(v_chunks, t2t, c_mat, strip, 0, base, nc, c * nb, nb, 0,
-                             trans=True, vkk=v_stack[0], tg=tg, **mode)
-            else:
-                larfb_strip(v_stack[0], tg, strip, nb, trans=True, **mode)
-        else:
-            if nc > 0:
-                couple_strip(v_chunks, t2t, c_mat, strip, 0, base, nc, c * nb, nb, cs,
-                             trans=False, reverse=True,
-                             vkk=None if n_head > 0 else v_stack[0],
-                             tg=None if n_head > 0 else tg, **mode)
-            if n_head > 0:
-                couple_strip(v_stack, t2h, c_mat, strip, 1, k + 1, n_head, nb, nb, cs,
-                             trans=False, reverse=True, vkk=v_stack[0], tg=tg, **mode)
-            if n_head == 0 and nc == 0:
-                larfb_strip(v_stack[0], tg, strip, nb, trans=False, **mode)
+        _sweep(panels[k], t_geqrt[k], c_mat, strip, k, mt, c, nb, cs, trans, precision)
     return c_mat

@@ -242,6 +242,13 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+# the card's facts the launch plans read: the shared memory one CTA may
+# have on the H100, in bytes, and the thread-block cluster sizes the
+# cluster kernels are launched at
+SMEM_LIMIT = 232448
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+
+
 def sm_count(t: torch.Tensor) -> int:
     """Streaming multiprocessors of the card holding t (the launch plans'
     ``sms``)."""

@@ -10,10 +10,12 @@ Counterparts of ``tileqr/kernels/chain.py``:
   diagonal LARFB fused in at the first couple (forward order) or after the
   last (``reverse``, the Q-apply order);
 - ``larfb_strip`` (K4): the diagonal LARFB alone, for a panel with no
-  couples.
+  couples;
+- ``strip_sweep``: one panel's K3/K4 calls on its row strip, the rule
+  every driver's update and Q apply follow.
 
 On a CUDA tensor each wrapper launches its CUDA kernels (``csrc/chain.cu``
-for K2, as one thread-block cluster sized by ``panel.cluster_plan``;
+for K2, as one thread-block cluster sized by ``geqrt.cluster_plan``;
 ``csrc/strip.cu`` for K3 and K4); on a CPU tensor it runs the plain version
 beside it. K3 and K4 update C and the strip IN PLACE (the JAX kernels alias
 C to their output): the strip may be a view of C's row strip, which the
@@ -197,31 +199,43 @@ def strip_workspace(nb: int, width: int, couples: int, groups: int, fused: bool)
     return (couples * (groups + 1) + (2 if fused else 0)) * nb * width
 
 
+def strip_plan_at(nb: int, width: int, rows: int, couples: int, proj_tile: Tuple[int, int],
+                  groups: int, sub_tile: Tuple[int, int], fused: bool = False) -> StripPlan:
+    """K3's launches for ``couples`` couples of ``rows`` rows on an (nb,
+    width) strip at the given stage-1 tile and G, and stage-3 tile: G cut
+    to the non-empty groups of ``group_rows`` rows (1 with no couples, K4).
+    The workspace: couples·G partials and couples W2 of (nb, width) floats,
+    and two more for the fused LARFB."""
+    if min(nb, width, groups) < 1 or couples < 0 or (couples and rows < 1):
+        raise ValueError(f"strip_plan_at: nb={nb}, width={width}, rows={rows}, "
+                         f"couples={couples}, groups={groups}")
+    gr = group_rows(rows, groups) if couples else rows
+    groups = -(-rows // gr) if couples else 1
+    return StripPlan(proj_tile, groups, gr, sub_tile, SLAB_COLS,
+                     strip_workspace(nb, width, couples, groups, fused))
+
+
 def strip_plan(nb: int, width: int, rows: int, couples: int, sms: int,
                precision: str = "highest", fused: bool = False) -> StripPlan:
     """K3's launches on a card of ``sms`` SMs for ``couples`` couples of
     ``rows`` rows on an (nb, width) strip (K4: no couples, ``fused``), from
     the shapes and the SM count only, so that every rank of a world picks
-    alike. Stage 1 takes the mode's large tile where its blocks over all
-    couples fill the card, else the small one; its G = the SMs those tiles
-    leave (sms // tiles), at most rows // GROUP_MIN_ROWS and at least 1 (so
-    G = 1 when the tiles take more than half the card), cut to the
-    non-empty groups of ``group_rows`` rows. Stage 3 takes ``sub_plan``'s
-    tile for the stacked couples. The workspace: couples·G partials and
-    couples W2 of (nb, width) floats, and two more for the fused LARFB."""
+    alike: ``strip_plan_at`` at these tiles and G. Stage 1 takes the mode's
+    large tile where its blocks over all couples fill the card, else the
+    small one; its G = the SMs those tiles leave (sms // tiles), at most
+    rows // GROUP_MIN_ROWS and at least 1 (so G = 1 when the tiles take
+    more than half the card). Stage 3 takes ``sub_plan``'s tile for the
+    stacked couples."""
     if min(nb, width, sms) < 1 or couples < 0 or (couples and rows < 1):
         raise ValueError(f"strip_plan: nb={nb}, width={width}, rows={rows}, "
                          f"couples={couples}, sms={sms}")
     large, small = tiles_for(precision)
     if couples == 0:
-        return StripPlan(large, 1, rows, large, SLAB_COLS,
-                         strip_workspace(nb, width, 0, 1, fused))
+        return strip_plan_at(nb, width, rows, 0, large, 1, large, fused)
     tile = large if tile_count(nb, width, large, couples) >= sms else small
     groups = max(1, min(rows // GROUP_MIN_ROWS, sms // tile_count(nb, width, tile, couples)))
-    gr = group_rows(rows, groups)
-    groups = -(-rows // gr)
-    return StripPlan(tile, groups, gr, sub_plan(rows, width, nb, sms, precision, couples).tile,
-                     SLAB_COLS, strip_workspace(nb, width, couples, groups, fused))
+    return strip_plan_at(nb, width, rows, couples, tile, groups,
+                         sub_plan(rows, width, nb, sms, precision, couples).tile, fused)
 
 
 def _ssrfb_grouped(v2, t2, c_top, c_bot, trans: bool, precision: str, groups: int):
@@ -289,7 +303,7 @@ def couple_strip(v_stack, t2_stack, c, strip, stack_base: int, base_block: int,
     counter: the name the call counts under, keyed by mode. Returns
     (c, strip).
     """
-    passes = passes_of(precision)
+    passes_of(precision)
     if not _build.is_cuda(v_stack, t2_stack, c, strip, vkk, tg):
         return couple_strip_plain(v_stack, t2_stack, c, strip, stack_base, base_block,
                                   n_chunks, block_rows, nb, col_start, trans, reverse,
@@ -304,17 +318,26 @@ def couple_strip(v_stack, t2_stack, c, strip, stack_base: int, base_block: int,
         return c, strip
     plan = strip_plan(nb, width, block_rows, n_chunks, _build.sm_count(c), precision,
                       fused=vkk is not None)
+    _launch_strip(v_stack, t2_stack, c, strip, stack_base, base_block, n_chunks, block_rows, nb,
+                  col_start, trans, reverse, vkk, tg, precision, plan)
+    _build.LAUNCHES[counter_key(counter, precision)] += 1
+    return c, strip
+
+
+def _launch_strip(v_stack, t2_stack, c, strip, stack_base: int, base_block: int, n_chunks: int,
+                  block_rows: int, nb: int, col_start: int, trans: bool, reverse: bool, vkk, tg,
+                  precision: str, plan: StripPlan) -> None:
+    """One K3 call on the card at ``plan`` (``strip_plan``'s, or
+    ``strip_plan_at``'s at any tiles and G), in place on (c, strip)."""
     work = torch.empty(plan.workspace, dtype=c.dtype, device=c.device)
     rc = _build.lib().tq_couple_strip(
         v_stack.data_ptr(), t2_stack.data_ptr(), c.data_ptr(), c.stride(0),
-        strip.data_ptr(), strip.stride(0), width, stack_base, base_block,
+        strip.data_ptr(), strip.stride(0), strip.shape[1], stack_base, base_block,
         n_chunks, block_rows, nb, col_start, int(trans), int(reverse),
-        _build.ptr(vkk), _build.ptr(tg), passes, work.data_ptr(), *plan.proj_tile,
+        _build.ptr(vkk), _build.ptr(tg), passes_of(precision), work.data_ptr(), *plan.proj_tile,
         plan.groups, *plan.sub_tile, _build.stream(),
     )
     _build.check(rc, "couple_strip")
-    _build.LAUNCHES[counter_key(counter, precision)] += 1
-    return c, strip
 
 
 def larfb_strip_plain(vkk, tg, strip, nb: int, trans: bool = True,
@@ -348,3 +371,27 @@ def larfb_strip(vkk, tg, strip, nb: int, trans: bool = True,
     _build.check(rc, "larfb_strip")
     _build.LAUNCHES[counter_key("larfb_strip", precision)] += 1
     return strip
+
+
+def strip_sweep(heads: Optional[tuple], chunks: Optional[tuple], vkk: torch.Tensor,
+                tg: torch.Tensor, strip: torch.Tensor, nb: int, trans: bool = True,
+                precision: str = "highest") -> None:
+    """One panel's reflectors on its row strip, in place: the drivers'
+    K3/K4 sweep. ``heads`` and ``chunks``: the leading arguments (v_stack
+    through col_start) of ``couple_strip`` on the panel's head couples and
+    on its chunk couples, None where it has none; vkk/tg: its diagonal
+    tile's LARFB. trans (Qᵀ·C, the factor's update): heads with the LARFB
+    fused before them, then chunks (fused where there are no heads).
+    Otherwise (Q·C) the reverse: chunks, then heads with the LARFB fused
+    after them (after the chunks where there are no heads). K4 alone where
+    the panel has no couples."""
+    calls = [args for args in (heads, chunks) if args is not None]
+    if not calls:
+        larfb_strip(vkk, tg, strip, nb, trans=trans, precision=precision)
+        return
+    if not trans:
+        calls.reverse()
+    fused = 0 if trans else len(calls) - 1
+    for i, args in enumerate(calls):
+        fuse = dict(vkk=vkk, tg=tg) if i == fused else {}
+        couple_strip(*args, trans=trans, reverse=not trans, precision=precision, **fuse)

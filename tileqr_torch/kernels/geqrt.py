@@ -18,7 +18,11 @@ to rounding in float64:
 
 The CUDA device routine with the same contract is ``csrc/geqrt.cuh``; the
 panel kernels (``panel.py``, ``chain.py``) call it on the card and
-``geqrt_in_place`` on the CPU.
+``geqrt_in_place`` on the CPU. On the card K1, K2, TTQRT and the batched
+cluster route run it as one thread-block cluster
+(``csrc/geqrt_cluster.cuh``), whose plan lives here: ``cluster_plan_at``
+holds the rule at C CTAs (the active block resident in shared memory where
+it fits), ``cluster_plan`` picks C for K1/K2.
 
 This module also holds the batched GEQRT (``geqrt_batched``), the port of
 four TPU kernels that compute the same function, GEQRT of every matrix of
@@ -202,6 +206,74 @@ def t_from_gram(g: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
     return t
 
 
+# ---- the thread-block cluster routine (csrc/geqrt_cluster.cuh) ----
+
+# the cluster kernel's constants: threads per CTA, the chunk width of its
+# block products, its GEMM staging tile and depth
+CL_THREADS, CL_CW, CL_GI, CL_GJ, CL_GK = 512, 64, 128, 64, 16
+# couple rows per CTA the plan aims at: K1's 512 rows on 8 CTAs, K2's
+# 1280 on 16 (the nb = 512 chain's 2560 on 16 as well, 160 rows a CTA);
+# on the H100 80 rows a CTA ran K1 and K2 faster than 160 (PERF.md)
+ROWS_PER_CTA = 80
+
+
+class ClusterPlan(NamedTuple):
+    ctas: int          # C, the CTAs of the one cluster
+    smem_bytes: int    # dynamic shared memory per CTA
+    resident: bool     # the active block, Tb and the work buffer in shared memory
+    rows_per_cta: int  # ceil(rows / C): CTA q owns couple rows [q·rpc, (q+1)·rpc)
+
+
+def cluster_smem_bytes(nb: int, rows: int, ib: int, ctas: int, resident: bool) -> int:
+    """Shared bytes per CTA of a cluster launch (``geqrt_cluster.cuh``:
+    ``sizes``/``smem_floats``): GEMM staging, column partials (two parities
+    of (C + 1)·ib: every CTA's dots and row j), group partials, taus and two
+    scalars; when resident also the slab
+    (max(rpc, ib) × (ib+1): it holds G while Tb is built), Tb (ib × (ib+1))
+    and the work buffer."""
+    rpc = -(-rows // ctas)
+    pow2 = 1
+    while 2 * pow2 < ib:
+        pow2 *= 2
+    ycols = max(CL_CW, pow2, -(-nb // ctas))
+    small = CL_GK * (CL_GI + CL_GJ) + 2 * (ctas + 1) * ib + max(ib, CL_THREADS) + ib + 2
+    big = max(rpc, ib) * (ib + 1) + ib * (ib + 1) + ib * ycols
+    return 4 * (small + (big if resident else 0))
+
+
+def cluster_plan_at(nb: int, rows: int, ib: int, ctas: int) -> ClusterPlan:
+    """The cluster routine's plan on C = ``ctas`` CTAs for couples of
+    ``rows`` rows: the active block in their shared memory where it fits,
+    else in a global workspace."""
+    if nb < 1 or ib < 1 or rows < nb or ctas not in _build.CLUSTER_SIZES:
+        raise ValueError(f"cluster_plan_at: nb={nb}, rows={rows}, ib={ib}, ctas={ctas}")
+    resident = cluster_smem_bytes(nb, rows, ib, ctas, True) <= _build.SMEM_LIMIT
+    return ClusterPlan(ctas, cluster_smem_bytes(nb, rows, ib, ctas, resident), resident,
+                       -(-rows // ctas))
+
+
+def cluster_plan(nb: int, rows: int, ib: int, rows_per_cta: Optional[int] = None) -> ClusterPlan:
+    """The cluster of a K1/K2 launch whose largest couple has ``rows`` rows
+    (K1: 2·nb, or nb with no couples; K2: nb + block_rows): the fewest CTAs
+    that hold at most ``rows_per_cta`` rows each (ROWS_PER_CTA by default,
+    16 CTAs at most), grown while the active block does not fit one CTA's
+    shared memory; where it fits at no size, the smallest such cluster with
+    the block in a global workspace."""
+    if nb < 1 or ib < 1 or rows < nb:
+        raise ValueError(f"cluster_plan: nb={nb}, rows={rows}, ib={ib}")
+    sizes = _build.CLUSTER_SIZES
+    target = ROWS_PER_CTA if rows_per_cta is None else rows_per_cta
+    fits = [c for c in sizes if -(-rows // c) <= target]
+    c0 = fits[0] if fits else sizes[-1]
+    for c in sizes[sizes.index(c0):]:
+        plan = cluster_plan_at(nb, rows, ib, c)
+        if plan.resident:
+            return plan
+    return cluster_plan_at(nb, rows, ib, c0)
+
+
+# ---- the batched GEQRT's cluster route ----
+
 # the cluster routine's index math (``geqrt_cluster.cuh``: div_small) takes
 # a CTA's slab entries, rows per CTA × ib, below this
 _CLUSTER_INDEX_MAX = 2 ** 20
@@ -218,6 +290,19 @@ class BatchedClusterPlan(NamedTuple):
     resident: bool     # a CTA's rows of the active block in its shared memory
 
 
+def batched_cluster_plan_at(m: int, n: int, ib: int, ctas: int) -> BatchedClusterPlan:
+    """The plan of an (m, n) stack at inner width ``ib`` on C = ``ctas``
+    CTAs a matrix: at C = 1 the one-block kernel, else the cluster route
+    at block width min(ib, n), its block in the CTAs' shared memory where
+    it fits (m ≥ n)."""
+    if m < 1 or n < 1 or ib < 1 or ctas not in _build.CLUSTER_SIZES or (ctas > 1 and m < n):
+        raise ValueError(f"batched_cluster_plan_at: m={m}, n={n}, ib={ib}, ctas={ctas}")
+    if ctas == 1:
+        return BatchedClusterPlan(1, ib, 0, False)
+    p = cluster_plan_at(n, m, min(ib, n), ctas)
+    return BatchedClusterPlan(ctas, min(ib, n), p.smem_bytes, p.resident)
+
+
 def batched_cluster_plan(b: int, m: int, n: int, ib: int, sms: int) -> BatchedClusterPlan:
     """The route of a (b, m, n) stack at inner width ``ib`` on a card of
     ``sms`` SMs: C = ``cluster_plan``'s for a matrix as one couple of m
@@ -226,21 +311,16 @@ def batched_cluster_plan(b: int, m: int, n: int, ib: int, sms: int) -> BatchedCl
     where it fits. C = 1 (the one-block kernel) when m < n, when C falls
     to 1, or when a CTA's rows × ib reach the cluster routine's index
     limit."""
-    from tileqr_torch.kernels.panel import SMEM_LIMIT, cluster_plan, cluster_smem_bytes
-
     if b < 1 or m < 1 or n < 1 or ib < 1 or sms < 1:
         raise ValueError(f"batched_cluster_plan: b={b}, m={m}, n={n}, ib={ib}, sms={sms}")
-    one = BatchedClusterPlan(1, ib, 0, False)
-    if m < n:
-        return one
-    ibc = min(ib, n)
-    c = cluster_plan(n, m, ibc, BATCHED_ROWS_PER_CTA).ctas
-    while c > 1 and b * c > sms:
-        c //= 2
-    if c == 1 or -(-m // c) * ibc >= _CLUSTER_INDEX_MAX:
-        return one
-    resident = cluster_smem_bytes(n, m, ibc, c, True) <= SMEM_LIMIT
-    return BatchedClusterPlan(c, ibc, cluster_smem_bytes(n, m, ibc, c, resident), resident)
+    c = 1
+    if m >= n:
+        c = cluster_plan(n, m, min(ib, n), BATCHED_ROWS_PER_CTA).ctas
+        while c > 1 and b * c > sms:
+            c //= 2
+        if -(-m // c) * min(ib, n) >= _CLUSTER_INDEX_MAX:
+            c = 1
+    return batched_cluster_plan_at(m, n, ib, c)
 
 
 def small_tile_ld(m: int) -> int:
@@ -311,6 +391,18 @@ class TallPlan(NamedTuple):
     ib: int            # the block width
 
 
+def tall_plan_at(b: int, m: int, n: int, ib: int, sms: int, w: int) -> Optional[TallPlan]:
+    """The tall route's plan for a (b, m, n) stack, m ≥ n, at panel width
+    ``w`` on a card of ``sms`` SMs (a grid of min(b, sms) persistent CTAs),
+    or None where a panel of w columns is past one CTA's shared memory."""
+    if b < 1 or m < n or n < 1 or ib < 1 or sms < 1 or w not in TALL_WIDTHS:
+        raise ValueError(f"tall_plan_at: b={b}, m={m}, n={n}, ib={ib}, sms={sms}, w={w}")
+    smem = tall_smem_bytes(m, w)
+    if smem > _build.SMEM_LIMIT:
+        return None
+    return TallPlan(w, 1, TALL_THREADS, smem, min(b, sms), ib)
+
+
 def tall_plan(b: int, m: int, n: int, ib: int, sms: int) -> Optional[TallPlan]:
     """The tall route's plan for a (b, m, n) stack at inner width ``ib`` on
     a card of ``sms`` SMs, or None where the route does not take it (m < n,
@@ -323,18 +415,13 @@ def tall_plan(b: int, m: int, n: int, ib: int, sms: int) -> Optional[TallPlan]:
     for w = 8 at two leaves an SM on 64 × 64 product tiles); on 4096
     stacks of 256² 47.8 ms, against 52.6 for w = 8 and 112.1 for the
     one-block kernel (``utils/plan_sweep.py --only tall``)."""
-    from tileqr_torch.kernels.panel import SMEM_LIMIT
-
     if b < 1 or m < 1 or n < 1 or ib < 1 or sms < 1:
         raise ValueError(f"tall_plan: b={b}, m={m}, n={n}, ib={ib}, sms={sms}")
     if m < n:
         return None
     cap = max(8, min(ib, n))
-    for w in TALL_WIDTHS:
-        smem = tall_smem_bytes(m, w)
-        if w <= cap and smem <= SMEM_LIMIT:
-            return TallPlan(w, 1, TALL_THREADS, smem, min(b, sms), ib)
-    return None
+    plans = (tall_plan_at(b, m, n, ib, sms, w) for w in TALL_WIDTHS if w <= cap)
+    return next((p for p in plans if p is not None), None)
 
 
 def tall_schedule(n: int, ib: int, w: int) -> List[Tuple[int, int, int, int]]:
@@ -401,8 +488,6 @@ def batched_plan(b: int, m: int, n: int, ib: int, sms: int) -> BatchedPlan:
                            small_threads(m, n, ib))
     cl = batched_cluster_plan(b, m, n, ib, sms)
     if cl.ctas > 1:
-        from tileqr_torch.kernels.panel import CL_THREADS
-
         return BatchedPlan("cluster", cl.ctas, cl.ib, cl.smem_bytes, cl.resident, CL_THREADS)
     tall = tall_plan(b, m, n, ib, sms)
     if tall is not None:

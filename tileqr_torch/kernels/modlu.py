@@ -20,7 +20,6 @@ from typing import NamedTuple, Tuple
 import torch
 
 from tileqr_torch.kernels import _build
-from tileqr_torch.kernels.panel import CLUSTER_SIZES, SMEM_LIMIT
 
 # columns a CTA the plan aims at (a slab of nb × 64 fp32, 64 KiB at nb = 256),
 # and the panel width (csrc/modlu.cu: IB): on the H100 ib = 16 ran nb = 256
@@ -52,6 +51,16 @@ def modlu_smem_bytes(nb: int, ctas: int, resident: bool) -> int:
     return 4 * (2 * MODLU_IB + big)
 
 
+def modlu_plan_at(nb: int, ctas: int) -> ModluPlan:
+    """B8's plan on C = ``ctas`` CTAs: the block in their shared memory
+    where it fits, else in global memory."""
+    if nb < 1 or ctas not in _build.CLUSTER_SIZES:
+        raise ValueError(f"modlu_plan_at: nb={nb}, ctas={ctas}")
+    resident = modlu_smem_bytes(nb, ctas, True) <= _build.SMEM_LIMIT
+    return ModluPlan(ctas, modlu_panel_width(nb, ctas), modlu_smem_bytes(nb, ctas, resident),
+                     resident)
+
+
 def modlu_plan(nb: int) -> ModluPlan:
     """The cluster of a B8 launch on an (nb, nb) block: the fewest CTAs
     (16 at most) that hold at most MODLU_COLS_PER_CTA columns each, grown
@@ -59,14 +68,11 @@ def modlu_plan(nb: int) -> ModluPlan:
     where none fits, 16 CTAs on the block in global memory."""
     if nb < 1:
         raise ValueError(f"modlu_plan: nb={nb}")
-    fits = [c for c in CLUSTER_SIZES if -(-nb // c) <= MODLU_COLS_PER_CTA]
-    sizes = CLUSTER_SIZES[CLUSTER_SIZES.index(fits[0]):] if fits else CLUSTER_SIZES[-1:]
-    for c in sizes:
-        smem = modlu_smem_bytes(nb, c, True)
-        if smem <= SMEM_LIMIT:
-            return ModluPlan(c, modlu_panel_width(nb, c), smem, True)
-    c = sizes[-1]
-    return ModluPlan(c, modlu_panel_width(nb, c), modlu_smem_bytes(nb, c, False), False)
+    sizes = _build.CLUSTER_SIZES
+    fits = [c for c in sizes if -(-nb // c) <= MODLU_COLS_PER_CTA]
+    sizes = sizes[sizes.index(fits[0]):] if fits else sizes[-1:]
+    plans = [modlu_plan_at(nb, c) for c in sizes]
+    return next((p for p in plans if p.resident), plans[-1])
 
 
 def _check(q_top: torch.Tensor) -> int:
@@ -104,13 +110,19 @@ def modified_lu(q_top: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if not _build.is_cuda(q_top):
         return modified_lu_plain(q_top)
     _build.require_fp32(q_top)
-    n = _check(q_top)
-    plan = modlu_plan(n)
-    q = q_top.contiguous()
+    plan = modlu_plan(_check(q_top))
+    out = _launch_modlu(q_top.contiguous(), plan)
+    _build.LAUNCHES["modified_lu"] += 1
+    return out
+
+
+def _launch_modlu(q: torch.Tensor, plan: ModluPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One B8 launch on a contiguous CUDA block at ``plan`` (``modlu_plan``'s,
+    or ``modlu_plan_at``'s at any C): (lu, d)."""
+    n = q.shape[0]
     lu = torch.empty_like(q)
     d = torch.empty(n, dtype=q.dtype, device=q.device)
     rc = _build.lib().tq_modified_lu(q.data_ptr(), lu.data_ptr(), n, d.data_ptr(), plan.ctas,
                                      plan.smem_bytes, int(plan.resident), _build.stream())
     _build.check(rc, "modified_lu")
-    _build.LAUNCHES["modified_lu"] += 1
     return lu, d

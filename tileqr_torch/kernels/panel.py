@@ -7,8 +7,8 @@ kernel ``tq_panel_factor`` (``csrc/panel.cu``); on a CPU tensor it runs the
 plain version below. A is read only.
 
 K1 and K2 (``kernels/chain.py``) run as one thread-block cluster a launch
-(``csrc/geqrt_cluster.cuh``); ``cluster_plan`` picks its size and where
-the active block lives, and the launch is given its numbers. A launch of
+(``csrc/geqrt_cluster.cuh``); ``geqrt.cluster_plan`` picks its size and
+where the active block lives, and the launch is given its numbers. A launch of
 two or more steps runs them pipelined by ib block (``pipeline_plan``,
 ``csrc/panel_pipe.cuh``): q = nb / ib clusters, cluster s factoring block
 s of every couple in turn, beside cluster s - 1 on the next couple, each
@@ -27,82 +27,7 @@ import torch
 
 from tileqr_torch.kernels import _build
 from tileqr_torch.kernels.common import triu
-from tileqr_torch.kernels.geqrt import geqrt_in_place
-
-
-# the cluster kernel's constants (csrc/geqrt_cluster.cuh): threads per CTA,
-# the chunk width of its block products, its GEMM staging tile and depth
-CL_THREADS, CL_CW, CL_GI, CL_GJ, CL_GK = 512, 64, 128, 64, 16
-CLUSTER_SIZES = (1, 2, 4, 8, 16)
-# couple rows per CTA the plan aims at: K1's 512 rows on 8 CTAs, K2's
-# 1280 on 16 (the nb = 512 chain's 2560 on 16 as well, 160 rows a CTA);
-# on the H100 80 rows a CTA ran K1 and K2 faster than 160 (PERF.md)
-ROWS_PER_CTA = 80
-SMEM_LIMIT = 232448  # bytes of shared memory one CTA may have on the H100
-
-
-class ClusterPlan(NamedTuple):
-    ctas: int          # C, the CTAs of the one cluster
-    smem_bytes: int    # dynamic shared memory per CTA
-    resident: bool     # the active block, Tb and the work buffer in shared memory
-    rows_per_cta: int  # ceil(rows / C): CTA q owns couple rows [q·rpc, (q+1)·rpc)
-
-
-def cluster_smem_bytes(nb: int, rows: int, ib: int, ctas: int, resident: bool) -> int:
-    """Shared bytes per CTA of a K1/K2 launch (``geqrt_cluster.cuh``:
-    ``sizes``/``smem_floats``): GEMM staging, column partials (two parities
-    of (C + 1)·ib: every CTA's dots and row j), group partials, taus and two
-    scalars; when resident also the slab
-    (max(rpc, ib) × (ib+1): it holds G while Tb is built), Tb (ib × (ib+1))
-    and the work buffer."""
-    rpc = -(-rows // ctas)
-    pow2 = 1
-    while 2 * pow2 < ib:
-        pow2 *= 2
-    ycols = max(CL_CW, pow2, -(-nb // ctas))
-    small = CL_GK * (CL_GI + CL_GJ) + 2 * (ctas + 1) * ib + max(ib, CL_THREADS) + ib + 2
-    big = max(rpc, ib) * (ib + 1) + ib * (ib + 1) + ib * ycols
-    return 4 * (small + (big if resident else 0))
-
-
-def cluster_plan(nb: int, rows: int, ib: int, rows_per_cta: Optional[int] = None) -> ClusterPlan:
-    """The cluster of a K1/K2 launch whose largest couple has ``rows`` rows
-    (K1: 2·nb, or nb with no couples; K2: nb + block_rows): the fewest CTAs
-    that hold at most ``rows_per_cta`` rows each (ROWS_PER_CTA by default,
-    16 CTAs at most), grown while the active block does not fit one CTA's
-    shared memory; where it fits at no size, the smallest such cluster with
-    the block in a global workspace."""
-    if nb < 1 or ib < 1 or rows < nb:
-        raise ValueError(f"cluster_plan: nb={nb}, rows={rows}, ib={ib}")
-    target = ROWS_PER_CTA if rows_per_cta is None else rows_per_cta
-    fits = [c for c in CLUSTER_SIZES if -(-rows // c) <= target]
-    c0 = fits[0] if fits else CLUSTER_SIZES[-1]
-    for c in CLUSTER_SIZES[CLUSTER_SIZES.index(c0):]:
-        smem = cluster_smem_bytes(nb, rows, ib, c, True)
-        if smem <= SMEM_LIMIT:
-            return ClusterPlan(c, smem, True, -(-rows // c))
-    return ClusterPlan(c0, cluster_smem_bytes(nb, rows, ib, c0, False), False, -(-rows // c0))
-
-
-# live rows a CTA the TTQRT plan aims at (its largest block's set of
-# nb + ib rows over C CTAs): 8 CTAs at nb = 256, ib = 128
-TTQRT_ROWS_PER_CTA = 48
-
-
-def ttqrt_rows(nb: int, ib: int) -> int:
-    """Live rows of a TTQRT couple's largest block (``geqrt_cluster.cuh``:
-    ``tri_rows_max``): R1's ib rows of the block and R2's rows above its
-    end, nb + min(ib, nb)."""
-    return nb + min(ib, nb)
-
-
-def ttqrt_plan(nb: int, ib: int) -> ClusterPlan:
-    """The cluster of a TTQRT launch (``csrc/ttqrt.cu``, the cluster routine
-    on each block's live rows), ib ≤ nb: C from the largest live set,
-    ``ttqrt_rows(nb, ib)`` rows, at TTQRT_ROWS_PER_CTA rows a CTA."""
-    if nb < 1 or ib < 1 or ib > nb:
-        raise ValueError(f"ttqrt_plan: nb={nb}, ib={ib}")
-    return cluster_plan(nb, ttqrt_rows(nb, ib), ib, TTQRT_ROWS_PER_CTA)
+from tileqr_torch.kernels.geqrt import ClusterPlan, cluster_plan, geqrt_in_place
 
 
 class PipelinePlan(NamedTuple):

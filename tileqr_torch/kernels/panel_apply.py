@@ -120,24 +120,34 @@ def _group_size(blocks: int, groups: int) -> int:
     return -(-blocks // groups)
 
 
+def project_plan_at(m: int, n: int, nb: int, mr: int, groups: int, precision: str = "highest",
+                    fold: bool = False) -> ProjectPlan:
+    """Phase 1's launch for Y (m, nb), C (m, n) and row blocks of mr rows
+    at G = ``groups``: the mode's W tile, G cut to the number of non-empty
+    groups of ceil(rb / G) blocks, and the workspace of the groups' Kahan
+    pairs (none at G = 1 without ``fold``: W written directly). ``fold``:
+    op(T) is folded in (B6, B7), which reads the pairs from the workspace
+    at any G. No rows (m = 0) is one empty group: W = 0."""
+    if min(n, nb, mr, groups) < 1 or m < 0 or m % mr:
+        raise ValueError(f"project_plan_at: m={m}, n={n}, nb={nb}, mr={mr}, groups={groups}")
+    rb = m // mr
+    groups = -(-rb // _group_size(rb, groups)) if rb else 1
+    work = 0 if groups == 1 and not fold else groups * 2 * nb * n
+    return ProjectPlan(PROJECT_TILES["split" if passes_of(precision) else "fp32"], groups, work)
+
+
 def project_plan(m: int, n: int, nb: int, mr: int, sms: int, precision: str = "highest",
                  fold: bool = False) -> ProjectPlan:
     """Phase 1's launch on a card of ``sms`` SMs for Y (m, nb), C (m, n)
-    and row blocks of mr rows: the mode's W tile, and G = the SMs the
-    tiles leave, sms // tiles, at most one group per row block and at
-    least 1 (so G = 1 when the tiles take more than half the card), cut to
-    the number of non-empty groups of ceil(rb / G) blocks. ``fold``: op(T)
-    is folded in (B6, B7), which reads the pairs from the workspace at any
-    G. No rows (m = 0) is one empty group: W = 0."""
+    and row blocks of mr rows: ``project_plan_at`` at G = the SMs the
+    mode's W tiles leave, sms // tiles, at most one group per row block and
+    at least 1 (so G = 1 when the tiles take more than half the card)."""
     if min(n, nb, mr, sms) < 1 or m < 0 or m % mr:
         raise ValueError(f"project_plan: m={m}, n={n}, nb={nb}, mr={mr}, sms={sms}")
     tile = PROJECT_TILES["split" if passes_of(precision) else "fp32"]
     tiles = -(-nb // tile[0]) * -(-n // tile[1])
-    rb = m // mr
-    groups = max(1, min(rb, sms // tiles))
-    groups = -(-rb // _group_size(rb, groups)) if rb else 1
-    work = 0 if groups == 1 and not fold else groups * 2 * nb * n
-    return ProjectPlan(tile, groups, work)
+    groups = max(1, min(m // mr, sms // tiles))
+    return project_plan_at(m, n, nb, mr, groups, precision, fold)
 
 
 # phase 2's C tiles (csrc/panel_apply.cu, tile_gemm.cuh): the large and the
@@ -174,13 +184,13 @@ def sub_plan(m: int, n: int, nb: int, sms: int, precision: str = "highest",
     return SubPlan(large if tile_count(m, n, large, batch) >= sms else small)
 
 
-def card_groups(y: torch.Tensor, c: torch.Tensor, mr: int, precision: str,
-                fold: bool) -> int:
-    """The G phase 1 takes on the card for Y, C (``project_plan`` at the
-    card's SM count); the plain versions take it as ``groups`` to sum in the
-    kernel's order."""
+def card_project_plan(y: torch.Tensor, c: torch.Tensor, mr: int, precision: str,
+                      fold: bool) -> ProjectPlan:
+    """The plan phase 1 takes on the card for Y, C (``project_plan`` at the
+    card's SM count); the plain versions take its G as ``groups`` to sum in
+    the kernel's order."""
     m, nb = y.shape
-    return project_plan(m, c.shape[1], nb, mr, _build.sm_count(c), precision, fold).groups
+    return project_plan(m, c.shape[1], nb, mr, _build.sm_count(c), precision, fold)
 
 
 def _project_plain(y, c, mr: int, precision: str, groups: int = 1) -> torch.Tensor:
@@ -230,12 +240,13 @@ def _require_kernel(y, c, nb: int, precision: str) -> None:
             f"<= {BX_MAX_NB} in the split modes; got nb={nb} in {precision!r}")
 
 
-def _launch_project(y, tm: Optional[torch.Tensor], c, mr: int, precision: str) -> torch.Tensor:
-    """Phase 1 on the card: W (nb, n) = tm·Σᵢ Yᵢᵀ Cᵢ, or the bare sum when
-    tm is None, at ``project_plan``'s G."""
+def _launch_project(y, tm: Optional[torch.Tensor], c, mr: int, precision: str,
+                    plan: ProjectPlan) -> torch.Tensor:
+    """Phase 1 on the card at ``plan`` (``project_plan``'s, or
+    ``project_plan_at``'s at any G): W (nb, n) = tm·Σᵢ Yᵢᵀ Cᵢ, or the bare
+    sum when tm is None."""
     m, nb = y.shape
     n = c.shape[1]
-    plan = project_plan(m, n, nb, mr, _build.sm_count(c), precision, fold=tm is not None)
     w = torch.empty((nb, n), dtype=c.dtype, device=c.device)
     work = torch.empty(plan.workspace, dtype=c.dtype, device=c.device) if plan.workspace else None
     rc = _build.lib().tq_panel_project(y.data_ptr(), _build.ptr(tm), c.data_ptr(), c.stride(0),
@@ -245,16 +256,21 @@ def _launch_project(y, tm: Optional[torch.Tensor], c, mr: int, precision: str) -
     return w
 
 
-def _launch_sub(y, w, c, precision: str) -> None:
-    """Phase 2 on the card: C −= Y·W in place, on ``sub_plan``'s tile."""
+def _launch_sub(y, w, c, precision: str, plan: SubPlan) -> None:
+    """Phase 2 on the card: C −= Y·W in place, on ``plan``'s tile
+    (``sub_plan``'s, or any tile of the mode's route)."""
     m, nb = y.shape
-    n = c.shape[1]
-    if m == 0 or n == 0:
-        return
-    tm, tn = sub_plan(m, n, nb, _build.sm_count(c), precision).tile
-    rc = _build.lib().tq_panel_sub(y.data_ptr(), w.data_ptr(), c.data_ptr(), c.stride(0), m, n,
-                                   nb, tm, tn, passes_of(precision), _build.stream())
+    rc = _build.lib().tq_panel_sub(y.data_ptr(), w.data_ptr(), c.data_ptr(), c.stride(0), m,
+                                   c.shape[1], nb, *plan.tile, passes_of(precision),
+                                   _build.stream())
     _build.check(rc, "panel_sub")
+
+
+def _sub_on_card(y, w, c, precision: str) -> None:
+    """Phase 2 at ``sub_plan``'s tile for the card; nothing on an empty C."""
+    m, nb = y.shape
+    if m and c.shape[1]:
+        _launch_sub(y, w, c, precision, sub_plan(m, c.shape[1], nb, _build.sm_count(c), precision))
 
 
 def _apply_kernel(y, t, c, mr: int, trans: bool, precision: str) -> None:
@@ -262,7 +278,8 @@ def _apply_kernel(y, t, c, mr: int, trans: bool, precision: str) -> None:
     _require_kernel(y, c, y.shape[1], precision)
     _build.require_fp32(t)
     tm = (t.T if trans else t).contiguous()
-    _launch_sub(y, _launch_project(y, tm, c, mr, precision), c, precision)
+    w = _launch_project(y, tm, c, mr, precision, card_project_plan(y, c, mr, precision, True))
+    _sub_on_card(y, w, c, precision)
 
 
 def panel_apply_carry_plain(y, t, carry, k: int, nb: int, trans: bool = True,
@@ -351,7 +368,8 @@ def panel_project(y: torch.Tensor, c: torch.Tensor, precision: str = "b3") -> to
         return panel_project_plain(y, c, precision)
     m, n, nb = _check_half(y, c, "panel_project")
     _require_kernel(y, c, nb, precision)
-    w = _launch_project(y, None, c, _block(m, nb, 512), precision)
+    mr = _block(m, nb, 512)
+    w = _launch_project(y, None, c, mr, precision, card_project_plan(y, c, mr, precision, False))
     _build.LAUNCHES[counter_key("panel_project", precision)] += 1
     return w
 
@@ -377,6 +395,6 @@ def panel_sub(y: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
     _require_kernel(y, c, nb, precision)
     _build.require_fp32(w)
     _build.require_contiguous(w=w)
-    _launch_sub(y, w, c, precision)
+    _sub_on_card(y, w, c, precision)
     _build.LAUNCHES[counter_key("panel_sub", precision)] += 1
     return c

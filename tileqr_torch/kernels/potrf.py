@@ -25,7 +25,6 @@ from typing import NamedTuple
 import torch
 
 from tileqr_torch.kernels import _build
-from tileqr_torch.kernels.panel import CLUSTER_SIZES, SMEM_LIMIT
 
 # rows a CTA the plan aims at: C = 4 at n = 256 (the hr panel's gram), 8 at
 # 512 (the tsqr cholqr2 factor's)
@@ -70,6 +69,15 @@ def potrf_threads(n: int) -> int:
     return 128 if n <= 128 else 256 if n <= 512 else 512
 
 
+def potrf_plan_at(b: int, n: int, ctas: int, bp: int = 16) -> PotrfPlan:
+    """B9's plan on C = ``ctas`` CTAs a matrix: its blocks in their shared
+    memory where they fit, else in the output."""
+    if b < 1 or n < 1 or bp < 1 or ctas not in _build.CLUSTER_SIZES:
+        raise ValueError(f"potrf_plan_at: b={b}, n={n}, ctas={ctas}, bp={bp}")
+    resident = potrf_smem_bytes(n, ctas, True, bp) <= _build.SMEM_LIMIT
+    return PotrfPlan(ctas, potrf_smem_bytes(n, ctas, resident, bp), resident, potrf_threads(n))
+
+
 def potrf_plan(b: int, n: int, sms: int, bp: int = 16) -> PotrfPlan:
     """The cluster of a B9 launch on a (b, n, n) stack on a card of ``sms``
     SMs: the fewest CTAs (16 at most) that hold at most POTRF_ROWS_PER_CTA
@@ -78,12 +86,11 @@ def potrf_plan(b: int, n: int, sms: int, bp: int = 16) -> PotrfPlan:
     fit, else the same code on the output in global memory."""
     if b < 1 or n < 1 or sms < 1 or bp < 1:
         raise ValueError(f"potrf_plan: b={b}, n={n}, sms={sms}, bp={bp}")
-    fits = [c for c in CLUSTER_SIZES if -(-n // c) <= POTRF_ROWS_PER_CTA]
-    c = fits[0] if fits else CLUSTER_SIZES[-1]
+    fits = [c for c in _build.CLUSTER_SIZES if -(-n // c) <= POTRF_ROWS_PER_CTA]
+    c = fits[0] if fits else _build.CLUSTER_SIZES[-1]
     while c > 1 and b * c > sms:
         c //= 2
-    resident = potrf_smem_bytes(n, c, True, bp) <= SMEM_LIMIT
-    return PotrfPlan(c, potrf_smem_bytes(n, c, resident, bp), resident, potrf_threads(n))
+    return potrf_plan_at(b, n, c, bp)
 
 
 def _check(g: torch.Tensor, bp: int) -> None:
@@ -130,11 +137,19 @@ def potrf_batched(g: torch.Tensor, bp: int = 16) -> torch.Tensor:
     if n > POTRF_N_MAX:
         raise ValueError(f"potrf_batched: n={n} is past the kernel's {POTRF_N_MAX} columns")
     plan = potrf_plan(b, n, _build.sm_count(g), bp)
-    g = g.contiguous()
+    r = _launch_potrf(g.contiguous(), bp, plan)
+    _build.LAUNCHES["potrf_batched"] += 1
+    return r
+
+
+def _launch_potrf(g: torch.Tensor, bp: int, plan: PotrfPlan) -> torch.Tensor:
+    """One B9 launch on a contiguous CUDA stack (b, n, n) in panels of
+    ``bp`` rows at ``plan`` (``potrf_plan``'s, or ``potrf_plan_at``'s at
+    any C): R."""
+    b, n, _ = g.shape
     r = torch.empty_like(g)
     rc = _build.lib().tq_potrf_batched(g.data_ptr(), r.data_ptr(), b, n, bp, plan.ctas,
                                        plan.threads, plan.smem_bytes, int(plan.resident),
                                        _build.stream())
     _build.check(rc, "potrf_batched")
-    _build.LAUNCHES["potrf_batched"] += 1
     return r

@@ -5,7 +5,7 @@ couple [R1; R2] of two upper-triangular (nb, nb) tiles: R, V2 (upper
 triangular) and T2. On a CUDA tensor the wrapper launches ``tq_ttqrt``
 (``csrc/ttqrt.cu``: the thread-block cluster routine of K1/K2 on each
 column block's live rows, R1's rows [s, e) and R2's rows [0, e), sized by
-``panel.ttqrt_plan``); on a CPU tensor it runs ``ttqrt_plain``, the column
+``ttqrt_plan``); on a CPU tensor it runs ``ttqrt_plain``, the column
 loop with tileqr's row window (``geqrt_in_place``'s ``tri_bottom``: while
 the column block [s, e) is eliminated only the first nb + e rows of the
 couple are live). Both equal TSQRT on the same couple up to the order of
@@ -23,12 +23,38 @@ from typing import Tuple
 import torch
 
 from tileqr_torch.kernels import _build
-from tileqr_torch.kernels.geqrt import geqrt_in_place
-from tileqr_torch.kernels.panel import ttqrt_plan, ttqrt_rows
+from tileqr_torch.kernels.geqrt import ClusterPlan, cluster_plan, cluster_plan_at, geqrt_in_place
 from tileqr_torch.kernels.ssrfb import ssrfb
 
 # tileqr's ttqrt and tsqrt run the column loop at geqrt_in_refs' default ib
 TREE_IB = 128
+# live rows a CTA the TTQRT plan aims at (its largest block's set of
+# nb + ib rows over C CTAs): 8 CTAs at nb = 256, ib = 128
+TTQRT_ROWS_PER_CTA = 48
+
+
+def ttqrt_rows(nb: int, ib: int) -> int:
+    """Live rows of a TTQRT couple's largest block (``geqrt_cluster.cuh``:
+    ``tri_rows_max``): R1's ib rows of the block and R2's rows above its
+    end, nb + min(ib, nb)."""
+    return nb + min(ib, nb)
+
+
+def ttqrt_plan_at(nb: int, ib: int, ctas: int) -> ClusterPlan:
+    """TTQRT's plan on C = ``ctas`` CTAs, ib ≤ nb: the cluster routine's
+    (``geqrt.cluster_plan_at``) on the largest live set."""
+    if nb < 1 or not 1 <= ib <= nb:
+        raise ValueError(f"ttqrt_plan_at: nb={nb}, ib={ib}, ctas={ctas}")
+    return cluster_plan_at(nb, ttqrt_rows(nb, ib), ib, ctas)
+
+
+def ttqrt_plan(nb: int, ib: int) -> ClusterPlan:
+    """The cluster of a TTQRT launch (``csrc/ttqrt.cu``, the cluster routine
+    on each block's live rows), ib ≤ nb: C from the largest live set,
+    ``ttqrt_rows(nb, ib)`` rows, at TTQRT_ROWS_PER_CTA rows a CTA."""
+    if nb < 1 or ib < 1 or ib > nb:
+        raise ValueError(f"ttqrt_plan: nb={nb}, ib={ib}")
+    return cluster_plan(nb, ttqrt_rows(nb, ib), ib, TTQRT_ROWS_PER_CTA)
 
 
 def _check(r1: torch.Tensor, r2: torch.Tensor) -> int:
@@ -61,7 +87,16 @@ def ttqrt(r1: torch.Tensor, r2: torch.Tensor,
     nb = _check(r1, r2)
     ib = min(ib, nb)
     plan = ttqrt_plan(nb, ib)  # before the library loads: a bad geometry raises first
-    r1, r2 = r1.contiguous(), r2.contiguous()
+    out = _launch_ttqrt(r1.contiguous(), r2.contiguous(), ib, plan)
+    _build.LAUNCHES["ttqrt"] += 1
+    return out
+
+
+def _launch_ttqrt(r1: torch.Tensor, r2: torch.Tensor, ib: int,
+                  plan: ClusterPlan) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One TTQRT launch on contiguous CUDA tiles at ``plan`` (``ttqrt_plan``'s,
+    or ``ttqrt_plan_at``'s at any C): (R, V2, T2)."""
+    nb = r1.shape[0]
     r, v2, t2 = (torch.empty_like(r1) for _ in range(3))
     lib = _build.lib()
     work = r1.new_empty(lib.tq_cluster_work_floats(nb, ttqrt_rows(nb, ib), ib, plan.ctas,
@@ -70,7 +105,6 @@ def ttqrt(r1: torch.Tensor, r2: torch.Tensor,
                       t2.data_ptr(), work.data_ptr(), plan.ctas, plan.smem_bytes,
                       int(plan.resident), _build.stream())
     _build.check(rc, "ttqrt")
-    _build.LAUNCHES["ttqrt"] += 1
     return r, v2, t2
 
 

@@ -21,7 +21,7 @@ each stage cluster's mean ms per call in every stage, with its share of
 the cluster's time, beside the call's time from CUDA events (the
 instrumented build; the timer adds one global store per stage), for each
 ``--rows-per-cta`` value given (the rows a CTA the cluster plan aims at,
-``kernels/panel.py:ROWS_PER_CTA``; default: the plan's own); the stage
+``kernels/geqrt.py:ROWS_PER_CTA``; default: the plan's own); the stage
 clusters' busy times (all but the wait) give the balance of the ib blocks. TTQRT (``csrc/ttqrt.cu``, the same routine on
 the live rows) on two upper-triangular (nb, nb) tiles: the same stages,
 at each ``--ttqrt-ctas`` (default: ``ttqrt_plan``'s). B8 (``csrc/modlu.cu``)
@@ -57,7 +57,7 @@ import numpy as np
 import torch
 
 from tileqr_torch.kernels import _build
-from tileqr_torch.utils.plan_sweep import cuda_ms, ttqrt_at, ttqrt_plan_at
+from tileqr_torch.utils.plan_sweep import cuda_ms
 
 SMALL_STAGES = ("load", "LARFG", "warp 0 dots + updates", "column barrier",
                 "T sub-blocks by rows", "T sub-blocks joined", "block apply + off-diagonal T",
@@ -172,7 +172,7 @@ def main() -> int:
 def cluster_kernels(args, lib, rng) -> None:
     """K1, K2 and the two in one launch (each pipelined, a row of stages a
     stage cluster) and TTQRT's stages (``csrc/geqrt_cluster.cuh``)."""
-    from tileqr_torch.kernels import chain, panel
+    from tileqr_torch.kernels import chain, geqrt, panel, ttqrt
 
     nb, ib, c = args.nb, args.ib, args.chunk
     a = torch.from_numpy(np.random.default_rng(0).standard_normal(
@@ -189,8 +189,8 @@ def cluster_kernels(args, lib, rng) -> None:
                          (1 + n_head + n_chunks, nb + c * nb, False)),
     }
     out = (ctypes.c_ulonglong * (CL_SLOTS * len(STAGES)))()
-    for rows_per_cta in args.rows_per_cta or [panel.ROWS_PER_CTA]:
-        panel.ROWS_PER_CTA = rows_per_cta
+    for rows_per_cta in args.rows_per_cta or [geqrt.ROWS_PER_CTA]:
+        geqrt.ROWS_PER_CTA = rows_per_cta
         for name, (fn, (steps, rows, full_first)) in calls.items():
             plan = panel.pipeline_plan(nb, ib, steps, rows, full_first)
             # K2's serial loop is chain.cu's; the pipelined launches are
@@ -201,8 +201,8 @@ def cluster_kernels(args, lib, rng) -> None:
     r1, r2 = (torch.from_numpy(np.triu(rng.standard_normal((nb, nb), dtype=np.float32))).cuda()
               for _ in range(2))
     for ctas in args.ttqrt_ctas or [None]:
-        plan = panel.ttqrt_plan(nb, ib) if ctas is None else ttqrt_plan_at(nb, ib, ctas)
-        time_stages("ttqrt", lambda: ttqrt_at(r1, r2, ib, plan), lib.tq_cl_stages_ttqrt,
+        plan = ttqrt.ttqrt_plan(nb, ib) if ctas is None else ttqrt.ttqrt_plan_at(nb, ib, ctas)
+        time_stages("ttqrt", lambda: ttqrt._launch_ttqrt(r1, r2, ib, plan), lib.tq_cl_stages_ttqrt,
                     plan, out, args.reps)
 
 

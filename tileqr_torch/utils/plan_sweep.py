@@ -16,7 +16,7 @@ within the card) on both, the routes side by side, beside the plan
 ``batched_plan`` picks. The tall route (``--only tall``) on the tsqr
 leaves (512 × 2048×512), the tree's level 1 (128 × 2048×512), qr_batched's
 4096 × 256² and a 140 × 256² stack at ib 128, at every panel width w the
-kernel is built for (``tall_plan_at``; a CTA a leaf, one an SM), beside
+kernel is built for (a CTA a leaf, one an SM), beside
 ``tall_plan``'s pick, the one-block kernel and ``torch.geqrf``.
 
 B8 (``kernels/modlu.py``) on the top block of an orthonormal (4nb, nb)
@@ -34,8 +34,12 @@ mode's build: 128 × 128 in fp32, 128 × 64 in the split modes), beside
 ``project_plan``'s G: B7a at the sharded hr path's slice (Y 4096 × 256, C
 4096 × 8192), B6 panels 0 and 48 of 16384² with op(T) folded in, and the
 tsqr cholqr2 factor's B7 at nb = 512 in b3 (Y 1048576 × 512, C the same).
-The wrappers always take their own plan; this tool builds the plan of
-each size itself and calls the C functions directly. Each line: the plan,
+The wrappers always take their own plan; this tool takes each kernel's
+plan at each size from its module (``modlu_plan_at``, ``ttqrt_plan_at``,
+``potrf_plan_at``, ``batched_cluster_plan_at``, ``tall_plan_at``,
+``project_plan_at``, ``strip_plan_at``: the rule the wrappers' choosers
+call) and launches it through the module's launcher, the one the wrappers
+call. Each line: the plan,
 the kernel's mean time over ``--reps`` warm launches (CUDA events), taken
 ``--repeat`` times, its relative Frobenius difference from the plain
 version (for the projection: at the same G), beside the plan the
@@ -55,12 +59,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from tileqr_torch.kernels import _build, geqrt, panel_apply, potrf
-from tileqr_torch.kernels.chain import SLAB_COLS, StripPlan, group_rows, strip_workspace
-from tileqr_torch.kernels.modlu import (ModluPlan, modlu_panel_width, modlu_plan,
-                                        modlu_smem_bytes, modified_lu_plain)
-from tileqr_torch.kernels.panel import (CLUSTER_SIZES, SMEM_LIMIT, ClusterPlan, cluster_plan,
-                                        cluster_smem_bytes, ttqrt_plan, ttqrt_rows)
+from tileqr_torch.kernels import _build, chain, geqrt, modlu, panel_apply, potrf, ttqrt
+from tileqr_torch.kernels._build import CLUSTER_SIZES
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -73,146 +73,6 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def modlu_plan_at(nb: int, ctas: int) -> ModluPlan:
-    """B8's plan on C = ``ctas`` CTAs: the block in their shared memory
-    where it fits, else in global memory."""
-    if nb < 1 or ctas not in CLUSTER_SIZES:
-        raise ValueError(f"modlu_plan_at: nb={nb}, ctas={ctas}")
-    resident = modlu_smem_bytes(nb, ctas, True) <= SMEM_LIMIT
-    return ModluPlan(ctas, modlu_panel_width(nb, ctas), modlu_smem_bytes(nb, ctas, resident),
-                     resident)
-
-
-def ttqrt_plan_at(nb: int, ib: int, ctas: int) -> ClusterPlan:
-    """TTQRT's plan on C = ``ctas`` CTAs: the active block in their shared
-    memory where it fits, else in a global workspace."""
-    if nb < 1 or not 1 <= ib <= nb or ctas not in CLUSTER_SIZES:
-        raise ValueError(f"ttqrt_plan_at: nb={nb}, ib={ib}, ctas={ctas}")
-    rows = ttqrt_rows(nb, ib)
-    resident = cluster_smem_bytes(nb, rows, ib, ctas, True) <= SMEM_LIMIT
-    return ClusterPlan(ctas, cluster_smem_bytes(nb, rows, ib, ctas, resident), resident,
-                       -(-rows // ctas))
-
-
-def modlu_at(q_top: torch.Tensor, plan: ModluPlan) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One B8 launch on a contiguous CUDA block at ``plan``: (lu, d)."""
-    n = q_top.shape[0]
-    lu, d = torch.empty_like(q_top), q_top.new_empty(n)
-    _build.check(_build.lib().tq_modified_lu(q_top.data_ptr(), lu.data_ptr(), n, d.data_ptr(),
-                                             plan.ctas, plan.smem_bytes, int(plan.resident),
-                                             _build.stream()), "modified_lu")
-    return lu, d
-
-
-def ttqrt_at(r1: torch.Tensor, r2: torch.Tensor, ib: int,
-             plan: ClusterPlan) -> Tuple[torch.Tensor, ...]:
-    """One TTQRT launch on contiguous CUDA tiles at ``plan``: (R, V2, T2)."""
-    nb = r1.shape[0]
-    r, v2, t2 = (torch.empty_like(r1) for _ in range(3))
-    lib = _build.lib()
-    work = r1.new_empty(lib.tq_cluster_work_floats(nb, ttqrt_rows(nb, ib), ib, plan.ctas,
-                                                   int(plan.resident)))
-    _build.check(lib.tq_ttqrt(r1.data_ptr(), r2.data_ptr(), nb, ib, r.data_ptr(), v2.data_ptr(),
-                              t2.data_ptr(), work.data_ptr(), plan.ctas, plan.smem_bytes,
-                              int(plan.resident), _build.stream()), "ttqrt")
-    return r, v2, t2
-
-
-def geqrt_at(a: torch.Tensor, ib: int, ctas: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One batched GEQRT launch on a contiguous CUDA stack (b, m, n), m >=
-    n: the one-block kernel at ctas = 1, else the cluster route on C =
-    ``ctas`` CTAs a matrix (the block in their shared memory where it
-    fits). (packed, T)."""
-    b, m, n = a.shape
-    if ctas == 1:
-        return geqrt._geqrt_one_block(a, ib)
-    ibc = min(ib, n)
-    resident = cluster_smem_bytes(n, m, ibc, ctas, True) <= SMEM_LIMIT
-    return geqrt._geqrt_cluster(a, geqrt.BatchedClusterPlan(
-        ctas, ibc, cluster_smem_bytes(n, m, ibc, ctas, resident), resident))
-
-
-def tall_plan_at(b: int, m: int, n: int, ib: int, sms: int, w: int) -> geqrt.TallPlan:
-    """The tall route's plan at panel width ``w``."""
-    smem = geqrt.tall_smem_bytes(m, w)
-    if m < n or w not in geqrt.TALL_WIDTHS or smem > SMEM_LIMIT:
-        raise ValueError(f"tall_plan_at: b={b}, m={m}, n={n}, w={w}")
-    return geqrt.TallPlan(w, 1, geqrt.TALL_THREADS, smem, min(b, sms), ib)
-
-
-def potrf_plan_at(b: int, n: int, ctas: int) -> potrf.PotrfPlan:
-    """B9's plan on C = ``ctas`` CTAs a matrix: its blocks in their shared
-    memory where they fit, else in the output."""
-    if b < 1 or n < 1 or ctas not in CLUSTER_SIZES:
-        raise ValueError(f"potrf_plan_at: b={b}, n={n}, ctas={ctas}")
-    resident = potrf.potrf_smem_bytes(n, ctas, True) <= SMEM_LIMIT
-    return potrf.PotrfPlan(ctas, potrf.potrf_smem_bytes(n, ctas, resident), resident,
-                           potrf.potrf_threads(n))
-
-
-def potrf_at(g: torch.Tensor, plan: potrf.PotrfPlan) -> torch.Tensor:
-    """One B9 launch on a contiguous CUDA stack (b, n, n) at ``plan``: R."""
-    b, n, _ = g.shape
-    r = torch.empty_like(g)
-    _build.check(_build.lib().tq_potrf_batched(g.data_ptr(), r.data_ptr(), b, n, 16, plan.ctas,
-                                               plan.threads, plan.smem_bytes,
-                                               int(plan.resident), _build.stream()),
-                 "potrf_batched")
-    return r
-
-
-def project_at(y: torch.Tensor, tm, c: torch.Tensor, mr: int, precision: str,
-               groups: int) -> torch.Tensor:
-    """One projection launch (``tq_panel_project``) at G = ``groups``: W =
-    tm·Σᵢ Yᵢᵀ Cᵢ, or the bare sum when tm is None."""
-    m, nb = y.shape
-    n = c.shape[1]
-    w = torch.empty((nb, n), dtype=c.dtype, device=c.device)
-    work = torch.empty(groups * 2 * nb * n, dtype=c.dtype, device=c.device)
-    _build.check(_build.lib().tq_panel_project(
-        y.data_ptr(), _build.ptr(tm), c.data_ptr(), c.stride(0), m, n, nb, mr, w.data_ptr(),
-        work.data_ptr(), groups, panel_apply.passes_of(precision), _build.stream()),
-        "panel_project")
-    return w
-
-
-def sub_at(y: torch.Tensor, w: torch.Tensor, c: torch.Tensor, precision: str,
-           tile: Tuple[int, int]) -> torch.Tensor:
-    """One phase-2 launch (``tq_panel_sub``) on C tiles of ``tile``: C −= Y·W
-    in place on any (m, n) view c with unit column stride (Y (m, nb) and W
-    (nb, n) contiguous)."""
-    m, nb = y.shape
-    _build.check(_build.lib().tq_panel_sub(
-        y.data_ptr(), w.data_ptr(), c.data_ptr(), c.stride(0), m, c.shape[1], nb, *tile,
-        panel_apply.passes_of(precision), _build.stream()), "panel_sub")
-    return c
-
-
-def strip_at(v_stack, t2_stack, c, strip, stack_base: int, base_block: int, n_chunks: int,
-             block_rows: int, nb: int, col_start: int, trans: bool, reverse: bool, vkk, tg,
-             precision: str, plan: StripPlan):
-    """One K3 call (``tq_couple_strip``) at ``plan`` (tiles and G of any
-    ``strip_plan``), in place on (c, strip)."""
-    work = c.new_empty(plan.workspace)
-    _build.check(_build.lib().tq_couple_strip(
-        v_stack.data_ptr(), t2_stack.data_ptr(), c.data_ptr(), c.stride(0), strip.data_ptr(),
-        strip.stride(0), strip.shape[1], stack_base, base_block, n_chunks, block_rows, nb,
-        col_start, int(trans), int(reverse), _build.ptr(vkk), _build.ptr(tg),
-        panel_apply.passes_of(precision), work.data_ptr(), *plan.proj_tile, plan.groups,
-        *plan.sub_tile, _build.stream()), "couple_strip")
-    return c, strip
-
-
-def strip_plan_at(nb: int, width: int, rows: int, couples: int, precision: str,
-                  proj_tile: Tuple[int, int], groups: int, sub_tile: Tuple[int, int],
-                  fused: bool) -> StripPlan:
-    """K3's plan with the given tiles and G (G cut to its non-empty groups)."""
-    gr = group_rows(rows, groups)
-    groups = -(-rows // gr)
-    return StripPlan(proj_tile, groups, gr, sub_tile, SLAB_COLS,
-                     strip_workspace(nb, width, couples, groups, fused))
 
 
 def rel(x: torch.Tensor, y: torch.Tensor) -> float:
@@ -229,25 +89,31 @@ def fmt(ms: List[float]) -> str:
     return "/".join(f"{t:.4f}" for t in ms) + " ms"
 
 
+def cluster_route(a: torch.Tensor, plan: geqrt.BatchedClusterPlan) -> Tuple[torch.Tensor, ...]:
+    """The batched GEQRT at ``plan``: the one-block kernel at C = 1, else
+    the cluster route."""
+    return geqrt._geqrt_one_block(a, plan.ib) if plan.ctas == 1 else geqrt._geqrt_cluster(a, plan)
+
+
 def sweep_modlu(nb: int, reps: int, repeat: int) -> None:
     q, _ = torch.linalg.qr(torch.from_numpy(np.random.default_rng(nb).standard_normal(
         (4 * nb, nb))).cuda())
     q_top = q[:nb].float().contiguous()
-    lu_p, d_p = modified_lu_plain(q_top)
+    lu_p, d_p = modlu.modified_lu_plain(q_top)
     shifted = q_top - torch.diag(d_p)
     lib = timed(lambda: torch.linalg.lu_factor(shifted, pivot=False), reps, repeat)
-    print(f"B8 nb={nb}: the wrappers' plan {modlu_plan(nb)}; "
+    print(f"B8 nb={nb}: the wrappers' plan {modlu.modlu_plan(nb)}; "
           f"lu_factor(pivot=False) {fmt(lib)}")
     for c in CLUSTER_SIZES:
-        plan = modlu_plan_at(nb, c)
-        lu, d = modlu_at(q_top, plan)
-        ms = timed(lambda: modlu_at(q_top, plan), reps, repeat)
+        plan = modlu.modlu_plan_at(nb, c)
+        lu, d = modlu._launch_modlu(q_top, plan)
+        ms = timed(lambda: modlu._launch_modlu(q_top, plan), reps, repeat)
         print(f"B8 nb={nb} {plan}: {fmt(ms)}, rel {rel(lu, lu_p):.3e}, "
               f"d equal {torch.equal(d, d_p)}")
 
 
 def sweep_ttqrt(nb: int, ib: int, reps: int, repeat: int) -> None:
-    from tileqr_torch.kernels import tsqrt, ttqrt
+    from tileqr_torch.kernels import tsqrt
 
     rng = np.random.default_rng(nb + ib)
     r1, r2 = (torch.from_numpy(np.triu(rng.standard_normal((nb, nb), dtype=np.float32))).cuda()
@@ -256,12 +122,13 @@ def sweep_ttqrt(nb: int, ib: int, reps: int, repeat: int) -> None:
     couple = torch.cat([r1, r2])
     geqrf = timed(lambda: torch.geqrf(couple), reps, repeat)
     k2 = timed(lambda: tsqrt.tsqrt(r1, r2, ib), reps, repeat)
-    print(f"TTQRT nb={nb} ib={ib}: the wrappers' plan {ttqrt_plan(nb, ib)}; tsqrt "
-          f"kernel (K2, {cluster_plan(nb, 2 * nb, ib)}) {fmt(k2)}, torch.geqrf {fmt(geqrf)}")
+    print(f"TTQRT nb={nb} ib={ib}: the wrappers' plan {ttqrt.ttqrt_plan(nb, ib)}; tsqrt "
+          f"kernel (K2, {geqrt.cluster_plan(nb, 2 * nb, ib)}) {fmt(k2)}, "
+          f"torch.geqrf {fmt(geqrf)}")
     for c in CLUSTER_SIZES:
-        plan = ttqrt_plan_at(nb, ib, c)
-        got = ttqrt_at(r1, r2, ib, plan)
-        ms = timed(lambda: ttqrt_at(r1, r2, ib, plan), reps, repeat)
+        plan = ttqrt.ttqrt_plan_at(nb, ib, c)
+        got = ttqrt._launch_ttqrt(r1, r2, ib, plan)
+        ms = timed(lambda: ttqrt._launch_ttqrt(r1, r2, ib, plan), reps, repeat)
         print(f"TTQRT nb={nb} ib={ib} {plan}: {fmt(ms)}, "
               f"rel {max(rel(g, w) for g, w in zip(got, want)):.3e}")
 
@@ -277,8 +144,9 @@ def sweep_geqrt(b: int, m: int, n: int, ib: int, reps: int, repeat: int) -> None
     for c in CLUSTER_SIZES:
         if b * c > sms:
             continue
-        got = geqrt_at(a, ib, c)
-        ms = timed(lambda: geqrt_at(a, ib, c), max(1, reps // 5), repeat)
+        plan = geqrt.batched_cluster_plan_at(m, n, ib, c)
+        got = cluster_route(a, plan)
+        ms = timed(lambda: cluster_route(a, plan), max(1, reps // 5), repeat)
         print(f"geqrt_batched ({b}, {m}, {n}) C={c}: {fmt(ms)}, "
               f"rel {max(rel(g, w) for g, w in zip(got, want)):.3e}")
     del a, want
@@ -299,9 +167,9 @@ def sweep_potrf(b: int, n: int, reps: int, repeat: int) -> None:
     for c in CLUSTER_SIZES:
         if c > 1 and b * c > sms:
             continue
-        plan = potrf_plan_at(b, n, c)
-        got = potrf_at(g, plan)
-        ms = timed(lambda: potrf_at(g, plan), reps, repeat)
+        plan = potrf.potrf_plan_at(b, n, c)
+        got = potrf._launch_potrf(g, 16, plan)
+        ms = timed(lambda: potrf._launch_potrf(g, 16, plan), reps, repeat)
         print(f"B9 ({b}, {n}, {n}) {plan}: {fmt(ms)}, rel {rel(got, want):.3e}, "
               f"bitwise the wrappers' {torch.equal(got, ref)}")
     del g, want, ref
@@ -328,8 +196,9 @@ def sweep_small(b: int, m: int, n: int, ib: int, reps: int, repeat: int) -> None
     for c in CLUSTER_SIZES[1:]:
         if m < n or b * c > sms:
             continue
-        got = geqrt_at(a, ib, c)
-        ms = timed(lambda: geqrt_at(a, ib, c), r, repeat)
+        plan = geqrt.batched_cluster_plan_at(m, n, ib, c)
+        got = geqrt._geqrt_cluster(a, plan)
+        ms = timed(lambda: geqrt._geqrt_cluster(a, plan), r, repeat)
         print(f"geqrt_batched ({b}, {m}, {n}) ib={ib} cluster C={c}: {fmt(ms)}, "
               f"rel {max(rel(g, w) for g, w in zip(got, want)):.3e}")
     del a, want
@@ -344,14 +213,13 @@ def sweep_tall(b: int, m: int, n: int, ib: int, reps: int, repeat: int) -> None:
     want = geqrt.geqrt_batched_plain(a, ib)
     sms = _build.sm_count(a)
     lib = timed(lambda: torch.geqrf(a), 1, 1)
-    one = timed(lambda: geqrt_at(a, ib, 1), 1, 1)
+    one = timed(lambda: geqrt._geqrt_one_block(a, ib), 1, 1)
     print(f"geqrt_batched ({b}, {m}, {n}) ib={ib}: the wrappers' plan "
           f"{geqrt.tall_plan(b, m, n, ib, sms)}; torch.geqrf {fmt(lib)}, the one-block "
           f"kernel {fmt(one)}")
     for w in geqrt.TALL_WIDTHS:
-        try:
-            plan = tall_plan_at(b, m, n, ib, sms, w)
-        except ValueError:
+        plan = geqrt.tall_plan_at(b, m, n, ib, sms, w)
+        if plan is None:
             continue
         got = geqrt._geqrt_tall(a, plan)
         ms = timed(lambda: geqrt._geqrt_tall(a, plan), reps, repeat)
@@ -379,11 +247,12 @@ def sweep_project(label: str, m: int, nb: int, n: int, mr: int, modes, fold: boo
         for g in range(1, rb + 1):
             if rb % g or g > 64:
                 continue
-            got = project_at(y, tm, c, mr, mode, g)
+            p = panel_apply.project_plan_at(m, n, nb, mr, g, mode, fold)
+            got = panel_apply._launch_project(y, tm, c, mr, mode, p)
             want = panel_apply._project_plain(y, c, mr, mode, g)
             if fold:
                 want = tm @ want
-            ms = timed(lambda: project_at(y, tm, c, mr, mode, g), reps, repeat)
+            ms = timed(lambda: panel_apply._launch_project(y, tm, c, mr, mode, p), reps, repeat)
             print(f"project {label} {mode} G={g}: {fmt(ms)}, rel {rel(got, want):.3e}")
     del y, c
     torch.cuda.empty_cache()
@@ -402,8 +271,10 @@ def sweep_sub(label: str, m: int, n: int, nb: int, modes, reps: int, repeat: int
         plan = panel_apply.sub_plan(m, n, nb, _build.sm_count(c), mode)
         want = c0 - panel_apply.dot(y, w, mode)
         for tile in panel_apply.tiles_for(mode):
-            got = sub_at(y, w, c0.clone(), mode, tile)
-            ms = timed(lambda: sub_at(y, w, c, mode, tile), reps, repeat)
+            p = panel_apply.SubPlan(tile)
+            got = c0.clone()
+            panel_apply._launch_sub(y, w, got, mode, p)
+            ms = timed(lambda: panel_apply._launch_sub(y, w, c, mode, p), reps, repeat)
             pick = " (the wrappers' plan)" if tile == plan.tile else ""
             print(f"sub {label} {mode} tile {tile}{pick}: {fmt(ms)}, rel {rel(got, want):.3e}")
         del want
@@ -415,8 +286,6 @@ def sweep_strip(label: str, nb: int, width: int, rows: int, couples: int, modes,
                 repeat: int) -> None:
     """K3 (forward, trans, no LARFB) at each stage-1 tile and G, beside the
     plan the wrapper picks; stage 3 on the plan's tile."""
-    from tileqr_torch.kernels import chain
-
     rng = np.random.default_rng(nb + width + rows)
     v = torch.from_numpy(rng.standard_normal((couples, rows, nb), dtype=np.float32)).cuda()
     v /= rows ** 0.5
@@ -435,18 +304,19 @@ def sweep_strip(label: str, nb: int, width: int, rows: int, couples: int, modes,
             for g in (1, 2, 4, 8):
                 if g > 1 and rows // g < chain.GROUP_MIN_ROWS:
                     continue
-                p = strip_plan_at(nb, width, rows, couples, mode, tile, g, plan.sub_tile, False)
+                p = chain.strip_plan_at(nb, width, rows, couples, tile, g, plan.sub_tile)
                 if p.groups != g:
                     continue
-                c = c0.clone()
-                got = strip_at(*args, c, c[:nb, nb:], *geo, mode, p)
+                got = c0.clone()
+                chain._launch_strip(*args, got, got[:nb, nb:], *geo, mode, p)
                 want = c0.clone()
                 chain.couple_strip_plain(*args, want, want[:nb, nb:], *geo, mode, groups=g)
                 c = c0.clone()
-                ms = timed(lambda: strip_at(*args, c, c[:nb, nb:], *geo, mode, p), reps, repeat)
+                ms = timed(lambda: chain._launch_strip(*args, c, c[:nb, nb:], *geo, mode, p), reps,
+                           repeat)
                 pick = " (the wrappers' plan)" if (tile, g) == (plan.proj_tile, plan.groups) else ""
                 print(f"strip {label} {mode} tile {tile} G={g}{pick}: {fmt(ms)}, "
-                      f"rel {rel(got[0], want):.3e}")
+                      f"rel {rel(got, want):.3e}")
                 del got, want, c
     del v, t2, c0
     torch.cuda.empty_cache()
