@@ -717,12 +717,17 @@ def run_path(a: torch.Tensor, cfg, path: str, card: str):
         launches = dict(_build.LAUNCHES)
         plain = dict(_build.PLAIN_CALLS)
     print(f"{path} path launches {json.dumps(launches)} plain_calls {json.dumps(plain)} "
-          f"pipelined {json.dumps(_build.PIPELINE)}")
+          f"pipelined {json.dumps(_build.PIPELINE)} exchange {json.dumps(_build.EXCHANGE)}")
     if path == "hh":
         panels = min(a.shape) // NB
         require(_build.PIPELINE["launches"] == launches["panel_factor"] - 1 == panels - 1,
                 f"hh: {_build.PIPELINE['launches']} of {launches['panel_factor']} panel "
                 f"launches pipelined")
+        # every panel launch runs clusters of more than one CTA (K3/K4 and Q
+        # run no cluster routine)
+        require(_build.EXCHANGE["launches"] == panels,
+                f"hh: {_build.EXCHANGE['launches']} of {panels} panel launches exchanged "
+                f"partials between CTAs")
     require(all(launches[k] >= 1 for k in own), f"a {path} kernel never launched: {launches}")
     require(not any(v for k, v in launches.items() if k not in own),
             f"the {path} path launched other kernels")

@@ -292,6 +292,7 @@ def test_qr_pipelines_31_of_32_panels(cuda):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["panel_factor"] == 32 and _build.LAUNCHES["panel_chain"] == 0
     assert _build.PIPELINE == {"launches": 31, "overlapped_steps": 160}
+    assert _build.EXCHANGE == {"launches": 32, "columns": 192 * 256}
     r = tileqr_torch.qr(a)[1]
     assert backward_error_f64(a, tileqr_torch.apply_q(f, a, trans=True), r) <= 1e-6
 
@@ -395,6 +396,226 @@ def test_cluster_route_and_ttqrt_keep_their_bits(cuda):
         (256, 256), dtype=np.float32)).to(cuda)
     got["panel_factor 1 step"] = bits(panel.panel_factor(a, 0, 256, 128, 0))
     assert got == PARENT_BITS
+
+
+# The cluster routine's column exchange (st.async into every CTA's part
+# buffer, each CTA waiting on its own mbarrier; csrc/geqrt_cluster.cuh) at
+# every cluster size the plans give. (nb, ib, chunk) of a panel's K1 + K2
+# launch with 3 head couples and 2 chunks of chunk·nb rows, and the cluster
+# size of its stages: ib 35 leaves blocks of 35, 35 and 20 columns, so the
+# running column count's parity changes between blocks where jj's does not.
+EXCHANGE_PIPE = [(32, 16, 1, 1), (64, 32, 2, 2), (96, 64, 2, 4), (256, 128, 1, 8),
+                 (256, 128, 4, 16), (90, 35, 2, 4)]
+
+
+def k1_then_k2_plain(a, nb, ib, n_head, n_chunks, br):
+    k1 = panel.panel_factor_plain(a, 0, nb, ib, n_head)
+    k2 = chain.panel_chain_plain(a, k1[0], 0, nb, 1, n_chunks, br, ib)
+    return [k2[0], *k1[1:], k2[1], k2[2]]
+
+
+@pytest.mark.parametrize("nb,ib,chunk,ctas", EXCHANGE_PIPE, ids=str)
+def test_exchange_pipelined_panel_at_every_cluster_size(cuda, nb, ib, chunk, ctas):
+    """The pipelined K1 + K2 launch (6 couples a stage, so the barriers'
+    phases carry from couple to couple) against the plain K1 then K2;
+    a rerun gives the same bits; ``EXCHANGE`` counts its columns."""
+    n_head, n_chunks, br = 3, 2, chunk * nb
+    a = torch.from_numpy(np.random.default_rng(nb + ib).standard_normal(
+        ((1 + n_head) * nb + n_chunks * br, nb), dtype=np.float32)).to(cuda)
+    plan = panel._pipelined(nb, ib, 1 + n_head + n_chunks, nb + br)
+    assert plan is not None and plan.cluster.ctas == ctas
+    _build.reset_counts()
+    got = chain.panel_column(a, 0, nb, ib, n_head, 1, n_chunks, br)
+    again = chain.panel_column(a, 0, nb, ib, n_head, 1, n_chunks, br)
+    torch.cuda.synchronize()
+    steps = 1 + n_head + n_chunks
+    assert _build.EXCHANGE == ({"launches": 2, "columns": 2 * steps * nb} if ctas > 1
+                               else {"launches": 0, "columns": 0})
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for g, w in zip(got, k1_then_k2_plain(a, nb, ib, n_head, n_chunks, br)):
+        assert rel(g, w) <= TOL
+
+
+# K2's serial loop (one couple a launch): (nb, ib, chunk, C)
+EXCHANGE_K2 = [(32, 16, 1, 1), (64, 32, 1, 2), (64, 32, 3, 4), (256, 128, 1, 8),
+               (256, 128, 4, 16), (90, 35, 2, 4)]
+
+
+@pytest.mark.parametrize("nb,ib,chunk,ctas", EXCHANGE_K2, ids=str)
+def test_exchange_k2_serial_at_every_cluster_size(cuda, nb, ib, chunk, ctas):
+    rng = np.random.default_rng(7 * nb + ib)
+    a = torch.from_numpy(rng.standard_normal((chunk * nb, nb), dtype=np.float32)).to(cuda)
+    r_in = torch.from_numpy(np.triu(rng.standard_normal((nb, nb), dtype=np.float32))).to(cuda)
+    assert geqrt.cluster_plan(nb, nb + chunk * nb, ib).ctas == ctas
+    _build.reset_counts()
+    got = chain.panel_chain(a, r_in, 0, nb, 0, 1, chunk * nb, ib)
+    again = chain.panel_chain(a, r_in, 0, nb, 0, 1, chunk * nb, ib)
+    torch.cuda.synchronize()
+    assert _build.PIPELINE["launches"] == 0
+    assert _build.EXCHANGE["launches"] == (2 if ctas > 1 else 0)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = chain.panel_chain_plain(a, r_in, 0, nb, 0, 1, chunk * nb, ib)
+    assert all(rel(g, w) <= TOL for g, w in zip(got, want))
+
+
+def test_exchange_serial_loop_over_blocks_and_couples(cuda):
+    """A panel captured in a CUDA graph runs K1's and K2's serial loops:
+    one cluster walks 3 blocks (35, 35, 20 columns) of each of 4 and 2
+    couples, so the barriers' phases carry across blocks and couples in
+    one launch; the replay matches the plain K1 then K2 and the eager
+    pipelined launch, and a second replay gives the same bits."""
+    nb, ib, n_head, n_chunks, br = 90, 35, 3, 2, 2 * 90
+    a = torch.from_numpy(np.random.default_rng(19).standard_normal(
+        ((1 + n_head) * nb + n_chunks * br, nb), dtype=np.float32)).to(cuda)
+    run = lambda: chain.panel_column(a, 0, nb, ib, n_head, 1, n_chunks, br)  # noqa: E731
+    eager = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    _build.reset_counts()
+    with torch.cuda.graph(graph):
+        out = run()
+    assert _build.PIPELINE["launches"] == 0 and _build.EXCHANGE["launches"] == 2
+    graph.replay()
+    torch.cuda.synchronize()
+    first = [x.clone() for x in out]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, out))
+    for g, e, w in zip(first, eager, k1_then_k2_plain(a, nb, ib, n_head, n_chunks, br)):
+        assert rel(g, w) <= TOL and rel(g, e) <= TOL
+
+
+# TTQRT (the TriRows set, dealt cyclically): (nb, ib, C)
+EXCHANGE_TTQRT = [(32, 16, 1), (64, 32, 2), (96, 64, 4), (96, 35, 4), (256, 128, 8),
+                  (512, 128, 16)]
+
+
+@pytest.mark.parametrize("nb,ib,ctas", EXCHANGE_TTQRT, ids=str)
+def test_exchange_ttqrt_at_every_cluster_size(cuda, nb, ib, ctas):
+    from tileqr_torch.kernels import ttqrt
+
+    r1, r2 = tri_pair(cuda, nb, 3 * nb + ib)
+    assert ttqrt.ttqrt_plan(nb, ib).ctas == ctas
+    _build.reset_counts()
+    got = ttqrt.ttqrt(r1, r2, ib)
+    again = ttqrt.ttqrt(r1, r2, ib)
+    torch.cuda.synchronize()
+    assert _build.EXCHANGE == ({"launches": 2, "columns": 2 * nb} if ctas > 1
+                               else {"launches": 0, "columns": 0})
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = ttqrt.ttqrt_plain(r1.cpu(), r2.cpu(), ib)
+    assert all(rel(g.cpu(), w) <= TOL for g, w in zip(got, want))
+
+
+# the batched GEQRT's cluster route (B clusters in one launch, every block
+# of every matrix) at C = 2, 4, 8, 16 from batched_cluster_plan_at: (b, m,
+# n, ib, C); ib 35 of n 100 leaves blocks of 35, 35, 30
+EXCHANGE_ROUTE = [(3, 256, 100, 35, 2), (3, 256, 100, 35, 4), (2, 512, 100, 35, 8),
+                  (2, 1024, 100, 35, 16), (4, 512, 256, 128, 8)]
+
+
+@pytest.mark.parametrize("b,m,n,ib,ctas", EXCHANGE_ROUTE, ids=str)
+def test_exchange_cluster_route_at_every_cluster_size(cuda, b, m, n, ib, ctas):
+    plan = geqrt.batched_cluster_plan_at(m, n, ib, ctas)
+    a = torch.from_numpy(np.random.default_rng(b * m + n).standard_normal(
+        (b, m, n), dtype=np.float32)).to(cuda)
+    _build.reset_counts()
+    got = geqrt._geqrt_cluster(a, plan)
+    again = geqrt._geqrt_cluster(a, plan)
+    torch.cuda.synchronize()
+    assert _build.EXCHANGE == {"launches": 2, "columns": 2 * b * n}
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = geqrt.geqrt_batched_plain(a, ib)
+    assert all(rel(g, w) <= TOL for g, w in zip(got, want))
+
+
+def test_exchange_launches_refuse_the_layout_without_its_words(cuda):
+    """The C entries refuse shared bytes that leave out the exchange's
+    words (the layout before them): the pipelined launch, TTQRT and the
+    cluster route each raise, and nothing falls back."""
+    from tileqr_torch.kernels import ttqrt
+
+    short = 4 * geqrt.CL_XCH_FLOATS
+    nb, ib = 256, 128
+    a = torch.zeros((4 * nb, nb), device=cuda)
+    plan = panel._pipelined(nb, ib, 4, 2 * nb)
+    bad = plan._replace(cluster=plan.cluster._replace(
+        smem_bytes=plan.cluster.smem_bytes - short))
+    kw = dict(dtype=a.dtype, device=cuda)
+    outs = (torch.empty((4, nb, nb), **kw), torch.empty((nb, nb), **kw),
+            torch.empty((4, nb, nb), **kw))
+    with pytest.raises(RuntimeError, match="panel_pipe"):
+        panel.launch_pipelined(bad, a, 0, nb, ib, 1, 3, 0, 0, 0, None,
+                               torch.empty((nb, nb), **kw), outs, (None, None))
+    r1, r2 = tri_pair(cuda, nb)
+    tp = ttqrt.ttqrt_plan(nb, ib)
+    with pytest.raises(RuntimeError, match="ttqrt"):
+        ttqrt._launch_ttqrt(r1, r2, ib, tp._replace(smem_bytes=tp.smem_bytes - short))
+    bp = geqrt.batched_cluster_plan_at(512, 256, 128, 8)
+    with pytest.raises(RuntimeError, match="cluster"):
+        geqrt._geqrt_cluster(torch.zeros((2, 512, 256), device=cuda),
+                             bp._replace(smem_bytes=bp.smem_bytes - short))
+    torch.cuda.synchronize()
+
+
+RELAUNCH_CHILD = """
+import hashlib, sys
+import numpy as np, torch
+from tileqr_torch.kernels import chain, geqrt, ttqrt
+
+def bits(ts):
+    d = hashlib.sha256()
+    for t in ts:
+        d.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return d.hexdigest()
+
+dev = torch.device("cuda")
+rng = np.random.default_rng(21)
+a = torch.from_numpy(rng.standard_normal((8192, 256), dtype=np.float32)).to(dev)
+r1, r2 = (torch.from_numpy(np.triu(rng.standard_normal((256, 256), dtype=np.float32))).to(dev)
+          for _ in range(2))
+s = torch.from_numpy(rng.standard_normal((32, 2048, 512), dtype=np.float32)).to(dev)
+r_in = torch.triu(a[:256])
+plan = geqrt.batched_cluster_plan_at(2048, 512, 128, 4)
+calls = {
+    "panel 0 of 8192": lambda: chain.panel_column(a, 0, 256, 128, 3, 1, 7, 1024),
+    "K2 serial": lambda: chain.panel_chain(a, r_in, 0, 256, 0, 1, 1024, 128),
+    "ttqrt": lambda: ttqrt.ttqrt(r1, r2, 128),
+    "cluster route": lambda: geqrt._geqrt_cluster(s, plan),
+}
+for name, fn in calls.items():
+    first = bits(fn())
+    for _ in range(48):
+        fn()
+    last = bits(fn())
+    torch.cuda.synchronize()
+    assert first == last, name
+    print(name, "50 launches, first and last bitwise equal", flush=True)
+print("ok")
+"""
+
+
+def test_exchange_relaunches_finish_in_time(cuda):
+    """50 back-to-back launches of each of the main path's panel launch,
+    K2's serial loop, TTQRT and the tree's level-2 cluster route, in a
+    child process given 240 s (a wrong byte count on a barrier would hang
+    rather than fail: the child is then killed, and the test fails); the
+    first and the 50th outputs are bitwise equal."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    _build.lib()  # built here, so the child only loads it
+    root = str(Path(__file__).resolve().parents[1])
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    try:
+        out = subprocess.run([sys.executable, "-c", RELAUNCH_CHILD], cwd=root, env=env,
+                             capture_output=True, text=True, timeout=240)
+    except subprocess.TimeoutExpired:
+        pytest.fail("the relaunches did not finish within 240 s")
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("ok"), out.stdout
 
 
 @pytest.mark.parametrize("nb", [64, 256])

@@ -117,7 +117,7 @@ def test_ttqrt_main_path_is_a_resident_cluster(geo):
 
 
 def test_ttqrt_main_path_plan():
-    assert ttqrt_plan(256, 128)[:4] == (8, 188936, True, 48)
+    assert ttqrt_plan(256, 128)[:4] == (8, 188960, True, 48)
 
 
 @pytest.mark.parametrize("ctas", CLUSTER_SIZES)

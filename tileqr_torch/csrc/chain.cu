@@ -10,7 +10,8 @@
 // 160 each), each holding its rows of the active ib block in shared memory.
 // B's rows live in their V output between blocks, R's in r_out (seeded
 // from r_in), both in L2. Bound: latency of the column loop, now one
-// cluster barrier and a pass over rpc = m / C shared-memory rows a column
+// exchange of partials (st.async into the peers' mbarriers) and a pass
+// over rpc = m / C shared-memory rows a column
 // (geqrt.cuh's single-block design walks m rows through L2 on one SM).
 //
 // r_in is upper triangular (its wrapper, kernels/chain.py, passes r_in's

@@ -43,8 +43,9 @@
 // geqrt_cluster.cuh's geqrt_couple_cluster on its matrix as one fresh couple
 // (FullRows, no R rows: the way K1's step 0 factors its diagonal tile), so
 // a matrix's rows sit in C SMs' shared memory (or a per-CTA global
-// workspace where they do not fit) and a column costs one cluster barrier,
-// instead of one SM walking the matrix through L2. It serves B1s (geqrt, B
+// workspace where they do not fit) and a column costs one exchange of
+// partials between its CTAs (st.async, no cluster barrier), instead of one
+// SM walking the matrix through L2. It serves B1s (geqrt, B
 // = 1: a 256^2 tile on C = 8) and the tsqr tree's levels (2048 x 512 stacks
 // of 32, 8, 2, 1 at 1048576 x 512, C = 4, 16, 16, 16), whose few matrices
 // left most SMs idle. Its sums run in another order than the one-block

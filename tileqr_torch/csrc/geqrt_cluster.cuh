@@ -39,19 +39,38 @@
 //     rows in r_out, which also carries R from one couple to the next
 //     (L2-resident; the slab buffer is reused by every block, so R is not
 //     kept in shared memory across couples).
-//   - The column loop, with ONE cluster barrier per column: each CTA
+//   - The column loop, with NO cluster barrier per column: each CTA
 //     reduces over its rows the tail norm of column j and the raw dots
 //     y_c . x of the block's remaining columns with x = column j below the
 //     diagonal (each active column's rows split over up to GRP_MAX threads,
-//     their partials added in group order). It stores these partials, and
-//     the owner of row j that row's values (alpha and y_c[j]), into EVERY
-//     CTA's shared memory (cluster.map_shared_rank; posted stores, double-
-//     buffered by column parity). After cluster.sync() every CTA adds the C
-//     partials in rank order 0..C-1 from its own shared memory, so every
-//     CTA holds the same bits, with no atomics. Then y_c . v = y_c[j] +
-//     scale * sum_{r>j} y_c[r] x[r] (the plain version rounds v = x*scale
-//     first: an O(eps) difference, held to the kernel tolerance), and the
-//     rank-1 update is local to each CTA's rows.
+//     their partials added in group order). The exchange is point to point:
+//     each CTA writes these partials, and the owner of row j that row's
+//     values (alpha and y_c[j]), into EVERY CTA's shared memory, its own
+//     included, by st.async (part, double-buffered by the parity of a
+//     running column count), each store completing its bytes on the
+//     receiver's mbarrier for that buffer. Each CTA arms its own barrier
+//     with the bytes it expects, (C + 1) x (ibk - jj) floats (C partial
+//     vectors and row j), and waits on the barrier's phase: it waits for the
+//     data that goes into its sums and for nothing else, where a cluster
+//     barrier would also wait for every CTA's arrival and fence all of its
+//     memory operations. It then adds the C partials in rank order 0..C-1
+//     from its own shared memory, so every CTA holds the same bits, with no
+//     atomics. Then y_c . v = y_c[j] + scale * sum_{r>j} y_c[r] x[r] (the
+//     plain version rounds v = x*scale first: an O(eps) difference, held to
+//     the kernel tolerance), and the rank-1 update is local to each CTA's
+//     rows.
+//     Reuse of a parity buffer needs no barrier: CTA p writes column k + 2
+//     into CTA q's buffer only after its own wait for column k + 1, which
+//     needs q's column k + 1 stores, which q makes after it has read column
+//     k from that buffer (and after its barrier's phase for column k has
+//     completed, so the new bytes count towards the next phase). The
+//     barriers are set up once a launch (carve: mbarrier.init, then
+//     fence.mbarrier_init and a cluster barrier before any store reaches
+//     them), and their phases follow the running column count, which goes
+//     on across blocks, couples and pipeline stages. A CTA never leaves
+//     while a peer may still write into it: it waits for every store
+//     addressed to it, and the block's P reduction that follows each column
+//     loop is a cluster barrier.
 //   - Block T and the apply: P = Vb^T [V_prev | Vb | A_rest] (ibk x n: the
 //     off-diagonal T's Z^T, G and W in one product) is a partial per CTA
 //     over its rows, computed in column chunks of CL_CW into shared memory
@@ -72,8 +91,8 @@
 //     integer division (div_small, shifts): a division is a ~20-instruction
 //     sequence, and several stood on each column's critical path.
 // On the H100 (PERF.md, utils/cluster_stages.py) the column loop is still
-// two thirds of the time; its exchange stage (the stores, the barrier and
-// the wait for the slowest CTA) is about half of that, the rest short
+// most of the time; its exchange stage (the stores and the wait for the
+// slowest CTA's partials) is the largest part of it, the rest short
 // latency-bound loops over shared memory. C = 16 is a non-portable cluster
 // size, allowed on the function and checked with
 // cudaOccupancyMaxActiveClusters before the launch.
@@ -98,8 +117,8 @@ constexpr int GJ = 64;
 constexpr int GK = 16;        // cta_gemm contraction step
 constexpr int GRP_MAX = 32;   // threads a column's rows are split over, at most
 
-// Float counts of one CTA's buffers (kernels/panel.py:cluster_plan mirrors
-// them): slab, Tb, work buffer (P chunk, W2 chunk, the doubling's X, the
+// Float counts of one CTA's buffers (kernels/geqrt.py:cluster_smem_bytes
+// mirrors them): slab, Tb, work buffer (P chunk, W2 chunk, the doubling's X, the
 // off-diagonal rows), staging, column partials, group partials, taus.
 struct Sizes {
   long long slab, tb, ybuf;
@@ -127,9 +146,18 @@ __host__ __device__ inline Sizes sizes(int nb, int rows, int ib, int ctas) {
   return z;
 }
 
-__host__ __device__ inline long long smem_floats(const Sizes& z, bool res) {
+// The exchange's words, after the buffers at an even float offset (8-byte
+// aligned): an mbarrier (8 bytes) per parity buffer of the partials, then
+// the count of columns exchanged (4 bytes), in floats with padding.
+constexpr int XCH_FLOATS = 6;
+
+__host__ __device__ inline long long xch_offset(const Sizes& z, bool res) {
   const long long small = (long long)z.stage + z.part + z.red + z.tau;
-  return res ? z.slab + z.tb + z.ybuf + small : small;
+  return ((res ? z.slab + z.tb + z.ybuf + small : small) + 1) & ~1LL;
+}
+
+__host__ __device__ inline long long smem_floats(const Sizes& z, bool res) {
+  return xch_offset(z, res) + XCH_FLOATS;
 }
 
 // global floats: the reduced P (ib x nb), then per CTA the slab, Tb and
@@ -146,7 +174,7 @@ struct Cta {
   float* ybuf;   // work buffer
   float* stage;  // cta_gemm staging
   float* part;   // 2 x (C + 1) x ib: every CTA's column partials and row j,
-                 // by column parity
+                 // by the parity of the running column count
   float* red;    // group partials of the column loop
   float* tau;    // the block's taus
   float* sc;     // scale and beta of the column just eliminated
@@ -179,7 +207,7 @@ __device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
 // pipelined panel launch's stage s, panel_pipe.cuh, its own row s, stages
 // from CL_SLOTS on untimed): 0 the slab's load and store, 1 P and its
 // reduction, 2 Tb, 3 the off-diagonal T, 4 the apply; in the column loop 5
-// the dots, 6 the partials' exchange and the cluster barrier, 7 LARFG and
+// the dots, 6 the partials' exchange and its wait, 7 LARFG and
 // the rank-1 update; 8 a pipeline stage's wait on the hand-off flag of the
 // stage before it.
 #ifdef TQ_CL_STAGES
@@ -295,9 +323,65 @@ __device__ void cta_gemm(int I, int J, int K, FA a, FB b, FS store, float* stage
   __syncthreads();
 }
 
+// ---- the column exchange's PTX: 32-bit shared addresses, a peer's copy of
+// one, st.async completing on the receiver's mbarrier, the barrier's arming
+// and wait ----
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// the shared::cluster address of this CTA's shared address `a` in CTA `rank`
+__device__ __forceinline__ unsigned peer_u32(unsigned a, int rank) {
+  unsigned r;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+// store v at shared::cluster address a, its 4 bytes completing on the
+// mbarrier at shared::cluster address bar (in the same CTA as a)
+__device__ __forceinline__ void st_async(unsigned a, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];"
+               ::"r"(a), "f"(v), "r"(bar) : "memory");
+}
+
+// the one arrival of the barrier's phase, which then waits for `bytes`
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// wait until the barrier's phase of parity `parity` has completed; the
+// stores it counted (from any CTA of the cluster) are visible after it
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The exchange's words: the two mbarriers, then the column count, at the
+// first 8-byte boundary after the buffers (whose last are the two scalars
+// w.sc): smem_floats' xch_offset, the shared memory being 16-byte aligned
+__device__ __forceinline__ unsigned long long* xch_bars(const Cta& w) {
+  return reinterpret_cast<unsigned long long*>(
+      (reinterpret_cast<unsigned long long>(w.sc + 2) + 7) & ~7ull);
+}
+
+__device__ __forceinline__ unsigned* xch_cols(const Cta& w) {
+  return reinterpret_cast<unsigned*>(xch_bars(w) + 2);
+}
 
 // Split the kernel's buffers: `smem` is the dynamic shared memory, `work`
-// the global workspace of ws_floats(nb, rows, ib, C, RES) floats.
+// the global workspace of ws_floats(nb, rows, ib, C, RES) floats. Sets up
+// the column exchange's barriers and ends with a cluster barrier, so that
+// no peer's store reaches them before they are set up: called once a
+// launch by every thread of every CTA.
 template <bool RES>
 __device__ Cta carve(float* smem, float* work, int nb, int rows, int ib, int slot = 0) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -322,6 +406,14 @@ __device__ Cta carve(float* smem, float* work, int nb, int rows, int ib, int slo
   w.red = w.part + z.part;
   w.tau = w.red + z.red;
   w.sc = w.tau + ib;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(xch_bars(w) + b))
+                   : "memory");
+    *xch_cols(w) = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster.sync();
   return w;
 }
 
@@ -524,21 +616,24 @@ struct PipeRows {
 
 // The Householder column loop over an ibk-column block on this CTA's rows
 // `mine` of the block's row set: column jj's diagonal row is live index
-// rows.d0 + jj, and its reflector lives there and on its tail. One cluster
-// barrier per column. Every thread works on the columns still active: each
-// of the n_act active columns gets groups_of(n_act) threads, each a
-// contiguous group of rows (of all the CTA's rows, or of the tail's where
-// the set splits the tail), so the rows per thread shrink as the block's
-// columns are eliminated (and a column's partial sums at most GRP_MAX
-// groups).
+// rows.d0 + jj, and its reflector lives there and on its tail. No cluster
+// barrier: each column's partials and row j go by st.async into every CTA's
+// part buffer of the column's parity, and each CTA waits on its own mbarrier
+// for them (the exchange, above). Every thread works on the columns still
+// active: each of the n_act active columns gets groups_of(n_act) threads,
+// each a contiguous group of rows (of all the CTA's rows, or of the tail's
+// where the set splits the tail), so the rows per thread shrink as the
+// block's columns are eliminated (and a column's partial sums at most
+// GRP_MAX groups).
 template <class Rows>
 __device__ void column_loop(const Cta& w, const Rows& rows, const Mine& mine, int ibk) {
-  cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, ld = w.ld, ib = w.ib, nr = mine.nr;
   float* slab = w.slab;
   for (int jj = 0; jj < ibk; ++jj) {
     const int j = rows.d0 + jj;
-    float* part = w.part + (jj & 1) * (w.ctas + 1) * ib;  // [rank][ib], then row j
+    const unsigned col = *xch_cols(w), buf = col & 1;  // the columns exchanged before
+    float* part = w.part + buf * (w.ctas + 1) * ib;  // [rank][ib], then row j
+    const unsigned bar = smem_u32(xch_bars(w) + buf);
     // the rows the thread groups of a column split, and the tail's
     const int tlo = mine.from(rows.tail_lo(jj)), thi = mine.from(rows.tail_hi(jj));
     const int glo = Rows::split_tail ? tlo : 0, ghi = Rows::split_tail ? thi : nr;
@@ -561,24 +656,28 @@ __device__ void column_loop(const Cta& w, const Rows& rows, const Mine& mine, in
     }
     __syncthreads();
     CL_STAGE(5);
-    // B: the CTA's partials, and the owner's row j, stored into every CTA's
-    // shared memory (posted stores: no CTA waits on a remote load)
+    // B: the CTA's partials, and the owner's row j, into every CTA's part
+    // buffer by st.async; then the wait for the C partial vectors and row j
+    // that this CTA's buffer receives
     const int rj = mine.at(j);
     const bool own = rj >= 0;
     {
       const int na = ibk - jj, grp = groups_of(na);
+      if (tid == 0) mbar_expect(bar, (unsigned)((w.ctas + 1) * na * sizeof(float)));
       for (int c = jj + tid; c < ibk; c += CL_THREADS) {
         float t = 0.f;
         for (int g = 0; g < grp; ++g) t += w.red[g * na + c - jj];
         const float yj = own ? slab[rj * ld + c] : 0.f;
+        const unsigned to_part = smem_u32(part + w.rank * ib + c);
+        const unsigned to_row = smem_u32(part + w.ctas * ib + c);
         for (int p = 0; p < w.ctas; ++p) {
-          float* dst = cluster.map_shared_rank(part, p);
-          dst[w.rank * ib + c] = t;
-          if (own) dst[w.ctas * ib + c] = yj;
+          const unsigned pbar = peer_u32(bar, p);
+          st_async(peer_u32(to_part, p), t, pbar);
+          if (own) st_async(peer_u32(to_row, p), yj, pbar);
         }
       }
     }
-    cluster.sync();
+    mbar_wait(bar, (col >> 1) & 1);
     CL_STAGE(6);
     // C: the partials of every CTA in rank order, LARFG, the rank-1 update
     const float* yrow = part + w.ctas * ib;
@@ -595,6 +694,7 @@ __device__ void column_loop(const Cta& w, const Rows& rows, const Mine& mine, in
       w.tau[jj] = tau;
       w.sc[0] = scale;
       w.sc[1] = beta;
+      *xch_cols(w) = col + 1;  // every thread read col before phase A's barrier
     }
     const int na = ibk - jj - 1;  // the columns right of column j
     if (na > 0) {
@@ -850,8 +950,9 @@ inline int read_stages(unsigned long long* out) {
 }
 #endif
 
-// Whether `smem` is the shared bytes this layout needs (kernels/panel.py:
-// cluster_plan computes the same number); a launch given another is refused.
+// Whether `smem` is the shared bytes this layout needs, the exchange's words
+// included (kernels/geqrt.py:cluster_smem_bytes computes the same number); a
+// launch given another is refused.
 inline bool smem_matches(int nb, int rows, int ib, int ctas, int resident, long long smem) {
   return smem == (long long)sizeof(float) * smem_floats(sizes(nb, rows, ib, ctas), resident != 0);
 }

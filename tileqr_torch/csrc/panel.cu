@@ -13,8 +13,9 @@
 // What bounds it on the H100: latency of the serial Householder column
 // loop (1 + n_couples couples of nb columns each). The design spreads each
 // couple's rows over a cluster of C CTAs (C from cluster_plan at m = 2 nb:
-// 8 at nb = 256), so a column costs one cluster barrier and a pass over
-// rpc = m / C rows of shared memory per CTA instead of a pass over m rows
+// 8 at nb = 256), so a column costs one exchange of partials between the
+// CTAs (st.async into the peers' mbarriers, no cluster barrier) and a pass
+// over rpc = m / C rows of shared memory per CTA instead of a pass over m rows
 // through L2 on one SM (geqrt.cuh's one-block design). One launch per panel;
 // R crosses from step to step through r_out (L2), with a cluster barrier
 // between steps because step 0's row split differs from the couples'.

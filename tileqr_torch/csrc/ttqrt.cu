@@ -24,9 +24,9 @@
 // order. The live rows of each block are dealt out cyclically over the
 // cluster's C CTAs (C from kernels/panel.py:ttqrt_plan; CTA q holds live
 // rows q, q + C, ...), so each column's window is spread over all of them;
-// the active block of them sits in shared memory, with one cluster barrier
-// per column and the partials added in rank order (the same bits on every
-// CTA, no atomics). As a row changes CTA from one block to the next, a
+// the active block of them sits in shared memory, each column's partials
+// exchanged by st.async (no cluster barrier) and added in rank order (the
+// same bits on every CTA, no atomics). As a row changes CTA from one block to the next, a
 // block starts with a cluster barrier. The columns right of the block stay
 // in the outputs (L2) between blocks. R1 and R2 are read from the inputs
 // and R, V2, T2 written straight to the outputs: there is no copy of the
@@ -37,7 +37,7 @@
 // Arithmetic: IEEE fp32 FMA on the CUDA cores, LARFG with no rescaling,
 // T by the doubling recurrence, as in K2: deterministic.
 // What bounds it now (PERF.md, utils/cluster_stages.py): the column loop,
-// nb dependent steps, each with its cluster barrier, as in K2.
+// nb dependent steps, each with its exchange of partials, as in K2.
 #include "geqrt_cluster.cuh"
 
 namespace {

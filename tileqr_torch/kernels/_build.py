@@ -71,6 +71,12 @@ PLAIN_CALLS = {k: 0 for k in KERNELS}
 # step's later blocks beside the next step's first): every step of such a
 # launch but its last
 PIPELINE = {"launches": 0, "overlapped_steps": 0}
+# launches of the cluster routine (``csrc/geqrt_cluster.cuh``: K1, K2, their
+# pipelined launch, TTQRT, the batched GEQRT's cluster route) on clusters of
+# more than one CTA, and the columns whose partials they exchanged between
+# CTAs (st.async into the peers' mbarriers), over all their clusters;
+# counted by the launchers from their plans (``count_exchange``)
+EXCHANGE = {"launches": 0, "columns": 0}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tileqr_torch"
@@ -151,9 +157,20 @@ def reset_counts() -> None:
         PLAIN_CALLS[k] = 0
     for k in PIPELINE:
         PIPELINE[k] = 0
+    for k in EXCHANGE:
+        EXCHANGE[k] = 0
     for k in trace.LOOKAHEAD:
         trace.LOOKAHEAD[k] = 0
     trace.GUARD.clear()
+
+
+def count_exchange(ctas: int, columns: int) -> None:
+    """Count one launch of the cluster routine on clusters of ``ctas`` CTAs
+    whose column loops walk ``columns`` columns in all (``EXCHANGE``); a
+    cluster of one CTA exchanges nothing."""
+    if ctas > 1:
+        EXCHANGE["launches"] += 1
+        EXCHANGE["columns"] += columns
 
 
 def _nvcc() -> str:

@@ -112,6 +112,7 @@ def panel_chain(a, r_in, k: int, nb: int, base_block: int, n_chunks: int,
             work.data_ptr(), ctas, smem, resident, _build.stream(),
         )
         _build.check(rc, "panel_chain")
+        _build.count_exchange(ctas, n_chunks * nb)
     _build.LAUNCHES["panel_chain"] += 1
     return r, v_chunks, t2
 

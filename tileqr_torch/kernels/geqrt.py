@@ -211,6 +211,9 @@ def t_from_gram(g: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
 # the cluster kernel's constants: threads per CTA, the chunk width of its
 # block products, its GEMM staging tile and depth
 CL_THREADS, CL_CW, CL_GI, CL_GJ, CL_GK = 512, 64, 128, 64, 16
+# floats of the column exchange's words after the buffers: two mbarriers
+# (8 bytes each), the count of columns exchanged (4 bytes), padding
+CL_XCH_FLOATS = 6
 # couple rows per CTA the plan aims at: K1's 512 rows on 8 CTAs, K2's
 # 1280 on 16 (the nb = 512 chain's 2560 on 16 as well, 160 rows a CTA);
 # on the H100 80 rows a CTA ran K1 and K2 faster than 160 (PERF.md)
@@ -224,9 +227,10 @@ class ClusterPlan(NamedTuple):
     rows_per_cta: int  # ceil(rows / C): CTA q owns couple rows [q·rpc, (q+1)·rpc)
 
 
-def cluster_smem_bytes(nb: int, rows: int, ib: int, ctas: int, resident: bool) -> int:
-    """Shared bytes per CTA of a cluster launch (``geqrt_cluster.cuh``:
-    ``sizes``/``smem_floats``): GEMM staging, column partials (two parities
+def cluster_exchange_offset(nb: int, rows: int, ib: int, ctas: int, resident: bool) -> int:
+    """Byte offset of the column exchange's words in a CTA's shared memory
+    (``geqrt_cluster.cuh``: ``xch_offset``), after its buffers at an even
+    float, so 8-byte aligned: GEMM staging, column partials (two parities
     of (C + 1)·ib: every CTA's dots and row j), group partials, taus and two
     scalars; when resident also the slab
     (max(rpc, ib) × (ib+1): it holds G while Tb is built), Tb (ib × (ib+1))
@@ -238,7 +242,16 @@ def cluster_smem_bytes(nb: int, rows: int, ib: int, ctas: int, resident: bool) -
     ycols = max(CL_CW, pow2, -(-nb // ctas))
     small = CL_GK * (CL_GI + CL_GJ) + 2 * (ctas + 1) * ib + max(ib, CL_THREADS) + ib + 2
     big = max(rpc, ib) * (ib + 1) + ib * (ib + 1) + ib * ycols
-    return 4 * (small + (big if resident else 0))
+    floats = small + (big if resident else 0)
+    return 4 * (floats + floats % 2)
+
+
+def cluster_smem_bytes(nb: int, rows: int, ib: int, ctas: int, resident: bool) -> int:
+    """Shared bytes per CTA of a cluster launch (``geqrt_cluster.cuh``:
+    ``sizes``/``smem_floats``): the buffers, then the column exchange's
+    words (``CL_XCH_FLOATS``: an mbarrier per parity buffer of the
+    partials, the count of columns exchanged, padding)."""
+    return cluster_exchange_offset(nb, rows, ib, ctas, resident) + 4 * CL_XCH_FLOATS
 
 
 def cluster_plan_at(nb: int, rows: int, ib: int, ctas: int) -> ClusterPlan:
@@ -570,6 +583,7 @@ def _geqrt_cluster(a: torch.Tensor, plan) -> Tuple[torch.Tensor, ...]:
                                       work.data_ptr(), b, m, n, plan.ib, plan.ctas,
                                       plan.smem_bytes, int(plan.resident), _build.stream())
     _build.check(rc, "geqrt_batched[cluster]")
+    _build.count_exchange(plan.ctas, b * n)  # a cluster a matrix, n = min(m, n) columns
     _build.LAUNCHES["geqrt_batched[cluster]"] += 1
     return packed, t
 

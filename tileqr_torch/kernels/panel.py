@@ -127,6 +127,7 @@ def launch_pipelined(plan: PipelinePlan, a: torch.Tensor, k: int, nb: int, ib: i
     _build.check(rc, "panel_pipe")
     _build.PIPELINE["launches"] += 1
     _build.PIPELINE["overlapped_steps"] += steps - 1
+    _build.count_exchange(c.ctas, steps * nb)  # stage s walks block s of every step
 
 
 def _cluster_args(nb: int, rows: int, ib: int, kw) -> tuple:
@@ -213,6 +214,7 @@ def panel_factor(a: torch.Tensor, k: int, nb: int, ib: int = 128,
             work.data_ptr(), ctas, smem, resident, _build.stream(),
         )
         _build.check(rc, "panel_factor")
+        _build.count_exchange(ctas, steps * nb)
     _build.LAUNCHES[counter] += 1
     return r, v_stack, t_geqrt, t2_stack
 

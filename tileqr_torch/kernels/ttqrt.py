@@ -105,6 +105,7 @@ def _launch_ttqrt(r1: torch.Tensor, r2: torch.Tensor, ib: int,
                       t2.data_ptr(), work.data_ptr(), plan.ctas, plan.smem_bytes,
                       int(plan.resident), _build.stream())
     _build.check(rc, "ttqrt")
+    _build.count_exchange(plan.ctas, nb)
     return r, v2, t2
 
 

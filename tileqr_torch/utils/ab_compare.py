@@ -3,7 +3,7 @@ and hr factors, B9 and the batched GEQRT's paths for two checkouts of this
 repository on one card, in turns, with a hash of each output.
 
     python -m tileqr_torch.utils.ab_compare --parent DIR [--order parent,change,change,parent]
-        [--only apply strip hr tsqr batched]
+        [--only apply strip hr tsqr batched cluster]
 
 ``DIR`` is another checkout's root (e.g. ``git archive <commit>`` unpacked
 into a directory that ``.gitignore`` lists). Each turn is a fresh process
@@ -26,7 +26,11 @@ on that panel's gram (1, 256, 256), and hr ``qr_factor`` 16384² "highest"
 512, 512) and B7 in "b3" with that factor's panel (nb = 512); "batched",
 the batched GEQRT on a gaussian 4096×128² stack at ib 32 and 128,
 ``qr_batched`` hh on it, and B9 on the gram of G + 4·√128·I (4096, 128,
-128, the cholqr2 route's). Times: CUDA events over warm calls, the mean
+128, the cholqr2 route's); "cluster", the cluster routine's other users at
+the main path's shapes: K1 alone (3 couples) and K2 (7 chunks of 1024 rows,
+pipelined; 1 chunk, the serial loop) on an 8192×256 panel, TTQRT at nb 256
+and 512, the tsqr tree's level-2 to level-5 stacks, and B8 at nb 256 and
+512 (inputs from ``default_rng(5)``). Times: CUDA events over warm calls, the mean
 of each reading's calls, several readings. Inputs come from
 ``numpy.random.default_rng(0)`` (the batched group's from
 ``default_rng(4)``), the same in every turn and whichever groups run, so
@@ -74,7 +78,7 @@ def digest(*tensors: torch.Tensor) -> str:
     return h.hexdigest()[:16]
 
 
-GROUPS = ("apply", "strip", "hr", "tsqr", "batched")
+GROUPS = ("apply", "strip", "hr", "tsqr", "batched", "cluster")
 # the inputs each group draws from numpy.random.default_rng(0), in order: a
 # group's stream skips the draws of the groups before it, so a group's
 # inputs are the same whichever groups run (B7a/B7b's Y, C, W; the hh A; the
@@ -233,6 +237,38 @@ def turn(tag: str, only) -> None:
         with cholqr._highest():
             b9(cholqr.bdot_pair_rows(wc, wc), "qr_batched cholqr2 gram")
         del a, wc
+        torch.cuda.empty_cache()
+
+    if "cluster" in only:
+        from tileqr_torch.kernels import chain, modlu, panel, ttqrt
+
+        rng = np.random.default_rng(5)
+        nb = 256
+        a = torch.from_numpy(rng.standard_normal((8192, nb), dtype=np.float32)).cuda()
+        r_k = torch.triu(a[:nb])
+        calls = {
+            "K1 (3 couples, pipelined)": lambda: panel.panel_factor(a, 0, nb, 128, 3),
+            "K2 (7 chunks of 1024, pipelined)": lambda: chain.panel_chain(a, r_k, 0, nb, 1, 7,
+                                                                          4 * nb, 128),
+            "K2 (1 chunk of 1024, serial)": lambda: chain.panel_chain(a, r_k, 0, nb, 1, 1,
+                                                                      4 * nb, 128),
+        }
+        for n in (256, 512):
+            r1, r2 = (torch.from_numpy(np.triu(rng.standard_normal((n, n), dtype=np.float32)))
+                      .cuda() for _ in range(2))
+            calls[f"TTQRT {n}"] = lambda r1=r1, r2=r2: ttqrt.ttqrt(r1, r2, 128)
+        for b in (32, 8, 2, 1):  # the tsqr tree's levels 2-5 at 1048576×512
+            s = torch.from_numpy(rng.standard_normal((b, 2048 if b > 1 else 1024, 512),
+                                                     dtype=np.float32)).cuda()
+            calls[f"tree level stack {tuple(s.shape)}"] = (
+                lambda s=s: geqrt.geqrt_batched(s, 128))
+        for n in (256, 512):
+            q, _ = torch.linalg.qr(torch.from_numpy(rng.standard_normal((4 * n, n))).cuda())
+            q_top = q[:n].float().contiguous()
+            calls[f"B8 modified_lu {n}"] = lambda q_top=q_top: modlu.modified_lu(q_top)
+        for name, fn in calls.items():
+            print(f"{tag} {name}: {readings(fn, 5, 3)}, hash {digest(*fn())}", flush=True)
+        del a, r_k, calls
         torch.cuda.empty_cache()
 
 

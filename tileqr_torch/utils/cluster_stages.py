@@ -11,7 +11,7 @@ add the ``globaltimer`` nanoseconds of each stage of
 ``csrc/geqrt_cluster.cuh`` to a device counter: the slab's load and store,
 P = Vbᵀ[V_prev | Vb | A_rest] with its cluster reduction, the block T, the
 off-diagonal T, the block apply, and the column loop's three phases (the
-dots, the exchange of partials with its cluster barrier, LARFG with the
+dots, the exchange of partials by st.async with its wait, LARFG with the
 rank-1 update), and in a pipelined launch (``csrc/panel_pipe.cuh``) each
 stage's wait on the hand-off flag of the stage before it. Runs K1 (GEQRT
 and 3 head couples), K2 (7 couples of 4·nb rows) and the two in one launch
@@ -64,7 +64,7 @@ SMALL_STAGES = ("load", "LARFG", "warp 0 dots + updates", "column barrier",
                 "store")
 PO_STAGES = ("load/store", "own row steps", "cluster barrier", "panel copy", "SYRK")
 STAGES = ("slab load/store", "P + reduction", "block T", "off-diagonal T", "apply",
-          "column dots", "exchange + cluster barrier", "LARFG + rank-1 update",
+          "column dots", "exchange + wait", "LARFG + rank-1 update",
           "hand-off wait")
 # the stage timer's rows (csrc/geqrt_cluster.cuh: CL_SLOTS): one a stage
 # cluster of a pipelined launch (stages past them untimed), row 0 for one

@@ -32,7 +32,9 @@ everything else as "other torch ops"), the wall time of the profiled call
 and the device's idle share of it, then the device time inside each of
 the program's spans (``span_times``) and the host's, and how many of the
 profiled call's K1/K2 launches ran pipelined by ib block, with their couple
-steps that overlapped (``_build.PIPELINE``), the hh driver's updates split
+steps that overlapped (``_build.PIPELINE``), the cluster routine's launches
+on clusters of more than one CTA with the columns whose partials they
+exchanged (``_build.EXCHANGE``), the hh driver's updates split
 for its lookahead and its panels launched beside a rest update
 (``core/trace.py:LOOKAHEAD``), and the CholeskyQR guard's
 checks and trips by call site (``core/trace.py:GUARD``). With ``--health`` (hr
@@ -294,6 +296,8 @@ def main(argv=None) -> int:
         k1 = _build.LAUNCHES["panel_factor"] + _build.LAUNCHES["panel_chain"]
         print(f"K1/K2 launches pipelined by ib block: {_build.PIPELINE['launches']} of {k1}; "
               f"couple steps overlapped: {_build.PIPELINE['overlapped_steps']}")
+        print(f"cluster-routine launches exchanging partials by st.async: "
+              f"{_build.EXCHANGE['launches']}, columns exchanged: {_build.EXCHANGE['columns']}")
         print(f"hh lookahead: updates split {trace.LOOKAHEAD['split']}, panel launches beside "
               f"a rest update {trace.LOOKAHEAD['beside']} of {_build.LAUNCHES['panel_factor']}")
         print(f"CholeskyQR guard checks and trips by site: {trace.GUARD or 'none'}")
