@@ -1,0 +1,62 @@
+"""The counters of one hh ``qr(a)`` as the driver's segments and the plans
+give them, for the tests that hold the counters to them: the CPU tests
+through a stubbed kernel library, the card test at 16384². Imported as
+``_hh_counts`` (pytest puts ``tests/`` on the path): a ``tests`` package
+installed beside the project would shadow ``tests._hh_counts``."""
+
+from tileqr_torch.drivers import square
+from tileqr_torch.kernels import chain, panel
+
+
+def planned_hh_counts(n: int, nb: int, ib: int, chunk: int, sms: int, side: bool = True,
+                      precision: str = "highest") -> dict:
+    """The counters of one hh ``qr(a)`` (reduced) on an n×n A (n a multiple
+    of nb, nb > ib), derived from the driver's segments
+    (``square._segments``) and the plans: ``trace.LOOKAHEAD`` (``side``: a
+    card, where panels run on the side stream), ``_build.PIPELINE`` and
+    ``_build.EXCHANGE`` from ``panel.pipeline_plan`` (K1 + K2 in one launch
+    where a panel has chunks, K1 alone where it has heads only, the lone
+    GEQRT on the serial loop), ``_build.STRIP`` from ``chain.strip_plan``
+    (the factor's narrow and rest updates, then Q's formation, panel k on
+    columns k onward; each sweep heads, then chunks, or K4 alone) and the
+    K4 launches ("k4")."""
+    assert n % nb == 0 and nb > ib
+    nt = n // nb
+    c = square._chunk_for(nt, chunk)
+    pipe = {"launches": 0, "overlapped_steps": 0}
+    exchange = {"launches": 0, "columns": 0}
+    strip = {}
+    k4 = 0
+
+    def sweep(k, width):
+        nonlocal k4
+        n_head, _, nc = square._segments(k, nt, c)
+        calls = [(cp, rows) for cp, rows in ((n_head, nb), (nc, c * nb)) if cp]
+        k4 += not calls
+        for couples, rows in calls:
+            p = chain.strip_plan(nb, width, rows, couples, sms, precision)
+            e = strip.setdefault((p.proj_tile, p.groups, p.sub_tile),
+                                 {"launches": 0, "couples": 0})
+            e["launches"] += 1
+            e["couples"] += couples
+
+    for k in range(nt):
+        n_head, _, nc = square._segments(k, nt, c)
+        steps = 1 + n_head + nc
+        rows = nb + c * nb if nc else (2 * nb if n_head else nb)
+        plan = panel.pipeline_plan(nb, ib, steps, rows)
+        pipe["launches"] += plan.stages > 1
+        pipe["overlapped_steps"] += (steps - 1) * (plan.stages > 1)
+        if plan.cluster.ctas > 1:
+            exchange["launches"] += 1
+            exchange["columns"] += steps * nb
+        left = nt - k - 1
+        if left:
+            sweep(k, nb if left >= 2 else left * nb)
+        if left >= 2:
+            sweep(k, (left - 1) * nb)
+    for k in range(nt - 1, -1, -1):
+        sweep(k, (nt - k) * nb)
+    split = max(0, nt - 2)
+    return {"lookahead": {"split": split, "beside": split if side else 0},
+            "pipeline": pipe, "exchange": exchange, "strip": strip, "k4": k4}

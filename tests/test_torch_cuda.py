@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import tileqr_torch
+from _hh_counts import planned_hh_counts
 from tileqr_torch.kernels import _build, chain, geqrt, modlu, panel, panel_apply, potrf
 from tileqr_torch.utils.verify import backward_error_f64, residuals_f64
 
@@ -295,6 +296,31 @@ def test_qr_pipelines_31_of_32_panels(cuda):
     assert _build.EXCHANGE == {"launches": 32, "columns": 192 * 256}
     r = tileqr_torch.qr(a)[1]
     assert backward_error_f64(a, tileqr_torch.apply_q(f, a, trans=True), r) <= 1e-6
+
+
+def test_qr_at_64_panels_counts_what_its_plans_give(cuda):
+    """hh qr (reduced) at 16384², 64 panels (the benchmark's
+    square-16384.qr): its lookahead, pipelined launches, exchanges and K3/K4
+    launches by plan are what ``planned_hh_counts`` derives from the
+    driver's segments and the plans at the card's SM count, and the
+    explicit-Q residual stays at the fp32 Householder level (cuSOLVER's
+    ``geqrf`` + ``orgqr`` reads 1.73e-6 at this size)."""
+    from tileqr_torch.core import trace
+
+    n = 16384
+    a = torch.randn((n, n), generator=torch.Generator(device="cuda").manual_seed(20),
+                    device=cuda)
+    _build.reset_counts()
+    q, r = tileqr_torch.qr(a)
+    torch.cuda.synchronize()
+    want = planned_hh_counts(n, 256, 128, 4, _build.sm_count(a))
+    assert trace.LOOKAHEAD == want["lookahead"]
+    assert _build.PIPELINE == want["pipeline"]
+    assert _build.EXCHANGE == want["exchange"]
+    assert _build.STRIP == want["strip"]
+    assert _build.LAUNCHES["larfb_strip"] == want["k4"]
+    assert _build.LAUNCHES["panel_factor"] == n // 256 and _build.LAUNCHES["panel_chain"] == 0
+    assert residuals_f64(a, q, r)["relerr"] <= 5e-6
 
 
 # K3's kernels (csrc/strip.cu, csrc/panel_apply.cu's phase 2) by name

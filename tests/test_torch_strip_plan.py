@@ -175,6 +175,24 @@ def test_plans_follow_the_sm_count():
     assert panel_apply.sub_plan(4096, 8192, 256, 4097, "b3").tile == (64, 64)
 
 
+def test_strip_counter_keys_by_plan_and_is_cleared_by_reset_counts():
+    """``_build.STRIP``: K3 launches by (stage-1 tile, G, stage-3 tile) with
+    the couples they swept."""
+    from tileqr_torch.kernels import _build
+
+    _build.reset_counts()
+    wide = chain.strip_plan(256, 7936, 1024, 7, H100_SMS, "highest")
+    narrow = chain.strip_plan(256, 256, 1024, 7, H100_SMS, "highest")
+    key = lambda p: (p.proj_tile, p.groups, p.sub_tile)  # noqa: E731
+    for plan, couples in ((wide, 7), (wide, 7), (narrow, 7), (narrow, 0)):
+        _build.count_strip(key(plan), couples)
+    assert key(wide) != key(narrow)
+    assert _build.STRIP == {key(wide): {"launches": 2, "couples": 14},
+                            key(narrow): {"launches": 2, "couples": 7}}
+    _build.reset_counts()
+    assert _build.STRIP == {}
+
+
 def test_group_rows_are_whole_stages():
     assert chain.group_rows(1024, 1) == 1024
     assert chain.group_rows(1024, 3) == 352  # ceil(1024 / 3) = 342 → 11 stages

@@ -77,6 +77,10 @@ PIPELINE = {"launches": 0, "overlapped_steps": 0}
 # CTAs (st.async into the peers' mbarriers), over all their clusters;
 # counted by the launchers from their plans (``count_exchange``)
 EXCHANGE = {"launches": 0, "columns": 0}
+# K3's launches by their plan (``chain.strip_plan``): {(stage 1's tile, G,
+# stage 3's tile): {"launches", "couples"}} with the couples they swept;
+# counted by K3's launcher (``count_strip``). K4's are LAUNCHES["larfb_strip"]
+STRIP: dict = {}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tileqr_torch"
@@ -159,6 +163,7 @@ def reset_counts() -> None:
         PIPELINE[k] = 0
     for k in EXCHANGE:
         EXCHANGE[k] = 0
+    STRIP.clear()
     for k in trace.LOOKAHEAD:
         trace.LOOKAHEAD[k] = 0
     trace.GUARD.clear()
@@ -171,6 +176,14 @@ def count_exchange(ctas: int, columns: int) -> None:
     if ctas > 1:
         EXCHANGE["launches"] += 1
         EXCHANGE["columns"] += columns
+
+
+def count_strip(key: tuple, couples: int) -> None:
+    """Count one K3 launch at the plan ``key`` (stage 1's tile, G, stage
+    3's tile) that swept ``couples`` couples in ``STRIP``."""
+    ent = STRIP.setdefault(key, {"launches": 0, "couples": 0})
+    ent["launches"] += 1
+    ent["couples"] += couples
 
 
 def _nvcc() -> str:

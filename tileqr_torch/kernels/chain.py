@@ -339,6 +339,7 @@ def _launch_strip(v_stack, t2_stack, c, strip, stack_base: int, base_block: int,
         plan.groups, *plan.sub_tile, _build.stream(),
     )
     _build.check(rc, "couple_strip")
+    _build.count_strip((plan.proj_tile, plan.groups, plan.sub_tile), n_chunks)
 
 
 def larfb_strip_plain(vkk, tg, strip, nb: int, trans: bool = True,

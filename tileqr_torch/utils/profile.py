@@ -34,8 +34,9 @@ the program's spans (``span_times``) and the host's, and how many of the
 profiled call's K1/K2 launches ran pipelined by ib block, with their couple
 steps that overlapped (``_build.PIPELINE``), the cluster routine's launches
 on clusters of more than one CTA with the columns whose partials they
-exchanged (``_build.EXCHANGE``), the hh driver's updates split
-for its lookahead and its panels launched beside a rest update
+exchanged (``_build.EXCHANGE``), K3's launches by plan with the couples
+they swept (``_build.STRIP``), the hh driver's updates split for its
+lookahead and its panels launched beside a rest update
 (``core/trace.py:LOOKAHEAD``), and the CholeskyQR guard's
 checks and trips by call site (``core/trace.py:GUARD``). With ``--health`` (hr
 only) it also prints each panel's round-1 orthogonality defect, whose max
@@ -298,6 +299,10 @@ def main(argv=None) -> int:
               f"couple steps overlapped: {_build.PIPELINE['overlapped_steps']}")
         print(f"cluster-routine launches exchanging partials by st.async: "
               f"{_build.EXCHANGE['launches']}, columns exchanged: {_build.EXCHANGE['columns']}")
+        print("K3 launches by plan (stage-1 tile, G, stage-3 tile): launches, couples: "
+              + ("; ".join(f"{p[0][0]}x{p[0][1]}, G={p[1]}, {p[2][0]}x{p[2][1]}: "
+                           f"{e['launches']}, {e['couples']}"
+                           for p, e in sorted(_build.STRIP.items())) or "none"))
         print(f"hh lookahead: updates split {trace.LOOKAHEAD['split']}, panel launches beside "
               f"a rest update {trace.LOOKAHEAD['beside']} of {_build.LAUNCHES['panel_factor']}")
         print(f"CholeskyQR guard checks and trips by site: {trace.GUARD or 'none'}")
