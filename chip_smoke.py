@@ -15,9 +15,12 @@ use (one nvcc per source, in parallel), then:
    cluster K1 and K2 run on (``cluster_plan``: CTAs, rows and shared bytes
    per CTA, whether the active block is resident) and the plans K3 and K4
    run on (``strip_plan``: stage 1's tile and row groups G, stage 3's
-   tile), and holds and times K3 at a late panel's width too (one couple
-   of 4·nb rows on 1024 columns, LARFB fused: the small tiles and G = 2,
-   against the plain version summed in the same groups, rerun bitwise);
+   tile, stage 2's row bands), and holds and times K3 at a late panel's
+   width too (one couple of 4·nb rows on 1024 columns, LARFB fused: the
+   small tiles and G = 2, against the plain version summed in the same
+   groups, rerun bitwise) and panel 0's sweep as the narrow update runs it
+   (heads with the LARFB, then chunks, on 256 columns: the chain on 4 row
+   bands a block);
 2. runs ``tileqr_torch.qr`` at 8192² with the default QRConfig (hh) and
    checks, in float64 on the card: the project's relerr ‖QᵀA−R‖F/‖A‖F (Qᵀ
    applied through the reflectors) ≤ 1e-6; the residual with the explicitly
@@ -610,6 +613,7 @@ def strip_kernels(a: torch.Tensor, rec: KernelRecord, card: str, fac, mode: str,
           f"{chain.strip_plan(NB, width, NB, n_head, sms, mode, fused=True)}")
     print(f"plan {k4} (width {width}): {chain.strip_plan(NB, width, 0, 0, sms, mode, fused=True)}")
     late_strip(a, rec, card, fac, mode)
+    narrow_sweep(a, rec, card, fac, mode)
 
     c = a.clone()
     strip = c[:NB, NB:]
@@ -677,6 +681,57 @@ def late_strip(a: torch.Tensor, rec: KernelRecord, card: str, fac, mode: str) ->
     rec.time(k3, lambda: chain.couple_strip(*args, c, c[:NB, NB:], 0, 1, 1, br, NB, 1, **geo),
              lambda: chain.couple_strip_plain(*args, c, c[:NB, NB:], 0, 1, 1, br, NB, 1, **geo),
              None, 20, 3, card, label=label, bound=bound)
+    del outs, c
+
+
+def narrow_sweep(a: torch.Tensor, rec: KernelRecord, card: str, fac, mode: str) -> None:
+    """Panel 0's whole K3 sweep (``strip_sweep``: the head couples with the
+    LARFB fused, then the chunks) on one column tile, as the hh driver's
+    narrow update runs it: its chain on 4 row bands a block
+    (``chain.chain_bands``), against the plain version of its mode summed
+    in the card's groups; bitwise rerun; timed beside the plain version."""
+    from tileqr_torch.kernels import chain
+
+    v_stack, tg, t2h, v_chunks, t2t = fac
+    mt = a.shape[0] // NB
+    n_head, br = CHUNK - 1, CHUNK * NB
+    n_chunks = (mt - 1 - n_head) // CHUNK
+    k3 = counter_key("couple_strip", mode)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = (chain.strip_plan(NB, NB, NB, n_head, sms, mode, fused=True),
+             chain.strip_plan(NB, NB, br, n_chunks, sms, mode))
+
+    def sweep(c, prec, plain=False):
+        strip = c[:NB, NB:]
+        calls = (((v_stack, t2h, c, strip, 1, 1, n_head, NB, NB, 1), plans[0], True),
+                 ((v_chunks, t2t, c, strip, 0, 1, n_chunks, br, NB, 1), plans[1], False))
+        for args, plan, fused in calls:
+            kw = dict(trans=True, vkk=v_stack[0] if fused else None, tg=tg if fused else None,
+                      precision=prec)
+            if plain:
+                chain.couple_strip_plain(*args, groups=plan.groups, **kw)
+            else:
+                chain.couple_strip(*args, **kw)
+
+    outs = []
+    for prec, plain in ((mode, False), (mode, False), (mode, True), ("highest", True)):
+        c = a[:, : 2 * NB].clone()
+        sweep(c, prec, plain)
+        outs.append(c)
+    require(torch.equal(outs[0], outs[1]), f"{k3} narrow sweep reruns differ")
+    label = (f"narrow update (panel 0's {n_head} heads + {n_chunks} chunks on {NB} columns, "
+             f"{plans[0].bands} bands)")
+    print(f"plan {k3} {label}: {plans}")
+    compare_mode(rec, "couple_strip", mode, label, outs[0], outs[2], outs[3])
+    p = passes_of(mode)
+    mm = (4.0 * (n_head * NB + n_chunks * br) * NB + (n_head + n_chunks + 3) * NB * NB) * NB
+    nbytes = 4 * (2 * NB * NB + 2 * (n_head * NB + n_chunks * br) * NB
+                  + (n_head * NB + n_chunks * br) * NB + (n_head + n_chunks + 1) * NB * NB)
+    bound = rec.bound_of(NB * NB * (n_head + n_chunks), nbytes, p * mm) if p else rec.bound_of(
+        mm + NB * NB * (n_head + n_chunks), nbytes)
+    c = outs[0]
+    rec.time(k3, lambda: sweep(c, mode), lambda: sweep(c, mode, True), None, 20, 3, card,
+             label=label, bound=bound)
     del outs, c
 
 

@@ -18,14 +18,16 @@ def planned_hh_counts(n: int, nb: int, ib: int, chunk: int, sms: int, side: bool
     where a panel has chunks, K1 alone where it has heads only, the lone
     GEQRT on the serial loop), ``_build.STRIP`` from ``chain.strip_plan``
     (the factor's narrow and rest updates, then Q's formation, panel k on
-    columns k onward; each sweep heads, then chunks, or K4 alone) and the
-    K4 launches ("k4")."""
+    columns k onward; each sweep heads, then chunks, or K4 alone),
+    ``_build.CHAIN`` from the same plans' row bands ("chain") and the K4
+    launches ("k4")."""
     assert n % nb == 0 and nb > ib
     nt = n // nb
     c = square._chunk_for(nt, chunk)
     pipe = {"launches": 0, "overlapped_steps": 0}
     exchange = {"launches": 0, "columns": 0}
     strip = {}
+    bands = {}
     k4 = 0
 
     def sweep(k, width):
@@ -37,6 +39,9 @@ def planned_hh_counts(n: int, nb: int, ib: int, chunk: int, sms: int, side: bool
             p = chain.strip_plan(nb, width, rows, couples, sms, precision)
             e = strip.setdefault((p.proj_tile, p.groups, p.sub_tile),
                                  {"launches": 0, "couples": 0})
+            e["launches"] += 1
+            e["couples"] += couples
+            e = bands.setdefault(p.bands, {"launches": 0, "couples": 0})
             e["launches"] += 1
             e["couples"] += couples
 
@@ -59,4 +64,5 @@ def planned_hh_counts(n: int, nb: int, ib: int, chunk: int, sms: int, side: bool
         sweep(k, (nt - k) * nb)
     split = max(0, nt - 2)
     return {"lookahead": {"split": split, "beside": split if side else 0},
-            "pipeline": pipe, "exchange": exchange, "strip": strip, "k4": k4}
+            "pipeline": pipe, "exchange": exchange, "strip": strip, "chain": bands,
+            "k4": k4}

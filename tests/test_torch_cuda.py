@@ -1876,3 +1876,178 @@ def test_every_host_sync_is_a_sync_span(cuda, case):
             "batched-hh": [], "batched-cholqr2": ["guard"]}[case]
     assert sorted(spans) == sorted(f"tileqr_torch.sync.{s}" for s in want)
     assert len(syncs) == len(spans), syncs
+
+
+# ---- K3's chain by row bands (chain.chain_bands: 1, 2 or 4 CTAs a block) ----
+
+BAND_WIDTHS = [64, 200, 256, 1024, 7936]
+# (trans, reverse, fused, couples): the factor's sweep, Q's, each without
+# the LARFB, a forward non-trans one, and K4 (the chain alone)
+BAND_VARIANTS = [(True, False, True, 2), (False, True, True, 2), (True, False, False, 2),
+                 (False, True, False, 2), (False, False, True, 2), (True, False, True, 0),
+                 (False, False, True, 0)]
+
+
+def strip_at_bands(cuda, width, trans, reverse, fused, couples, mode, bands_list, seed=5):
+    """K3 (K4 with no couples) on an nb = 256 strip of ``width`` columns
+    (couples of 512 rows) through ``_launch_strip`` at the card's plan with
+    each band count of ``bands_list`` in turn: the C of each, with the
+    inputs."""
+    nb, br = 256, 512
+    a, (_, v_stack, tg, _), (_, v_chunks, t2) = strip_case(cuda, nb, width + nb, br,
+                                                           max(couples, 1), seed)
+    card = chain.strip_plan(nb, width, br, couples, _build.sm_count(a), mode, fused=fused)
+    vkk, tgf = (v_stack[0], tg) if fused else (None, None)
+    outs = []
+    for bands in bands_list:
+        plan = card._replace(bands=bands)
+        c = a.clone()
+        chain._launch_strip(v_chunks, t2, c, c[:nb, nb:], 0, 1, couples, br, nb, 1, trans,
+                            reverse, vkk, tgf, mode, plan)
+        outs.append(c)
+    torch.cuda.synchronize()
+    return outs, (a, v_stack, tg, v_chunks, t2, card)
+
+
+@pytest.mark.parametrize("width", BAND_WIDTHS)
+@pytest.mark.parametrize("trans,reverse,fused,couples", BAND_VARIANTS,
+                         ids=["t-fwd-fused", "n-rev-fused", "t-fwd", "n-rev", "n-fwd-fused",
+                              "k4-t", "k4-n"])
+@pytest.mark.parametrize("mode", ALL_MODES)
+def test_chain_bands_keep_the_bits(cuda, width, trans, reverse, fused, couples, mode):
+    """K3 and K4 at 1, 2 and 4 row bands a block (the plan's own count
+    among them): bitwise the same C at every count, rerun bitwise, and
+    within the tolerance of the plain version of the mode (nearer it than
+    the "highest" one in the split modes)."""
+    outs, (a, v_stack, tg, v_chunks, t2, card) = strip_at_bands(
+        cuda, width, trans, reverse, fused, couples, mode, [1, 2, 4, 4])
+    assert card.bands == chain.chain_bands(256, width, _build.sm_count(a))
+    for i in (1, 2, 3):
+        assert torch.equal(outs[i], outs[0]), i
+    nb, br = 256, 512
+    want = []
+    for prec in (mode, "highest"):
+        c = a.clone()
+        chain.couple_strip_plain(v_chunks, t2, c, c[:nb, nb:], 0, 1, couples, br, nb, 1,
+                                 trans, reverse, v_stack[0] if fused else None,
+                                 tg if fused else None, prec, groups=card.groups)
+        want.append(c)
+    if mode == "highest":
+        assert rel(outs[0], want[0]) <= TOL
+    else:
+        assert nearer_own_mode(outs[0], want[0], want[1], mode)
+
+
+def test_chain_bands_are_what_the_wrappers_take(cuda):
+    """``couple_strip`` and ``larfb_strip`` launch at ``strip_plan``'s bands:
+    the same bits as ``_launch_strip`` at one band; ``CHAIN`` counts K3's."""
+    nb, width = 256, 256
+    outs, (a, v_stack, tg, v_chunks, t2, card) = strip_at_bands(
+        cuda, width, True, False, True, 2, "highest", [1])
+    assert card.bands == 4
+    _build.reset_counts()
+    c = a.clone()
+    chain.couple_strip(v_chunks, t2, c, c[:nb, nb:], 0, 1, 2, 512, nb, 1, vkk=v_stack[0], tg=tg)
+    s = a[:nb, nb:].clone()
+    chain.larfb_strip(v_stack[0], tg, s, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(c, outs[0])
+    assert _build.CHAIN == {4: {"launches": 1, "couples": 2}}
+    k4, _ = strip_at_bands(cuda, width, True, False, True, 0, "highest", [1])
+    assert torch.equal(s, k4[0][:nb, nb:])
+
+
+@pytest.mark.parametrize("bands", [1, 4])
+def test_chain_bands_under_graph_capture(cuda, bands):
+    """K3 at 1 and 4 bands captured in a CUDA graph and replayed: the eager
+    call's bits."""
+    nb, br, width = 256, 512, 256
+    eager, (a, v_stack, tg, v_chunks, t2, card) = strip_at_bands(
+        cuda, width, True, False, True, 2, "highest", [bands])
+    plan = card._replace(bands=bands)
+    c = a.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            chain._launch_strip(v_chunks, t2, c, c[:nb, nb:], 0, 1, 2, br, nb, 1, True, False,
+                                v_stack[0], tg, "highest", plan)
+    torch.cuda.current_stream().wait_stream(stream)
+    c.copy_(a)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(c, eager[0])
+
+
+def test_chain_bands_on_a_strip_of_no_16_byte_copies(cuda):
+    """An odd width (the 4-byte copies and scalar W sums) at 1, 2 and 4
+    bands: the same bits, and the plain version's values."""
+    outs, (a, v_stack, tg, v_chunks, t2, card) = strip_at_bands(
+        cuda, 157, False, True, True, 2, "highest", [1, 2, 4])
+    assert torch.equal(outs[1], outs[0]) and torch.equal(outs[2], outs[0])
+    c = a.clone()
+    chain.couple_strip_plain(v_chunks, t2, c, c[:256, 256:], 0, 1, 2, 512, 256, 1, False, True,
+                             v_stack[0], tg, groups=card.groups)
+    assert rel(outs[2], c) <= TOL
+
+
+def k3_panel0_digests() -> dict:
+    """sha256 prefixes of K3 at the hh path's panel 0 of 8192² (gaussian A
+    from default_rng(21); K1 with 3 head couples, K2 with 7 chunks of 1024
+    rows): the chunks on the 7936-column strip forward (the factor's
+    update) and in reverse with the LARFB fused (Q's order); and the
+    panel's whole sweep (``strip_sweep``) as the narrow update runs it on
+    256 columns and as Q's formation on 1024."""
+    import hashlib
+
+    def bits(t):
+        return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
+
+    n, nb = 8192, 256
+    a = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        (n, n), dtype=np.float32)).cuda()
+    r, v_stack, tg, t2h = panel.panel_factor(a, 0, nb, 128, 3)
+    _, v_chunks, t2 = chain.panel_chain(a, r, 0, nb, 1, 7, 4 * nb, 128)
+    got = {}
+    for name, kw in (("forward", {}), ("reverse fused", dict(trans=False, reverse=True,
+                                                             vkk=v_stack[0], tg=tg))):
+        c = a.clone()
+        chain.couple_strip(v_chunks, t2, c, c[:nb, nb:], 0, 1, 7, 4 * nb, nb, 1, **kw)
+        got[name] = bits(c)
+    for name, width, cs, trans in (("narrow update", nb, 1, True), ("Q sweep 1024", 4 * nb, 0,
+                                                                    False)):
+        c = a[:, : cs * nb + width].clone()
+        strip = c[:nb, cs * nb :]
+        chain.strip_sweep((v_stack, t2h, c, strip, 1, 1, 3, nb, nb, cs),
+                          (v_chunks, t2, c, strip, 0, 1, 7, 4 * nb, nb, cs), v_stack[0], tg,
+                          strip, nb, trans=trans)
+        got[name] = bits(c)
+    return got
+
+
+# k3_panel0_digests() from the build before the chain's row bands (one CTA a
+# block over all nb k) on the card
+K3_PARENT_BITS = {"forward": "ae1e8b2988c06867", "reverse fused": "49cbe2cb68619481",
+                  "narrow update": "abc419cec609aaf5", "Q sweep 1024": "842623bbd4bde1b7"}
+
+
+def test_k3_keeps_the_bits_of_one_cta_a_block(cuda):
+    assert k3_panel0_digests() == K3_PARENT_BITS
+
+
+@pytest.mark.parametrize("n", [8192, 16384])
+def test_qr_chain_bands_are_what_the_plans_give(cuda, n):
+    """hh qr (reduced) at the cells' sizes: K3's chain launches by row bands
+    (``_build.CHAIN``) are what ``planned_hh_counts`` derives: 4 bands on
+    every narrow update's calls, 1 on the wide rests; R's residual at the
+    fp32 Householder level."""
+    a = torch.randn((n, n), generator=torch.Generator(device="cuda").manual_seed(n),
+                    device=cuda)
+    _build.reset_counts()
+    q, r = tileqr_torch.qr(a)
+    torch.cuda.synchronize()
+    want = planned_hh_counts(n, 256, 128, 4, _build.sm_count(a))
+    assert _build.CHAIN == want["chain"] and _build.STRIP == want["strip"]
+    assert want["chain"][4]["launches"] >= n // 256 - 1 and 1 in want["chain"]
+    assert residuals_f64(a, q, r)["relerr"] <= 5e-6

@@ -77,7 +77,7 @@ def _strip(case):
     nb, width, rows, couples, prec, fused = case
     p = chain.strip_plan(nb, width, rows, couples, H100_SMS, prec, fused)
     return p, chain.strip_plan_at(nb, width, rows, couples, p.proj_tile, p.groups, p.sub_tile,
-                                  fused)
+                                  fused, p.bands)
 
 
 def _project(case):

@@ -329,3 +329,159 @@ def test_one_group_is_the_single_chain_bitwise(cases, trans, reverse, mode):
 def test_grouped_plain_k3_raises_on_no_groups(cases):
     with pytest.raises(ValueError, match="groups"):
         cases[np.float64].port(True, False, "highest", 0)
+
+
+# ---- stage 2's row bands (``chain.chain_bands``, ``_build.CHAIN``) ----
+
+# strip widths at nb = 256 → the chain's row bands a 64-column block on the
+# H100: 4 while 4 CTAs a block fit the 132 SMs (33 blocks, 2112 columns),
+# then 2 (66 blocks, 4224 columns), then 1
+BAND_CASES = {
+    "narrow-update": (256, 4),   # every narrow update, Q's last sweeps
+    "q-sweep-1024": (1024, 4),
+    "rest-2112": (2112, 4),      # 33 blocks: 132 CTAs
+    "rest-2176": (2176, 2),      # 34 blocks
+    "rest-4224": (4224, 2),      # 66 blocks: 132 CTAs
+    "rest-4352": (4352, 1),
+    "rest-7680": (7680, 1),      # the first 8192² rest
+    "panel0-7936": (7936, 1),
+    "q-sweep-8192": (8192, 1),
+    "rest-15872": (15872, 1),    # the first 16384² update
+}
+
+
+@pytest.mark.parametrize("case", list(BAND_CASES), ids=str)
+def test_chain_bands_at_the_cells_widths(case):
+    width, bands = BAND_CASES[case]
+    assert chain.chain_bands(256, width, H100_SMS) == bands
+    for couples, rows, fused in ((0, 0, True), (3, 256, True), (7, 1024, False)):
+        for prec in ("highest", "b3"):
+            plan = chain.strip_plan(256, width, rows, couples, H100_SMS, prec, fused=fused)
+            assert plan.bands == bands
+
+
+@pytest.mark.parametrize("n", [8192, 16384])
+def test_chain_bands_on_every_k3_call_of_the_cells(n):
+    """Every K3 call of an n² ``qr`` (the factor's narrow and rest updates,
+    Q's sweeps): the most of 4, 2, 1 whose CTAs fit the card; so 4 on every
+    narrow update and 1 on every strip of more than 66 blocks."""
+    nb, mt = 256, n // 256
+    c = _chunk_for(mt, 4)
+    widths = []
+    for k in range(mt - 1):
+        left = mt - k - 1
+        widths.append((nb if left >= 2 else left * nb, "narrow"))
+        if left >= 2:
+            widths.append(((left - 1) * nb, "rest"))
+    widths += [((mt - k) * nb, "q") for k in range(mt)]
+    for width, kind in widths:
+        blocks = -(-width // 64)
+        bands = chain.chain_bands(nb, width, H100_SMS)
+        assert bands == max(b for b in (1, 2, 4) if b == 1 or blocks * b <= H100_SMS)
+        if kind == "narrow":
+            assert bands == 4
+        if blocks > 66:
+            assert bands == 1
+    assert {k for _, k in widths} == {"narrow", "rest", "q"} and c == 4
+
+
+@pytest.mark.parametrize("nb,want", [(8, 1), (64, 1), (96, 1), (128, 2), (192, 2), (256, 4),
+                                     (320, 4), (512, 4)], ids=str)
+def test_chain_bands_need_whole_64_row_tiles(nb, want):
+    """More than one band only where nb is whole 64-row tiles and each CTA
+    gets one at least: the most that fits at any SM count."""
+    assert chain.chain_bands(nb, 256, H100_SMS) == want
+    assert chain.chain_bands(nb, 256, 4) == 1  # 4 blocks take the card
+    assert chain.band_rows(nb, want) == (128 if nb >= 128 * want else 64)
+
+
+def test_chain_bands_follow_the_sm_count():
+    assert chain.chain_bands(256, 256, 16) == 4
+    assert chain.chain_bands(256, 512, 16) == 2
+    assert chain.chain_bands(256, 768, 16) == 1
+    assert chain.chain_bands(256, 7936, 10000) == 4
+
+
+@pytest.mark.parametrize("bands", [1, 2, 4])
+@pytest.mark.parametrize("couples,rows,fused", [(0, 0, True), (2, 256, True), (7, 1024, False)])
+def test_strip_workspace_is_the_same_at_every_band_count(bands, couples, rows, fused):
+    plan = chain.strip_plan_at(256, 256, rows, couples, (64, 64), 2, (64, 64), fused, bands)
+    one = chain.strip_plan_at(256, 256, rows, couples, (64, 64), 2, (64, 64), fused)
+    assert plan.bands == bands and one.bands == 1
+    assert plan.workspace == one.workspace == chain.strip_workspace(256, 256, couples,
+                                                                    plan.groups, fused)
+    assert plan._replace(bands=1) == one
+
+
+@pytest.mark.parametrize("nb,bands", [(256, 3), (256, 8), (128, 4), (64, 2), (200, 2)],
+                         ids=str)
+def test_strip_plan_at_refuses_bands_the_kernel_lacks(nb, bands):
+    with pytest.raises(ValueError, match="bands"):
+        chain.strip_plan_at(nb, 256, 256, 1, (64, 64), 1, (64, 64), False, bands)
+
+
+def test_chain_counter_keys_by_bands_and_is_cleared_by_reset_counts():
+    """``_build.CHAIN``: K3's chain launches by row bands with the couples
+    they swept; ``STRIP``'s keys stay the plan's tiles and G."""
+    from tileqr_torch.kernels import _build
+
+    _build.reset_counts()
+    for bands, couples in ((4, 3), (4, 7), (1, 7), (2, 1)):
+        _build.count_chain(bands, couples)
+    assert _build.CHAIN == {4: {"launches": 2, "couples": 10}, 1: {"launches": 1, "couples": 7},
+                            2: {"launches": 1, "couples": 1}}
+    _build.reset_counts()
+    assert _build.CHAIN == {} and _build.STRIP == {}
+
+
+# ``planned_hh_counts``' CHAIN of the cells' ``qr`` at 132 SMs: bands 4 on
+# the 31 (63) narrow updates' K3 calls, Q's late sweeps and the rests of
+# 2112 columns or fewer, 2 on the rests and sweeps of 2176-4224 columns, 1
+# on the wider ones; the same calls as STRIP's 155 (323)
+CELL_CHAIN = {
+    8192: {4: {"launches": 74, "couples": 196}, 2: {"launches": 28, "couples": 68},
+           1: {"launches": 53, "couples": 215}},
+    16384: {4: {"launches": 130, "couples": 612}, 2: {"launches": 28, "couples": 68},
+            1: {"launches": 165, "couples": 1047}},
+}
+
+
+@pytest.mark.parametrize("n", list(CELL_CHAIN))
+def test_chain_counts_derived_at_the_cells(n):
+    import _hh_counts
+
+    want = _hh_counts.planned_hh_counts(n, 256, 128, 4, H100_SMS)
+    assert want["chain"] == CELL_CHAIN[n]
+    for key in ("launches", "couples"):
+        assert (sum(e[key] for e in want["chain"].values())
+                == sum(e[key] for e in want["strip"].values()))
+
+
+@pytest.fixture
+def stub_card_16(monkeypatch):
+    """The wrappers' card side on CPU tensors (a stubbed kernel library) at
+    16 SMs, where a 2048² ``qr`` at nb = 256 takes every band count."""
+    from tests.test_torch_cluster_plan import StubLib
+    from tileqr_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "is_cuda", lambda *t: True)
+    monkeypatch.setattr(_build, "lib", StubLib)
+    monkeypatch.setattr(_build, "stream", lambda: 0)
+    monkeypatch.setattr(_build, "sm_count", lambda t: 16)
+    _build.reset_counts()
+    yield _build
+    _build.reset_counts()
+
+
+def test_chain_counter_is_what_the_plans_give(stub_card_16):
+    import _hh_counts
+    import tileqr_torch
+
+    _build = stub_card_16
+    tileqr_torch.qr(torch.zeros((2048, 2048)), config=tileqr_torch.QRConfig(nb=256, ib=128,
+                                                                            chunk=4))
+    want = _hh_counts.planned_hh_counts(2048, 256, 128, 4, 16)
+    assert _build.CHAIN == want["chain"] and _build.STRIP == want["strip"]
+    assert set(_build.CHAIN) == {1, 2, 4}
+    _build.reset_counts()
+    assert _build.CHAIN == {}

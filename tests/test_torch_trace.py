@@ -252,3 +252,40 @@ def test_span_times_read_the_host_of_a_cpu_trace(call, syncs):
     assert got["calls"] == 2 and got["syncs"] == 2 * syncs
     assert got["host_s"] > got["sync_s"] >= 0
     assert got["device"] == 0 and got["inclusive"] == {}  # no device on the CPU
+
+
+def _lookahead_events():
+    """One qr_factor of three panels as the hh driver runs it (µs): panel
+    0, narrow 0, panel 1, rest 0, narrow 1 (the last update, one tile),
+    panel 2; each update launches one chain kernel (ids 1-3, 10 µs, 20 µs,
+    40 µs) and one stage-3 kernel (ids 4-6, 1 µs each)."""
+    ev = [_ev(P + "qr_factor", 0, 200), _ev(P + "hh.panel", 0, 10), _ev(P + "hh.update", 10, 20),
+          _ev(P + "hh.panel", 20, 30), _ev(P + "hh.update", 30, 40),
+          _ev(P + "hh.update", 40, 50), _ev(P + "hh.panel", 50, 60)]
+    for cid, (t, ms) in enumerate(((12, 10), (32, 20), (42, 40)), 1):
+        ev += [_ev("cudaLaunchKernel", t, t + 1, cid=cid),
+               _ev("chain_kernel<0, 64>", 100, 100 + ms, CUDA, cid),
+               _ev("cudaLaunchKernel", t + 2, t + 3, cid=cid + 3),
+               _ev("sub_f32_kernel", 200, 201, CUDA, cid + 3)]
+    return ev
+
+
+def test_span_times_of_one_group_and_of_the_narrow_updates():
+    """``group`` counts one kernel group's operations alone;
+    ``narrow_updates`` drops the rest updates' spans (an update followed by
+    another update), so the narrow ones' time is what is left under
+    hh.update, the rest's going to the span around it."""
+    from tileqr_torch.utils.profile import group_of, narrow_updates
+
+    us, ev = 1e-6, _lookahead_events()
+    chain = group_of("chain_kernel<0, 64>")
+    assert span_times(ev)["inclusive"][P + "hh.update"] == pytest.approx(73 * us)
+    got = span_times(ev, chain)
+    assert got["inclusive"] == pytest.approx({P + "qr_factor": 70 * us, P + "hh.update": 70 * us})
+    assert got["device"] == pytest.approx(70 * us)
+    kept = narrow_updates(ev)
+    assert len(kept) == len(ev) - 1 and ev[4] not in kept
+    narrow = span_times(kept, chain)
+    assert narrow["inclusive"] == pytest.approx({P + "qr_factor": 70 * us,
+                                                 P + "hh.update": 50 * us})
+    assert narrow["exclusive"][P + "qr_factor"] == pytest.approx(20 * us)

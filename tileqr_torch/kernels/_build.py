@@ -81,6 +81,10 @@ EXCHANGE = {"launches": 0, "columns": 0}
 # stage 3's tile): {"launches", "couples"}} with the couples they swept;
 # counted by K3's launcher (``count_strip``). K4's are LAUNCHES["larfb_strip"]
 STRIP: dict = {}
+# K3's chain launches by their row bands a 64-column block
+# (``chain.chain_bands``): {bands: {"launches", "couples"}} with the couples
+# they swept; counted by K3's launcher (``count_chain``), K4's not
+CHAIN: dict = {}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tileqr_torch"
@@ -109,13 +113,13 @@ SIGNATURES = {
     # v_stack, t2_stack, c, ldc, strip, lds, width, stack_base, base_block,
     # n_chunks, block_rows, nb, col_start, trans, reverse, vkk, tg, passes,
     # work, the plan (proj tile rows, columns, groups, sub tile rows,
-    # columns: kernels/chain.py:strip_plan), stream
+    # columns, bands: kernels/chain.py:strip_plan), stream
     "tq_couple_strip": (
         _P, _P, _P, _L, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
-        _P, _I, _I, _I, _I, _I, _P,
+        _P, _I, _I, _I, _I, _I, _I, _P,
     ),
-    # vkk, tg, strip, lds, width, nb, trans, passes, work, stream
-    "tq_larfb_strip": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _P),
+    # vkk, tg, strip, lds, width, nb, trans, passes, work, bands, stream
+    "tq_larfb_strip": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _I, _P),
     # q, lu, n, d, ctas, smem, resident, stream
     "tq_modified_lu": (_P, _P, _I, _P, _I, _L, _I, _P),
     # g, r, batch, n, bp, ctas, threads, smem, resident (kernels/potrf.py:potrf_plan),
@@ -164,6 +168,7 @@ def reset_counts() -> None:
     for k in EXCHANGE:
         EXCHANGE[k] = 0
     STRIP.clear()
+    CHAIN.clear()
     for k in trace.LOOKAHEAD:
         trace.LOOKAHEAD[k] = 0
     trace.GUARD.clear()
@@ -182,6 +187,14 @@ def count_strip(key: tuple, couples: int) -> None:
     """Count one K3 launch at the plan ``key`` (stage 1's tile, G, stage
     3's tile) that swept ``couples`` couples in ``STRIP``."""
     ent = STRIP.setdefault(key, {"launches": 0, "couples": 0})
+    ent["launches"] += 1
+    ent["couples"] += couples
+
+
+def count_chain(bands: int, couples: int) -> None:
+    """Count one K3 chain launch on ``bands`` row bands a block that swept
+    ``couples`` couples in ``CHAIN``."""
+    ent = CHAIN.setdefault(bands, {"launches": 0, "couples": 0})
     ent["launches"] += 1
     ent["couples"] += couples
 

@@ -27,8 +27,10 @@ as in ``tileqr``.
 On the card a K3 call is three launches (one count): every couple's
 projection V2ᵀ·C_bot at once, its rows cut into G groups where the strip
 is narrow (``strip_plan``); the chain through the strip, which also runs
-the fused LARFB; every couple's C_bot −= V2·W2 at once (the whole-panel
-apply's phase 2). K4 is the second launch alone. The plain K3 takes
+the fused LARFB, on clusters of 1, 2 or 4 CTAs a 64-column block, each on
+a row band of the triangular factors' nonzero part (``chain_bands``);
+every couple's C_bot −= V2·W2 at once (the whole-panel apply's phase 2).
+K4 is the second launch alone. The plain K3 takes
 ``groups=G`` (``strip_plan(...).groups`` at the card's SM count) to sum
 the projections in the kernel's order; the CPU path runs G = 1, tileqr's
 order.
@@ -172,10 +174,11 @@ def _check_strip(v_stack, t2_stack, c, strip, stack_base, base_block, n_chunks,
 
 # stage 2's strip columns a block (csrc/strip.cu: SC); stage 1's row groups
 # are whole stages of GROUP_ALIGN rows and, where G > 1, at least
-# GROUP_MIN_ROWS rows each
+# GROUP_MIN_ROWS rows each; stage 2's row bands a block, largest first
 SLAB_COLS = 64
 GROUP_ALIGN = 32
 GROUP_MIN_ROWS = 128
+CHAIN_BANDS = (4, 2, 1)
 
 
 class StripPlan(NamedTuple):
@@ -185,6 +188,7 @@ class StripPlan(NamedTuple):
     sub_tile: Tuple[int, int]   # stage 3: (C rows, C columns) a block
     slab_cols: int              # stage 2: strip columns a block
     workspace: int              # floats: partials, W2, the fused LARFB's W and W2
+    bands: int = 1              # stage 2: row bands (a cluster's CTAs) a block
 
 
 def group_rows(rows: int, groups: int) -> int:
@@ -200,20 +204,48 @@ def strip_workspace(nb: int, width: int, couples: int, groups: int, fused: bool)
     return (couples * (groups + 1) + (2 if fused else 0)) * nb * width
 
 
+def band_rows(nb: int, bands: int) -> int:
+    """Rows of each of stage 2's band tiles (csrc/strip.cu): 128 where
+    ``bands`` CTAs each get a whole 128-row tile of nb, else 64."""
+    return 128 if nb >= 128 * bands else 64
+
+
+def bands_fit(nb: int, bands: int) -> bool:
+    """Whether stage 2 takes ``bands`` row bands at nb: one always; 2 or 4
+    on whole 64-row tiles, one tile a CTA at least."""
+    return bands == 1 or (bands in CHAIN_BANDS and nb % 64 == 0
+                          and nb // band_rows(nb, bands) >= bands)
+
+
+def chain_bands(nb: int, width: int, sms: int) -> int:
+    """Stage 2's row bands a 64-column block: the most of ``CHAIN_BANDS``
+    whose CTAs over the strip's blocks fit the card's ``sms`` SMs (and
+    ``bands_fit`` nb). Each band multiplies only its rows' nonzero part of
+    the triangular factors, so a narrow strip's chain runs on up to 4x the
+    SMs with a critical path of a quarter of the products; a wide one keeps
+    one CTA a block."""
+    blocks = -(-width // SLAB_COLS)
+    return next(b for b in CHAIN_BANDS if b == 1 or (blocks * b <= sms and bands_fit(nb, b)))
+
+
 def strip_plan_at(nb: int, width: int, rows: int, couples: int, proj_tile: Tuple[int, int],
-                  groups: int, sub_tile: Tuple[int, int], fused: bool = False) -> StripPlan:
+                  groups: int, sub_tile: Tuple[int, int], fused: bool = False,
+                  bands: int = 1) -> StripPlan:
     """K3's launches for ``couples`` couples of ``rows`` rows on an (nb,
-    width) strip at the given stage-1 tile and G, and stage-3 tile: G cut
-    to the non-empty groups of ``group_rows`` rows (1 with no couples, K4).
-    The workspace: couples·G partials and couples W2 of (nb, width) floats,
-    and two more for the fused LARFB."""
+    width) strip at the given stage-1 tile and G, stage-3 tile and stage-2
+    row bands: G cut to the non-empty groups of ``group_rows`` rows (1 with
+    no couples, K4). The workspace: couples·G partials and couples W2 of
+    (nb, width) floats, and two more for the fused LARFB, whatever the
+    bands."""
     if min(nb, width, groups) < 1 or couples < 0 or (couples and rows < 1):
         raise ValueError(f"strip_plan_at: nb={nb}, width={width}, rows={rows}, "
                          f"couples={couples}, groups={groups}")
+    if not bands_fit(nb, bands):
+        raise ValueError(f"strip_plan_at: bands={bands} at nb={nb}")
     gr = group_rows(rows, groups) if couples else rows
     groups = -(-rows // gr) if couples else 1
     return StripPlan(proj_tile, groups, gr, sub_tile, SLAB_COLS,
-                     strip_workspace(nb, width, couples, groups, fused))
+                     strip_workspace(nb, width, couples, groups, fused), bands)
 
 
 def strip_plan(nb: int, width: int, rows: int, couples: int, sms: int,
@@ -226,17 +258,18 @@ def strip_plan(nb: int, width: int, rows: int, couples: int, sms: int,
     small one; its G = the SMs those tiles leave (sms // tiles), at most
     rows // GROUP_MIN_ROWS and at least 1 (so G = 1 when the tiles take
     more than half the card). Stage 3 takes ``sub_plan``'s tile for the
-    stacked couples."""
+    stacked couples; stage 2 ``chain_bands``' row bands."""
     if min(nb, width, sms) < 1 or couples < 0 or (couples and rows < 1):
         raise ValueError(f"strip_plan: nb={nb}, width={width}, rows={rows}, "
                          f"couples={couples}, sms={sms}")
     large, small = tiles_for(precision)
+    bands = chain_bands(nb, width, sms)
     if couples == 0:
-        return strip_plan_at(nb, width, rows, 0, large, 1, large, fused)
+        return strip_plan_at(nb, width, rows, 0, large, 1, large, fused, bands)
     tile = large if tile_count(nb, width, large, couples) >= sms else small
     groups = max(1, min(rows // GROUP_MIN_ROWS, sms // tile_count(nb, width, tile, couples)))
     return strip_plan_at(nb, width, rows, couples, tile, groups,
-                         sub_plan(rows, width, nb, sms, precision, couples).tile, fused)
+                         sub_plan(rows, width, nb, sms, precision, couples).tile, fused, bands)
 
 
 def _ssrfb_grouped(v2, t2, c_top, c_bot, trans: bool, precision: str, groups: int):
@@ -336,10 +369,11 @@ def _launch_strip(v_stack, t2_stack, c, strip, stack_base: int, base_block: int,
         strip.data_ptr(), strip.stride(0), strip.shape[1], stack_base, base_block,
         n_chunks, block_rows, nb, col_start, int(trans), int(reverse),
         _build.ptr(vkk), _build.ptr(tg), passes_of(precision), work.data_ptr(), *plan.proj_tile,
-        plan.groups, *plan.sub_tile, _build.stream(),
+        plan.groups, *plan.sub_tile, plan.bands, _build.stream(),
     )
     _build.check(rc, "couple_strip")
     _build.count_strip((plan.proj_tile, plan.groups, plan.sub_tile), n_chunks)
+    _build.count_chain(plan.bands, n_chunks)
 
 
 def larfb_strip_plain(vkk, tg, strip, nb: int, trans: bool = True,
@@ -368,7 +402,7 @@ def larfb_strip(vkk, tg, strip, nb: int, trans: bool = True,
     work = torch.empty(plan.workspace, dtype=strip.dtype, device=strip.device)
     rc = _build.lib().tq_larfb_strip(
         vkk.data_ptr(), tg.data_ptr(), strip.data_ptr(), strip.stride(0),
-        strip.shape[1], nb, int(trans), passes, work.data_ptr(), _build.stream(),
+        strip.shape[1], nb, int(trans), passes, work.data_ptr(), plan.bands, _build.stream(),
     )
     _build.check(rc, "larfb_strip")
     _build.LAUNCHES[counter_key("larfb_strip", precision)] += 1

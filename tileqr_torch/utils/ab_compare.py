@@ -14,7 +14,10 @@ default): "apply", B7a (``panel_project``) and B7b (``panel_sub``) in
 every mode on Y 4096×256, C 4096×8192 (the sharded hr path's slice);
 "strip", K3 (``couple_strip``) at the hh path's panel 0 of 8192² (7
 couples of 1024 rows, 7936 columns) in every mode, and with the LARFB
-fused in the Q-apply order in "highest", K4 (``larfb_strip``) on that
+fused in the Q-apply order in "highest", panel 0's whole sweep
+(``strip_sweep``: 3 head couples, 7 chunks) as the narrow update runs it
+on 256 columns and as Q's formation runs it in reverse on 256 and 1024
+columns, K4 (``larfb_strip``) on that
 strip in every mode, and hh ``qr_factor`` 8192² "highest" (a hash of its
 factors); "hr", B6 (``panel_apply_carry``) on panel 0 of a gaussian 16384²
 A in "highest" and "b3" with the hr panel's Y, T, B9 (``potrf_batched``)
@@ -134,7 +137,7 @@ def turn(tag: str, only) -> None:
         rng = stream("strip")
         n, nb = 8192, 256
         a = torch.from_numpy(rng.standard_normal((n, n), dtype=np.float32)).cuda()
-        r, v_stack, tg, _ = panel.panel_factor(a, 0, nb, 128, 3)
+        r, v_stack, tg, t2h = panel.panel_factor(a, 0, nb, 128, 3)
         _, v_chunks, t2 = chain.panel_chain(a, r, 0, nb, 1, 7, 4 * nb, 128)
         for mode, rev in (("highest", False), ("highest", True), ("b3", False), ("b4", False),
                           ("default", False)):
@@ -150,6 +153,28 @@ def turn(tag: str, only) -> None:
             print(f"{tag} K3 panel 0 {mode}{' reverse fused' if rev else ''}: {ms}, hash {h}",
                   flush=True)
             del out, cw
+        # panel 0's sweep as the driver runs it on narrow strips: the narrow
+        # update (column tile 1: heads with the LARFB, then chunks), and
+        # Q's reverse sweep (chunks, then heads with the LARFB) on 256 and
+        # 1024 columns
+        for label, width, trans in (("narrow update", nb, True), ("Q sweep", nb, False),
+                                    ("Q sweep", 4 * nb, False)):
+            cs = 1 if trans else 0
+
+            def sweep(m, cs=cs, width=width, trans=trans):
+                c = m[:, : cs * nb + width]
+                strip = c[:nb, cs * nb :]
+                chain.strip_sweep((v_stack, t2h, c, strip, 1, 1, 3, nb, nb, cs),
+                                  (v_chunks, t2, c, strip, 0, 1, 7, 4 * nb, nb, cs),
+                                  v_stack[0], tg, strip, nb, trans=trans)
+
+            out = a[:, : cs * nb + width].clone()
+            sweep(out)
+            h = digest(out)
+            cw = out.clone()
+            print(f"{tag} K3 panel 0 {label} on {width} columns: "
+                  f"{readings(lambda: sweep(cw), 20, 3)}, hash {h}", flush=True)
+            del out, cw
         for mode in ("highest", "b3", "b4", "default"):
             s = a[:nb, nb:].clone()
             chain.larfb_strip(v_stack[0], tg, s, nb, precision=mode)
@@ -161,7 +186,7 @@ def turn(tag: str, only) -> None:
         del f
         print(f"{tag} hh qr_factor {n}² highest: "
               f"{readings(lambda: tileqr_torch.qr_factor(a), 2, 3)}, hash {h}", flush=True)
-        del a, r, v_stack, tg, v_chunks, t2, s
+        del a, r, v_stack, tg, t2h, v_chunks, t2, s
         torch.cuda.empty_cache()
 
     if "hr" in only:

@@ -35,10 +35,13 @@ profiled call's K1/K2 launches ran pipelined by ib block, with their couple
 steps that overlapped (``_build.PIPELINE``), the cluster routine's launches
 on clusters of more than one CTA with the columns whose partials they
 exchanged (``_build.EXCHANGE``), K3's launches by plan with the couples
-they swept (``_build.STRIP``), the hh driver's updates split for its
+they swept (``_build.STRIP``) and by the chain's row bands
+(``_build.CHAIN``), the hh driver's updates split for its
 lookahead and its panels launched beside a rest update
 (``core/trace.py:LOOKAHEAD``), and the CholeskyQR guard's
-checks and trips by call site (``core/trace.py:GUARD``). With ``--health`` (hr
+checks and trips by call site (``core/trace.py:GUARD``). ``--group G``
+prints the device ms of G's kernels alone inside each span, and inside the
+narrow hh updates (``narrow_updates``). With ``--health`` (hr
 only) it also prints each panel's round-1 orthogonality defect, whose max
 is the hr health.
 The card's name and power limit from nvidia-smi head the output. Needs a
@@ -52,6 +55,7 @@ import bisect
 import subprocess
 import time
 from collections import defaultdict
+from typing import Optional
 
 import numpy as np
 import torch
@@ -118,7 +122,7 @@ def _nest(spans: list) -> list:
     return parent
 
 
-def span_times(events) -> dict:
+def span_times(events, group: Optional[str] = None) -> dict:
     """Device and host time of the program's spans (``core/trace.py``) in a
     torch.profiler trace of whole calls made on one host thread, in
     seconds. Each device operation is charged to the spans that were open
@@ -130,7 +134,8 @@ def span_times(events) -> dict:
     innermost alone, "unattributed" the operations launched outside every
     span (or whose launch the trace lacks); "device" is all of them. On
     the host: "calls", the outermost spans; "host_s", their time; "syncs"
-    and "sync_s", the ``sync.*`` spans."""
+    and "sync_s", the ``sync.*`` spans. ``group``: count only the device
+    operations that ``group_of`` files under it (e.g. K3's chain)."""
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     spans, launch, ops = [], {}, []
     for e in events:
@@ -139,7 +144,8 @@ def span_times(events) -> dict:
         elif e.device_type == cpu and e.name.startswith("cu"):  # the runtime's calls
             launch[e.id] = e.time_range.start
         elif (e.device_type == cuda and not getattr(e, "is_user_annotation", False)
-              and not e.name.startswith((SPAN_PREFIX, "qrbench."))):
+              and not e.name.startswith((SPAN_PREFIX, "qrbench."))
+              and (group is None or group_of(e.name) == group)):
             ops.append((e.id, (e.time_range.end - e.time_range.start) / 1e6))
     spans.sort(key=lambda sp: (sp[0], -sp[1]))
     parent = _nest(spans)
@@ -169,6 +175,23 @@ def span_times(events) -> dict:
             "syncs": len(syncs), "sync_s": sum(e - s for s, e, _ in syncs) / 1e6}
 
 
+def narrow_updates(events) -> list:
+    """The events without the hh driver's rest updates: an
+    ``hh.update`` span is a narrow update (column tile k+1, or the last
+    update, which is one tile) where the next ``hh.panel`` or ``hh.update``
+    span to start is a panel's (``drivers/square.py:qr_tiled`` runs narrow
+    k, panel k+1, rest k). ``span_times`` of what is left charges the rest
+    updates' operations to the spans around them, so its ``hh.update`` is
+    the narrow updates'."""
+    cpu = torch.autograd.DeviceType.CPU
+    hh = (SPAN_PREFIX + "hh.panel", SPAN_PREFIX + "hh.update")
+    marks = sorted((e.time_range.start, i) for i, e in enumerate(events)
+                   if e.device_type == cpu and e.name in hh)
+    rest = {i for (_, i), nxt in zip(marks, marks[1:] + [None])
+            if events[i].name == hh[1] and (nxt is None or events[nxt[1]].name != hh[0])}
+    return [e for i, e in enumerate(events) if i not in rest]
+
+
 def panel_health(a: torch.Tensor, cfg) -> list:
     """Each panel's round-1 defect over the hr driver's panel loop on A
     (``square_hr.hr_steps``), unscaled: prescaling by a power of two
@@ -181,7 +204,7 @@ def panel_health(a: torch.Tensor, cfg) -> list:
 
 def profile_call(args, shape, n: int, tileqr_torch):
     """One warm call of the method on a gaussian A, then one under
-    torch.profiler: (kernel times, wall ms, ``span_times``)."""
+    torch.profiler: (kernel times, wall ms, the profiler's events)."""
     rng = np.random.default_rng(args.seed)
     a = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
     if args.method == "tsqr":
@@ -214,7 +237,7 @@ def profile_call(args, shape, n: int, tileqr_torch):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     del out
-    return kernel_times(prof), wall_ms, span_times(prof.events())
+    return kernel_times(prof), wall_ms, prof.events()
 
 
 def sharded_rank(mesh, n: int, seed: int, precision: str, method: str = "hh"):
@@ -257,6 +280,8 @@ def main(argv=None) -> int:
     ap.add_argument("--precision", default="highest",
                     choices=("highest", "b3", "b4", "high", "default"))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--group", nargs="*", default=[],
+                    help="kernel groups (group_of) whose device ms inside each span to print")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile needs a CUDA device")
@@ -289,9 +314,10 @@ def main(argv=None) -> int:
             n=n, seed=args.seed, precision=args.precision,
             method="hr" if args.method == "sharded_hr" else "hh"))
         kt = {k: tuple(v) for k, v in kt.items()}
-        spans = None
+        spans = events = None
     else:
-        kt, wall_ms, spans = profile_call(args, shape, n, tileqr_torch)
+        kt, wall_ms, events = profile_call(args, shape, n, tileqr_torch)
+        spans = span_times(events)
     total = sum(ms for _, ms in kt.values())
     if not sharded:
         k1 = _build.LAUNCHES["panel_factor"] + _build.LAUNCHES["panel_chain"]
@@ -303,6 +329,10 @@ def main(argv=None) -> int:
               + ("; ".join(f"{p[0][0]}x{p[0][1]}, G={p[1]}, {p[2][0]}x{p[2][1]}: "
                            f"{e['launches']}, {e['couples']}"
                            for p, e in sorted(_build.STRIP.items())) or "none"))
+        # (a checkout from before the counter has none)
+        print("K3 chain launches by row bands a block: launches, couples: "
+              + ("; ".join(f"{b}: {e['launches']}, {e['couples']}"
+                           for b, e in sorted(getattr(_build, "CHAIN", {}).items())) or "none"))
         print(f"hh lookahead: updates split {trace.LOOKAHEAD['split']}, panel launches beside "
               f"a rest update {trace.LOOKAHEAD['beside']} of {_build.LAUNCHES['panel_factor']}")
         print(f"CholeskyQR guard checks and trips by site: {trace.GUARD or 'none'}")
@@ -336,6 +366,12 @@ def main(argv=None) -> int:
               f"{spans['sync_s'] * 1e3:.3f} ms")
         for name, sec in sorted(spans["inclusive"].items(), key=lambda kv: -kv[1]):
             print(f"{name} | {sec * 1e3:.3f} | {spans['exclusive'].get(name, 0.0) * 1e3:.3f}")
+        for g in args.group:
+            inc = span_times(events, g)["inclusive"]
+            narrow = span_times(narrow_updates(events), g)["inclusive"]
+            print(f"group {g!r}, device ms inside each span: "
+                  + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in sorted(inc.items()))
+                  + f"; narrow hh.update {narrow.get(SPAN_PREFIX + 'hh.update', 0.0) * 1e3:.3f}")
     if args.health and args.method == "hr":
         a = torch.from_numpy(np.random.default_rng(args.seed).standard_normal(
             shape, dtype=np.float32)).cuda()
