@@ -1,11 +1,19 @@
-"""The counters of one hh ``qr(a)`` as the driver's segments and the plans
-give them, for the tests that hold the counters to them: the CPU tests
-through a stubbed kernel library, the card test at 16384². Imported as
+"""The counters of one ``qr(a)`` as the drivers and the plans give them,
+for the tests that hold the counters to them: the hh path's
+(``planned_hh_counts``; the CPU tests through a stubbed kernel library,
+the card test at 16384²) and the hr path's (``planned_hr_counts``; the
+plain versions' counts on the CPU, the launches on the card). Imported as
 ``_hh_counts`` (pytest puts ``tests/`` on the path): a ``tests`` package
 installed beside the project would shadow ``tests._hh_counts``."""
 
+import torch
+
+from tileqr_torch.core.layout import round_up
+from tileqr_torch.core.trace import HR_APPLY
 from tileqr_torch.drivers import square
+from tileqr_torch.drivers.square_hr import _apply_route
 from tileqr_torch.kernels import chain, panel
+from tileqr_torch.kernels.common import counter_key
 
 
 def planned_hh_counts(n: int, nb: int, ib: int, chunk: int, sms: int, side: bool = True,
@@ -66,3 +74,28 @@ def planned_hh_counts(n: int, nb: int, ib: int, chunk: int, sms: int, side: bool
     return {"lookahead": {"split": split, "beside": split if side else 0},
             "pipeline": pipe, "exchange": exchange, "strip": strip, "chain": bands,
             "k4": k4}
+
+
+def planned_hr_counts(m: int, n: int, nb: int, precision: str = "highest") -> dict:
+    """What one ``qr(a, mode="reduced")`` on an (m, n) fp32 A counts on the
+    hr path when the guard holds, from the shapes alone: "panels" of the
+    padded matrix (``square_hr.pad_for_hr``: columns to nb, rows past the
+    identity block where columns were padded); "launches", the kernel
+    launches on the card by ``_build.LAUNCHES`` key (B9 and B8 a panel, B6
+    a panel with columns right of it, B7 on the applies that take it; on
+    the CPU the plain versions count the same calls in ``PLAIN_CALLS``);
+    "hr_apply", ``trace.HR_APPLY`` over Q's formation (``orgqr_hr``'s
+    window, panel k on rows and columns ≥ k·nb)."""
+    np_ = round_up(n, nb)
+    mp = round_up(m + np_ - n, nb)
+    panels = min(mp, np_) // nb
+    ncols = max(min(m, n), 1)
+    routes = dict.fromkeys(HR_APPLY, 0)
+    for k in range(min(panels, -(-ncols // nb))):
+        routes[_apply_route(mp - k * nb, nb, ncols - k * nb, torch.float32, precision)] += 1
+    launches = {"potrf_batched": panels, "modified_lu": panels,
+                counter_key("panel_apply_carry", precision):
+                    sum((k + 1) * nb < np_ for k in range(panels)),
+                counter_key("panel_apply", precision): routes["b7"]}
+    return {"panels": panels, "launches": {k: v for k, v in launches.items() if v},
+            "hr_apply": routes}

@@ -24,7 +24,7 @@ import pytest
 import torch
 
 import tileqr_torch
-from _hh_counts import planned_hh_counts
+from _hh_counts import planned_hh_counts, planned_hr_counts
 from tileqr_torch.kernels import _build, chain, geqrt, modlu, panel, panel_apply, potrf
 from tileqr_torch.utils.verify import backward_error_f64, residuals_f64
 
@@ -900,6 +900,174 @@ def test_hr_pins_ieee_fp32_and_numpy_input_runs_on_the_card(cuda):
     assert q.device.type == "cuda" and r.device.type == "cuda"
     assert all(_build.LAUNCHES[k] > 0 for k in _build.HR_KERNELS)
     assert residuals_f64(torch.from_numpy(a).to(cuda), q, r)["relerr"] <= 3e-6
+
+
+def test_hr_qr_on_the_hr_cells_input(cuda):
+    """hr qr (reduced) at 4096² on the benchmark's input of prescribed
+    condition 1e2 (the square-16384-hr cell's distribution): B9, B8, B6 and
+    B7 launched as ``planned_hr_counts`` gives (B7 on the 12 windows wider
+    than 1024 columns), the applies' routes likewise, nothing plain, one
+    guard check and no trip, a rerun bitwise equal, and the judged numbers
+    (float64, against the benchmark's reference) inside the cell's limits."""
+    from qrbench import spec
+    from qrbench.calls import qr_reduced
+    from qrbench.judge import verdict
+    from qrbench.reference import householder
+    from tileqr_torch.core import trace
+
+    n = 4096
+    cell = spec.cell("square-16384-hr.qr")
+    g = torch.Generator(device="cuda").manual_seed(22)
+    a = cell.inputs.make((n, n), torch.float32, g, "cuda", **{
+        k: v for k, v in cell.config["input"].items() if k != "distribution"})
+    cfg = tileqr_torch.QRConfig(**cell.config["qrconfig"])
+    _build.reset_counts()
+    q, r = tileqr_torch.qr(a, config=cfg)
+    torch.cuda.synchronize()
+    want = planned_hr_counts(n, n, cfg.nb)
+    assert want["hr_apply"]["b7"] == 12
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == want["launches"]
+    assert trace.HR_APPLY == want["hr_apply"]
+    assert not any(_build.PLAIN_CALLS.values())
+    assert trace.GUARD == {"qr_factor/hr": {"checks": 1, "trips": 0}}
+    q2, r2 = tileqr_torch.qr(a, config=cfg)
+    assert torch.equal(q, q2) and torch.equal(r, r2)
+    got = qr_reduced.numbers(a, (q, r), qr_reduced.truth(householder, a))
+    checks = verdict(got, cell.limits)
+    assert all(ch["ok"] for ch in checks.values()), checks
+
+
+def _hr_graph_input(cuda, n=2048, seed=23):
+    g = np.random.default_rng(seed).standard_normal((n, n), dtype=np.float32)
+    return torch.from_numpy(g + np.float32(4 * np.sqrt(n)) * np.eye(n, dtype=np.float32)).to(cuda)
+
+
+def test_hr_loop_replays_its_cuda_graphs(cuda):
+    """The hr panel loop at one shape: the first call eager, the second
+    captures the loop's graphs and replays them, the third replays; all
+    three bitwise equal, each counting the planned launches, and a replay
+    under torch.profiler records each phase's span once a panel with the
+    device time of its kernels inside. Another shape drops the graphs and
+    runs eagerly first again; ``release_graphs`` drops them too."""
+    from tileqr_torch.core import trace
+    from tileqr_torch.drivers import square_hr
+    from tileqr_torch.utils.profile import span_times
+
+    n, nb = 2048, 256
+    a = _hr_graph_input(cuda, n)
+    cfg = tileqr_torch.QRConfig(square_method="hr")
+    want = planned_hr_counts(n, n, nb)
+    tileqr_torch.release_graphs()
+    outs = []
+    for _ in range(3):
+        _build.reset_counts()
+        outs.append(tileqr_torch.qr(a, config=cfg))
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == want["launches"]
+        assert trace.HR_APPLY == want["hr_apply"] and not any(_build.PLAIN_CALLS.values())
+    (loop,) = square_hr._LOOPS.values()
+    assert isinstance(loop, square_hr._LoopGraphs) and len(loop.panels) == n // nb
+    assert not loop.lock.locked()
+    for q, r in outs[1:]:
+        assert torch.equal(q, outs[0][0]) and torch.equal(r, outs[0][1])
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        q, r = tileqr_torch.qr(a, config=cfg)
+        torch.cuda.synchronize()
+    assert torch.equal(q, outs[0][0])
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("tileqr_torch.hr.")]
+    panels = n // nb
+    assert {k: names.count(f"tileqr_torch.hr.{k}") for k in
+            ("round1", "round2", "reconstruct", "update", "apply")} == {
+        "round1": panels, "round2": panels, "reconstruct": panels, "update": panels - 1,
+        "apply": panels}
+    inside = span_times(prof.events())["inclusive"]
+    assert all(inside.get(f"tileqr_torch.hr.{k}", 0) > 0 for k in ("round1", "update", "apply"))
+    tileqr_torch.qr(a[:1024, :1024].contiguous(), config=cfg)
+    assert all(v is None for v in square_hr._LOOPS.values())
+    q, r = tileqr_torch.qr(a, config=cfg)
+    assert torch.equal(q, outs[0][0]) and torch.equal(r, outs[0][1])
+    tileqr_torch.qr(a, config=cfg)
+    assert isinstance(next(iter(square_hr._LOOPS.values())), square_hr._LoopGraphs)
+    tileqr_torch.release_graphs()
+    assert not square_hr._LOOPS
+
+
+@pytest.mark.parametrize("fault", ["sync", "oom"])
+def test_hr_loop_runs_eagerly_where_its_capture_fails(cuda, monkeypatch, fault):
+    """A capture that fails (a host sync inside it, which the card refuses
+    and which invalidates the capture; or an out-of-memory error at panel
+    3) is ended, its graphs dropped, and the call runs eagerly with the
+    same bits; the shape stays eager, with no capture left open, until
+    ``release_graphs``, after which its second call captures again."""
+    from tileqr_torch.drivers import square_hr
+
+    a = _hr_graph_input(cuda)
+    cfg = tileqr_torch.QRConfig(square_method="hr")
+    tileqr_torch.release_graphs()
+    q0, r0 = tileqr_torch.qr(a, config=cfg)
+    apply_carry = square_hr.panel_apply_carry
+
+    def faulty(y, t, ap, k, nb, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            if fault == "sync":
+                y.sum().item()
+            elif k == 3:
+                raise torch.cuda.OutOfMemoryError("out of memory")
+        return apply_carry(y, t, ap, k, nb, **kw)
+
+    monkeypatch.setattr(square_hr, "panel_apply_carry", faulty)
+    for _ in range(2):
+        q, r = tileqr_torch.qr(a, config=cfg)
+        torch.cuda.synchronize()
+        assert not torch.cuda.is_current_stream_capturing()
+        assert list(square_hr._LOOPS.values()) == [square_hr._EAGER]
+        assert torch.equal(q, q0) and torch.equal(r, r0)
+    monkeypatch.setattr(square_hr, "panel_apply_carry", apply_carry)
+    tileqr_torch.release_graphs()
+    for _ in range(2):
+        q, r = tileqr_torch.qr(a, config=cfg)
+    assert isinstance(next(iter(square_hr._LOOPS.values())), square_hr._LoopGraphs)
+    assert torch.equal(q, q0) and torch.equal(r, r0)
+    tileqr_torch.release_graphs()
+
+
+def test_hr_loops_never_share_the_graphs_operands(cuda):
+    """A loop that finds the graphs in use (another loop of the shape
+    stopped at its first panel) runs eagerly; a loop dropped half way
+    frees them. Two loops on two streams, with no host sync between
+    (hr_guard="off"), each on its own input: the second's replay waits on
+    the first's, and both answers are bitwise the eager ones."""
+    from tileqr_torch.drivers import square_hr
+
+    n, nb = 2048, 256
+    a, b = _hr_graph_input(cuda, n, 23), _hr_graph_input(cuda, n, 24)
+    cfg = tileqr_torch.QRConfig(square_method="hr", hr_guard="off")
+    tileqr_torch.release_graphs()
+    want_a = tileqr_torch.qr(a, config=cfg)
+    want_b = tileqr_torch.qr(b, config=cfg)
+    (loop,) = square_hr._LOOPS.values()
+    assert isinstance(loop, square_hr._LoopGraphs)
+    held = square_hr.hr_steps(square_hr.pad_for_hr(a, nb)[0], nb)
+    next(held)
+    assert loop.lock.locked()
+    q, r = tileqr_torch.qr(b, config=cfg)
+    assert torch.equal(q, want_b[0]) and torch.equal(r, want_b[1])
+    del held
+    assert not loop.lock.locked()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for _ in range(3):
+        s1.wait_stream(torch.cuda.current_stream())
+        s2.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s1):
+            got_a = tileqr_torch.qr(a, config=cfg)
+        with torch.cuda.stream(s2):
+            got_b = tileqr_torch.qr(b, config=cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(got_a[0], want_a[0]) and torch.equal(got_a[1], want_a[1])
+        assert torch.equal(got_b[0], want_b[0]) and torch.equal(got_b[1], want_b[1])
+    tileqr_torch.release_graphs()
 
 
 # (B, m, n, ib): the small route (a CTA a matrix, 4(mn + n² + m) <= 200

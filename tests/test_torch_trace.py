@@ -15,7 +15,7 @@ import tileqr_torch as tq
 from tileqr_torch.core import trace
 from tileqr_torch.drivers import tsqr as tsqr_driver
 from tileqr_torch.kernels import _build
-from tileqr_torch.utils.profile import _nest, span_times
+from tileqr_torch.utils.profile import _nest, kernel_times, span_times
 
 P = "tileqr_torch."
 SQ = tq.QRConfig(nb=64, ib=32, chunk=2)  # 256² is 4 panels, 3 updates, 2 of them split
@@ -64,8 +64,15 @@ CASES = {
             "hh.update": "qr_factor", "assemble_r": "qr", "orgqr": "qr"}),
     "qr_hr": (lambda: tq.qr(HRA, config=HR),
               {"qr": 1, "qr_factor": 1, "prep": 1, "hr.round1": 4, "hr.round2": 4,
-               "hr.reconstruct": 4, "sync.guard": 1, "assemble_r": 1, "orgqr": 1},
-              {"hr.round1": "qr_factor", "sync.guard": "qr_factor", "orgqr": "qr"}),
+               "hr.reconstruct": 4, "hr.update": 3, "sync.guard": 1, "assemble_r": 1,
+               "orgqr": 1, "hr.apply": 4},
+              {"hr.round1": "qr_factor", "hr.update": "qr_factor", "sync.guard": "qr_factor",
+               "orgqr": "qr", "hr.apply": "orgqr"}),
+    "lstsq_hr": (lambda: tq.lstsq(HRA, B, config=HR),
+                 {"lstsq": 1, "qr_factor": 1, "prep": 1, "hr.round1": 4, "hr.round2": 4,
+                  "hr.reconstruct": 4, "hr.update": 3, "sync.guard": 1, "apply_q": 1,
+                  "hr.apply": 4, "assemble_r": 1},
+                 {"hr.update": "qr_factor", "apply_q": "lstsq", "hr.apply": "apply_q"}),
     "lstsq": (lambda: tq.lstsq(SQA, B, config=SQ),
               {"lstsq": 1, "qr_factor": 1, "prep": 1, "hh.panel": 4, "hh.update": 5,
                "apply_q": 1, "assemble_r": 1},
@@ -231,6 +238,14 @@ def test_span_times_charge_launch_time_innermost_and_inclusive():
     assert got["device"] == pytest.approx(57 * us)
     assert got["calls"] == 2 and got["syncs"] == 1
     assert got["host_s"] == pytest.approx(190 * us) and got["sync_s"] == pytest.approx(40 * us)
+
+
+def test_kernel_times_leave_out_the_spans_device_copies():
+    prof = types.SimpleNamespace(events=_synthetic)
+    got = kernel_times(prof)
+    assert set(got) == {"panel_factor_kernel", "panel_chain_kernel", "Memcpy HtoD",
+                        "sub_f32_kernel", "other", "lost"}
+    assert got["panel_factor_kernel"] == (1, pytest.approx(0.03))
 
 
 def test_span_times_count_an_operation_once_a_name():

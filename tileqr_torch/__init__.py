@@ -34,6 +34,8 @@ Public API
 - :class:`QRConfig`, :class:`QRFactors`, :class:`HRFactors`,
   :class:`TSQRFactors`, :class:`ShardedFactors`, :class:`ShardedHRFactors`
 - :func:`qr_check` — float64 acceptance metrics of a computed QR.
+- :func:`release_graphs` — drop the CUDA graphs that the hr square path
+  keeps of its last shape's panel loop (``drivers/square_hr.py``).
 """
 
 from tileqr_torch.core.config import QRConfig
@@ -54,6 +56,7 @@ from tileqr_torch.api import (
     qr_sharded,
     tsqr,
 )
+from tileqr_torch.drivers.square_hr import release_graphs
 from tileqr_torch.utils.verify import qr_check
 
 __all__ = [
@@ -73,5 +76,6 @@ __all__ = [
     "qr_check",
     "qr_factor",
     "qr_sharded",
+    "release_graphs",
     "tsqr",
 ]

@@ -12,7 +12,9 @@ all; ``utils/profile.py:span_times`` charges device time to them.
 profiler runs. ``LOOKAHEAD`` counts the hh driver's updates split in two
 for its lookahead (``drivers/square.py:qr_tiled``; on any device) and the
 panel launches enqueued on its side stream beside a rest update (the card
-only). ``kernels/_build.py:reset_counts`` clears both.
+only). ``HR_APPLY`` counts the route that each block-reflector apply of
+the hr square path took (``drivers/square_hr.py:_apply_block_t``; on any
+device). ``kernels/_build.py:reset_counts`` clears all three.
 """
 
 from __future__ import annotations
@@ -28,12 +30,17 @@ ENTRIES = tuple(f"tileqr_torch.{e}" for e in
 SYNCS = tuple(f"tileqr_torch.sync.{s}" for s in ("guard", "tree_index", "tall_ops", "upload"))
 SPANS = ENTRIES + tuple(f"tileqr_torch.{p}" for p in (
     "prep", "assemble_r", "hh.panel", "hh.update", "tree.leaves", "tree.level",
-    "hr.round1", "hr.round2", "hr.reconstruct", "batched.geqrt", "batched.form_q")) + SYNCS
+    "hr.round1", "hr.round2", "hr.reconstruct", "hr.update", "hr.apply", "batched.geqrt",
+    "batched.form_q")) + SYNCS
 
 # {call site: {"checks": n, "trips": n}} of the breakdown guard
 GUARD: Dict[str, Dict[str, int]] = {}
 # the hh driver's lookahead: updates split in two, panels launched beside a rest
 LOOKAHEAD = {"split": 0, "beside": 0}
+# the hr square path's block-reflector applies by route: B7 ("b7"), W by
+# pairwise row sums ("pair"), by split-K ("splitk"), by one product ("one"),
+# or the three products in an emulated mode's plain torch ("emulated")
+HR_APPLY = {"b7": 0, "pair": 0, "splitk": 0, "one": 0, "emulated": 0}
 
 _OFF = contextlib.nullcontext()
 

@@ -40,12 +40,13 @@ panel's condition number, so cond(A) ≲ 1e3 in fp32; the health scalar
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import torch
 
 from tileqr_torch.core.layout import pow2_at_least, round_up
-from tileqr_torch.core.trace import span
+from tileqr_torch.core.trace import HR_APPLY, span
 from tileqr_torch.drivers.cholqr import (
     _correction,
     _defect,
@@ -53,6 +54,7 @@ from tileqr_torch.drivers.cholqr import (
     _triu_inv_doubling,
     bdot_pair_rows,
 )
+from tileqr_torch.kernels import _build
 from tileqr_torch.kernels.common import dot_bx, passes_of, split_bf16, split_bf16_trunc
 from tileqr_torch.kernels.modlu import modified_lu
 from tileqr_torch.kernels.panel_apply import kernel_takes, panel_apply, panel_apply_carry
@@ -78,6 +80,23 @@ def _w_splitk(y: torch.Tensor, c: torch.Tensor, s: Optional[int] = None) -> torc
     return parts[0]
 
 
+def _apply_route(m: int, nb: int, n: int, dtype: torch.dtype, precision: str) -> str:
+    """The route ``_apply_block_t`` takes for Y (m, nb) on an (m, n) target
+    of ``dtype`` in the precision mode: a key of ``trace.HR_APPLY``."""
+    emulated = passes_of(precision) > 0 and dtype == torch.float32
+    aligned = n > 0 and m % nb == 0 and n % nb == 0
+    wide_fp32 = dtype == torch.float32 and n > _W_PAIR_MAX_COLS and kernel_takes(nb)
+    if aligned and (emulated or wide_fp32):
+        return "b7"
+    if emulated:
+        return "emulated"
+    if m >= 2048 and n <= _W_PAIR_MAX_COLS:
+        return "pair"
+    if dtype == torch.float32 and m >= 4096:
+        return "splitk"
+    return "one"
+
+
 def _apply_block_t(y: torch.Tensor, t: torch.Tensor, c: torch.Tensor, trans: bool,
                    precision: str = "highest") -> torch.Tensor:
     """C ← (I − Y·T·Yᵀ)ᵀ C (trans) or (I − Y·T·Yᵀ) C, in place on the view
@@ -101,30 +120,61 @@ def _apply_block_t(y: torch.Tensor, t: torch.Tensor, c: torch.Tensor, trans: boo
       split of the TPU's HIGH and DEFAULT (3 and 1 bf16 passes);
     - "highest" otherwise, or float64 in any mode (exact): W = YᵀC pairwise
       for m ≥ 2048 and at most 1024 columns, split-K for m ≥ 4096 in
-      float32, one product otherwise."""
+      float32, one product otherwise.
+
+    ``trace.HR_APPLY`` counts the route taken (``_apply_route``)."""
     passes = passes_of(precision)
     m, nb = y.shape
-    n = c.shape[1]
-    emulated = passes > 0 and c.dtype == torch.float32
-    aligned = n > 0 and m % nb == 0 and n % nb == 0
-    wide_fp32 = c.dtype == torch.float32 and n > _W_PAIR_MAX_COLS and kernel_takes(nb)
-    if aligned and (emulated or wide_fp32):
+    route = _apply_route(m, nb, c.shape[1], c.dtype, precision)
+    HR_APPLY[route] += 1
+    if route == "b7":
         return panel_apply(y, t, c, trans, precision)
     tm = t.T if trans else t
-    if emulated:
+    if route == "emulated":
         split = split_bf16_trunc if precision in ("b3", "b4") else split_bf16
         w = dot_bx(y.T, c, passes, split)
         w = dot_bx(tm, w, passes, split)
         c -= dot_bx(y, w, passes, split)
         return c
-    if m >= 2048 and n <= _W_PAIR_MAX_COLS:
+    if route == "pair":
         w = bdot_pair_rows(y[None], c[None])[0]
-    elif c.dtype == torch.float32 and m >= 4096:
+    elif route == "splitk":
         w = _w_splitk(y, c)
     else:
         w = y.T @ c
     c -= y @ (tm @ w)
     return c
+
+
+def _round1(panel: torch.Tensor):
+    """Round 1: the gram G (tall pass 1), B9, S₁ = R₁⁻¹, Q₁ = panel·S₁
+    (tall pass 2). Returns (G, S₁, Q₁)."""
+    g = bdot_pair_rows(panel[None], panel[None])
+    s1 = _triu_inv_doubling(potrf_batched(g))[0]
+    return g, s1, panel @ s1
+
+
+def _round2(q1: torch.Tensor):
+    """Round 2: E = Q₁ᵀQ₁ − I (tall pass 3), the correction W by matmuls,
+    Q_top = Q₁[:nb]·W. Returns (E, W, Q_top)."""
+    nb = q1.shape[1]
+    e = bdot_pair_rows(q1[None], q1[None])[0] - torch.eye(nb, dtype=q1.dtype, device=q1.device)
+    w = _correction(e[None])[0]
+    return e, w, q1[:nb] @ w
+
+
+def _reconstruct(g, s1, q1, w, q_top):
+    """B8 on Q_top, the inverses, Y = [L1; L2] (tall pass 4), T and R.
+    Returns (Y, T, R)."""
+    nb = q1.shape[1]
+    lu, d = modified_lu(q_top)
+    l1 = torch.tril(lu, -1) + torch.eye(nb, dtype=q1.dtype, device=q1.device)
+    uu = torch.triu(lu)
+    invs = _triu_inv_doubling(torch.stack([uu, l1.T]))
+    uuinv, l1tinv = invs[0], invs[1]
+    l2 = q1[nb:] @ (w @ uuinv)
+    return (torch.cat([l1, l2], dim=0), -((uu * d[None, :]) @ l1tinv),
+            d[:, None] * torch.triu(w.T @ (s1.T @ g[0])))
 
 
 def hr_panel_parts(panel: torch.Tensor) -> dict:
@@ -134,30 +184,13 @@ def hr_panel_parts(panel: torch.Tensor) -> dict:
     (nb, nb) as the modified LU (B8) takes it, "e" = Q₁ᵀQ₁ − I, and the
     factors "y" (m_k, nb), "t" (nb, nb), "r" (nb, nb) with the
     reconstruction signs folded in."""
-    nb = panel.shape[1]
-    eye = torch.eye(nb, dtype=panel.dtype, device=panel.device)
     with span("tileqr_torch.hr.round1"):
-        g = bdot_pair_rows(panel[None], panel[None])  # tall pass 1
-        r1 = potrf_batched(g)
-        s1 = _triu_inv_doubling(r1)[0]
-        q1 = panel @ s1  # tall pass 2
+        g, s1, q1 = _round1(panel)
     with span("tileqr_torch.hr.round2"):
-        e = bdot_pair_rows(q1[None], q1[None])[0] - eye  # tall pass 3
-        w = _correction(e[None])[0]  # the second round, by matmuls
-        q_top = q1[:nb] @ w
+        e, w, q_top = _round2(q1)
     with span("tileqr_torch.hr.reconstruct"):
-        lu, d = modified_lu(q_top)
-        l1 = torch.tril(lu, -1) + eye
-        uu = torch.triu(lu)
-        invs = _triu_inv_doubling(torch.stack([uu, l1.T]))
-        uuinv, l1tinv = invs[0], invs[1]
-        l2 = q1[nb:] @ (w @ uuinv)  # tall pass 4
-        return {
-            "gram": g, "q_top": q_top, "e": e,
-            "y": torch.cat([l1, l2], dim=0),
-            "t": -((uu * d[None, :]) @ l1tinv),
-            "r": d[:, None] * torch.triu(w.T @ (s1.T @ g[0])),
-        }
+        y, t, r = _reconstruct(g, s1, q1, w, q_top)
+    return {"gram": g, "q_top": q_top, "e": e, "y": y, "t": t, "r": r}
 
 
 def hr_panel(panel: torch.Tensor, stats: bool = False):
@@ -169,23 +202,168 @@ def hr_panel(panel: torch.Tensor, stats: bool = False):
     return p["y"], p["t"], p["r"], _defect(p["e"])
 
 
+def _in_span(name: str, phase):
+    with span(name):
+        return phase()
+
+
+def _panel_step(ap: torch.Tensor, k: int, nb: int, stats: bool, precision: str, run=_in_span):
+    """Panel k of ``hr_steps`` on ``ap``: the three rounds (R_kk written
+    into the diagonal block, and the defect with stats=True, after the
+    last), then B6 where columns lie right of the panel; each phase run
+    by ``run(span, phase)``, which returns what the phase returns. Returns
+    (Y_k, T_k, defect or None)."""
+    s = k * nb
+
+    def reconstruct():
+        y, t, r = _reconstruct(g, s1, q1, w, q_top)
+        ap[s : s + nb, s : s + nb] = r
+        return y, t, (_defect(e) if stats else None)
+
+    g, s1, q1 = run("tileqr_torch.hr.round1", lambda: _round1(ap[s:, s : s + nb]))
+    e, w, q_top = run("tileqr_torch.hr.round2", lambda: _round2(q1))
+    y, t, defect = run("tileqr_torch.hr.reconstruct", reconstruct)
+    if s + nb < ap.shape[1]:
+        run("tileqr_torch.hr.update",
+            lambda: panel_apply_carry(y, t, ap, k, nb, trans=True, precision=precision))
+    return y, t, defect
+
+
+class _LoopGraphs:
+    """The panel loop of ``hr_steps`` at one padded shape on the card, as
+    CUDA graphs captured into one memory pool on a static copy of the
+    padded matrix, and replayed in order. A replay launches a phase's
+    operations at once (~165 a panel): the host's Python a panel, which
+    set the factor's pace at 16384², is paid once, at the capture. Four
+    graphs a panel, one a span of ``_panel_step``: a graph's kernels are
+    charged to the span its replay runs in, so fewer graphs would merge
+    spans that the trace reads apart (``hr.update`` is B6 alone).
+
+    ``steps`` runs under ``lock``, taken by ``_loop_graphs`` and released
+    when the loop ends or is dropped; a loop that finds it taken runs
+    eagerly. Each loop's device work waits on the ``done`` event that the
+    previous one recorded on its stream, so loops on different streams
+    never share the static operands at once. ``LAUNCHES`` gains, at the
+    end of each replayed loop, what the capture launched."""
+
+    def __init__(self, ap: torch.Tensor, nb: int, stats: bool, precision: str):
+        self.lock = threading.Lock()
+        self.done = None
+        self.ap = torch.empty_like(ap)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.panels = []
+        held = dict(_build.LAUNCHES)
+        side = torch.cuda.Stream(ap.device)
+        side.wait_stream(torch.cuda.current_stream(ap.device))
+        try:
+            with torch.cuda.stream(side), _highest():
+                for k in range(min(ap.shape) // nb):
+                    graphs = []
+                    out = _panel_step(self.ap, k, nb, stats, precision,
+                                      lambda name, phase: self._capture(graphs, name, phase))
+                    self.panels.append((graphs, out))
+        finally:
+            torch.cuda.current_stream(ap.device).wait_stream(side)
+            self.launched = {key: n - held[key] for key, n in _build.LAUNCHES.items()
+                             if n != held[key]}
+            _build.LAUNCHES.update(held)  # a capture launches nothing
+
+    def _capture(self, graphs: list, name: str, phase):
+        # capture_begin/end, not torch.cuda.graph: that one synchronizes,
+        # collects garbage and empties the allocator's cache at every
+        # capture. "thread_local": another thread's calls are not refused
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+        try:
+            out = phase()
+        finally:
+            graph.capture_end()  # ends a failed capture too, then raises
+        graphs.append((name, graph))
+        return out
+
+    def steps(self, ap: torch.Tensor):
+        stream = torch.cuda.current_stream(ap.device)
+        try:
+            if self.done is not None:
+                stream.wait_event(self.done)
+            self.ap.copy_(ap)
+            for graphs, (y, t, defect) in self.panels:
+                for name, graph in graphs:
+                    with span(name):
+                        graph.replay()
+                yield y.clone(), t.clone(), (None if defect is None else defect.clone())
+            ap.copy_(self.ap)
+            for key, n in self.launched.items():
+                _build.LAUNCHES[key] += n
+        finally:
+            self.done = stream.record_event()
+            self.lock.release()
+
+
+# {(device, padded shape, nb, stats, precision): _LoopGraphs; None where
+# the shape has run once, eagerly; _EAGER where its capture failed}: the
+# last shape the card factored. ``release_graphs`` empties it.
+_LOOPS: dict = {}
+_LOOPS_LOCK = threading.Lock()
+_EAGER = "eager"
+
+
+def _loop_graphs(ap: torch.Tensor, nb: int, stats: bool, precision: str):
+    """The graphs of ``ap``'s shape with their lock taken, captured at the
+    shape's second call on the card (the first, eager, is their warm-up).
+    None, for an eager loop: on the CPU, inside a caller's own capture, at
+    a shape's first call, where a capture failed (for good: the shape
+    stays eager until ``release_graphs``), and while another loop holds
+    the graphs."""
+    if not ap.is_cuda or torch.cuda.is_current_stream_capturing():
+        return None
+    key = (ap.device, tuple(ap.shape), nb, stats, precision)
+    with _LOOPS_LOCK:
+        if key not in _LOOPS:
+            _LOOPS.clear()
+            _LOOPS[key] = None
+            return None
+        if _LOOPS[key] is None:
+            try:
+                _LOOPS[key] = _LoopGraphs(ap, nb, stats, precision)
+            except RuntimeError:  # out of memory, or a capture the card refused
+                _LOOPS[key] = _EAGER
+        loop = _LOOPS[key]
+        if loop is _EAGER or not loop.lock.acquire(blocking=False):
+            return None
+        return loop
+
+
+def release_graphs() -> None:
+    """Drop the hr panel loop's CUDA graphs, their memory pool and static
+    copy (1.7 GB at 16384²; a loop still running keeps its own until it
+    ends). The allocator keeps the freed memory cached for the process
+    until ``torch.cuda.empty_cache()``. The next hr factor at any shape
+    runs eagerly, and its second captures anew."""
+    with _LOOPS_LOCK:
+        _LOOPS.clear()
+
+
 def hr_steps(ap: torch.Tensor, nb: int, stats: bool = False, precision: str = "highest"):
     """The driver's panel loop over a padded (Mp, Np) matrix, IN PLACE on
-    ``ap``: for each panel k, factor carry[s:, s:s+nb], apply its
-    reflectors to carry[s:, s+nb:] by B6 in the precision mode (the kernel
-    on the card, its plain version on the CPU), write R_kk into the
-    diagonal block, and yield (Y_k, T_k, defect): the panel's round-1
-    orthogonality defect with stats=True, else None."""
+    ``ap``: for each panel k, factor carry[s:, s:s+nb], write R_kk into the
+    diagonal block, apply the reflectors to carry[s:, s+nb:] by B6 in the
+    precision mode (the kernel on the card, its plain version on the CPU;
+    no call where no column lies right of the panel), and yield (Y_k, T_k,
+    defect): the panel's round-1 orthogonality defect with stats=True,
+    else None. On the card a shape's calls after its first replay CUDA
+    graphs of the loop (``_LoopGraphs``): the same kernels on the same
+    operands; ``ap`` takes its result when the loop ends."""
     if ap.shape[0] % nb or ap.shape[1] % nb:
         raise ValueError(f"padded shape {tuple(ap.shape)} not a multiple of nb={nb}")
+    graphs = _loop_graphs(ap, nb, stats, precision)
+    if graphs is not None:
+        yield from graphs.steps(ap)
+        return
     for k in range(min(ap.shape) // nb):
-        s = k * nb
         with _highest():
-            out = hr_panel(ap[s:, s : s + nb], stats=stats)
-            y, t, rk = out[:3]
-            panel_apply_carry(y, t, ap, k, nb, trans=True, precision=precision)
-            ap[s : s + nb, s : s + nb] = rk
-        yield y, t, (out[3] if stats else None)
+            out = _panel_step(ap, k, nb, stats, precision)
+        yield out
 
 
 def qr_hr(ap: torch.Tensor, nb: int, stats: bool = False, precision: str = "highest"):
@@ -213,7 +391,8 @@ def apply_q_hr(panels: Tuple, c: torch.Tensor, nb: int, trans: bool = False,
     with _highest():
         for k in order:
             y, t = panels[k]
-            _apply_block_t(y, t, c[k * nb :], trans, precision)
+            with span("tileqr_torch.hr.apply"):
+                _apply_block_t(y, t, c[k * nb :], trans, precision)
     return c
 
 
@@ -231,7 +410,8 @@ def orgqr_hr(panels: Tuple, mp: int, nb: int, ncols: int,
         for k in reversed(range(k_used)):
             s = k * nb
             y, t = panels[k]
-            _apply_block_t(y, t, q[s:, s:], False, precision)
+            with span("tileqr_torch.hr.apply"):
+                _apply_block_t(y, t, q[s:, s:], False, precision)
     return q
 
 

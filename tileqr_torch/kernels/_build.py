@@ -171,6 +171,8 @@ def reset_counts() -> None:
     CHAIN.clear()
     for k in trace.LOOKAHEAD:
         trace.LOOKAHEAD[k] = 0
+    for k in trace.HR_APPLY:
+        trace.HR_APPLY[k] = 0
     trace.GUARD.clear()
 
 

@@ -38,8 +38,10 @@ exchanged (``_build.EXCHANGE``), K3's launches by plan with the couples
 they swept (``_build.STRIP``) and by the chain's row bands
 (``_build.CHAIN``), the hh driver's updates split for its
 lookahead and its panels launched beside a rest update
-(``core/trace.py:LOOKAHEAD``), and the CholeskyQR guard's
-checks and trips by call site (``core/trace.py:GUARD``). ``--group G``
+(``core/trace.py:LOOKAHEAD``), the CholeskyQR guard's
+checks and trips by call site (``core/trace.py:GUARD``), and the hr
+square path's block-reflector applies by route
+(``core/trace.py:HR_APPLY``). ``--group G``
 prints the device ms of G's kernels alone inside each span, and inside the
 narrow hh updates (``narrow_updates``). With ``--health`` (hr
 only) it also prints each panel's round-1 orthogonality defect, whose max
@@ -98,14 +100,17 @@ def group_of(name: str) -> str:
 
 
 def kernel_times(prof) -> dict:
-    """{kernel name: (launches, device ms)} from the profiler's events."""
+    """{kernel name: (launches, device ms)} from the profiler's events: the
+    device operations, without the spans' annotations on the device's
+    timeline."""
     out = defaultdict(lambda: [0, 0.0])
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False) or e.name.startswith(SPAN_PREFIX)):
             continue
         rec = out[e.name]
         rec[0] += 1
-        rec[1] += e.time_range.elapsed_us() / 1e3
+        rec[1] += (e.time_range.end - e.time_range.start) / 1e3
     return {k: tuple(v) for k, v in out.items()}
 
 
@@ -336,6 +341,7 @@ def main(argv=None) -> int:
         print(f"hh lookahead: updates split {trace.LOOKAHEAD['split']}, panel launches beside "
               f"a rest update {trace.LOOKAHEAD['beside']} of {_build.LAUNCHES['panel_factor']}")
         print(f"CholeskyQR guard checks and trips by site: {trace.GUARD or 'none'}")
+        print(f"hr applies by route: {trace.HR_APPLY}")
     print(f"{what} {'x'.join(map(str, shape))}: wall {wall_ms:.3f} ms under the profiler, "
           f"device total {total:.3f} ms, idle share {max(0.0, 1 - total / wall_ms):.4f}"
           f"{' (of rank 0 alone)' if sharded else ''} [{card}]")
