@@ -12,8 +12,8 @@ from tileqr_torch.core.layout import round_up
 from tileqr_torch.core.trace import HR_APPLY
 from tileqr_torch.drivers import square
 from tileqr_torch.drivers.square_hr import _apply_route
-from tileqr_torch.kernels import chain, panel
-from tileqr_torch.kernels.common import counter_key
+from tileqr_torch.kernels import chain, panel, panel_apply
+from tileqr_torch.kernels.common import counter_key, passes_of
 
 
 def planned_hh_counts(n: int, nb: int, ib: int, chunk: int, sms: int, side: bool = True,
@@ -76,7 +76,8 @@ def planned_hh_counts(n: int, nb: int, ib: int, chunk: int, sms: int, side: bool
             "k4": k4}
 
 
-def planned_hr_counts(m: int, n: int, nb: int, precision: str = "highest") -> dict:
+def planned_hr_counts(m: int, n: int, nb: int, precision: str = "highest",
+                      sms: int = 132) -> dict:
     """What one ``qr(a, mode="reduced")`` on an (m, n) fp32 A counts on the
     hr path when the guard holds, from the shapes alone: "panels" of the
     padded matrix (``square_hr.pad_for_hr``: columns to nb, rows past the
@@ -85,17 +86,32 @@ def planned_hr_counts(m: int, n: int, nb: int, precision: str = "highest") -> di
     a panel with columns right of it, B7 on the applies that take it; on
     the CPU the plain versions count the same calls in ``PLAIN_CALLS``);
     "hr_apply", ``trace.HR_APPLY`` over Q's formation (``orgqr_hr``'s
-    window, panel k on rows and columns ≥ k·nb)."""
+    window, panel k on rows and columns ≥ k·nb); "project",
+    ``_build.PROJECT`` on a card of ``sms`` SMs (an H100's 132 by
+    default): B6's and B7's fp32 phase-1 launches by their plan's
+    schedule (``panel_apply.project_plan``), with the chains handed."""
     np_ = round_up(n, nb)
     mp = round_up(m + np_ - n, nb)
     panels = min(mp, np_) // nb
     ncols = max(min(m, n), 1)
     routes = dict.fromkeys(HR_APPLY, 0)
+    # phase 1's (m, n, mr) of each B6 and B7 launch
+    phase1 = [(mp - k * nb, np_ - (k + 1) * nb, panel_apply._block(mp - k * nb, nb, 512))
+              for k in range(panels) if (k + 1) * nb < np_]
     for k in range(min(panels, -(-ncols // nb))):
-        routes[_apply_route(mp - k * nb, nb, ncols - k * nb, torch.float32, precision)] += 1
+        route = _apply_route(mp - k * nb, nb, ncols - k * nb, torch.float32, precision)
+        routes[route] += 1
+        if route == "b7":
+            phase1.append((mp - k * nb, ncols - k * nb, panel_apply._block(mp - k * nb, nb, 1024)))
     launches = {"potrf_batched": panels, "modified_lu": panels,
                 counter_key("panel_apply_carry", precision):
                     sum((k + 1) * nb < np_ for k in range(panels)),
                 counter_key("panel_apply", precision): routes["b7"]}
+    project = {"balanced": 0, "whole_tiles": 0, "handed": 0}
+    if not passes_of(precision):
+        for rows, cols, mr in phase1:
+            plan = panel_apply.project_plan(rows, cols, nb, mr, sms, precision, fold=True)
+            project["balanced" if plan.ranges else "whole_tiles"] += 1
+            project["handed"] += plan.handed
     return {"panels": panels, "launches": {k: v for k, v in launches.items() if v},
-            "hr_apply": routes}
+            "hr_apply": routes, "project": project}

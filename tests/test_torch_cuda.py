@@ -942,21 +942,28 @@ def _hr_graph_input(cuda, n=2048, seed=23):
     return torch.from_numpy(g + np.float32(4 * np.sqrt(n)) * np.eye(n, dtype=np.float32)).to(cuda)
 
 
-def test_hr_loop_replays_its_cuda_graphs(cuda):
+@pytest.mark.parametrize("n", [2048, 9216])
+def test_hr_loop_replays_its_cuda_graphs(cuda, n):
     """The hr panel loop at one shape: the first call eager, the second
     captures the loop's graphs and replays them, the third replays; all
-    three bitwise equal, each counting the planned launches, and a replay
-    under torch.profiler records each phase's span once a panel with the
-    device time of its kernels inside. Another shape drops the graphs and
-    runs eagerly first again; ``release_graphs`` drops them too."""
+    three bitwise equal, each counting the planned launches and fp32
+    phase-1 schedules (at 9216², B6 on panels 0 and 1, 140 and 136 tiles,
+    runs the balanced schedule inside the graphs, its ticket and flags
+    zeroed by the captured memset; B7 on Q's first three windows, eagerly),
+    and a replay under torch.profiler records each
+    phase's span once a panel with the device time of its kernels inside.
+    Another shape drops the graphs and runs eagerly first again;
+    ``release_graphs`` drops them too."""
     from tileqr_torch.core import trace
     from tileqr_torch.drivers import square_hr
     from tileqr_torch.utils.profile import span_times
 
-    n, nb = 2048, 256
+    nb = 256
     a = _hr_graph_input(cuda, n)
     cfg = tileqr_torch.QRConfig(square_method="hr")
-    want = planned_hr_counts(n, n, nb)
+    want = planned_hr_counts(n, n, nb, sms=_build.sm_count(a))
+    if n == 9216 and _build.sm_count(a) == 132:
+        assert want["project"] == {"balanced": 5, "whole_tiles": 62, "handed": 540}
     tileqr_torch.release_graphs()
     outs = []
     for _ in range(3):
@@ -964,6 +971,7 @@ def test_hr_loop_replays_its_cuda_graphs(cuda):
         outs.append(tileqr_torch.qr(a, config=cfg))
         torch.cuda.synchronize()
         assert {k: v for k, v in _build.LAUNCHES.items() if v} == want["launches"]
+        assert _build.PROJECT == want["project"]
         assert trace.HR_APPLY == want["hr_apply"] and not any(_build.PLAIN_CALLS.values())
     (loop,) = square_hr._LOOPS.values()
     assert isinstance(loop, square_hr._LoopGraphs) and len(loop.panels) == n // nb
@@ -1549,6 +1557,167 @@ def test_panel_project_wrapper_takes_the_plan(cuda, mode):
     else:
         assert nearer_own_mode(got, want, panel_apply._project_plain(
             y, c, 512, "highest", groups=plan.groups), mode)
+
+
+# (Y rows, C columns, mr, fold, G, ranges) of fp32 phase 1; G and ranges
+# None: the card's plan. B6 at panel 29 of 16384² (136 tiles of 35 row
+# blocks, one group, 128 chains handed), B7 at window 30 (136 tiles of 17),
+# B6 at panel 30 (132 tiles: the whole-tile grid) and at panel 40 (92
+# tiles: one wave, which the rule keeps whole), the bare sum at G = 1 (W
+# written directly by the block that ends each chain); then schedules the
+# rule does not pick, which the kernel runs all the same: G = 3 on a block
+# a unit (the middle unit of each chain of 3 on a block that takes a pair
+# and hands it on), G = 5 with a short last group as a bare sum
+BALANCED_CASES = {
+    "b6-panel29": (8960, 8704, 256, True, None, None),
+    "b7-window30": (8704, 8704, 512, True, None, None),
+    "b6-panel30-whole": (8704, 8448, 512, True, None, None),
+    "b6-panel40-one-wave": (6144, 5888, 512, True, None, None),
+    "direct": (8960, 8704, 256, False, None, None),
+    "g3-inside-chains": (1792, 2304, 256, True, 3, 252),
+    "g5-short-last": (3328, 1280, 256, False, 5, 132),
+}
+# the cases whose plan is the balanced schedule
+BALANCED = {"b6-panel29", "b7-window30", "direct", "g3-inside-chains", "g5-short-last"}
+
+
+def _phase1_inputs(cuda, m, n, off, fold, seed):
+    rng = np.random.default_rng(seed)
+    y = torch.from_numpy(rng.standard_normal((m, 256), dtype=np.float32)).to(cuda)
+    big = torch.from_numpy(rng.standard_normal((m, n + 32), dtype=np.float32)).to(cuda)
+    tm = (torch.from_numpy(rng.standard_normal((256, 256), dtype=np.float32)).to(cuda) / 256
+          if fold else None)
+    return y, big[:, off : off + n], tm
+
+
+@pytest.mark.parametrize("off", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("case", list(BALANCED_CASES))
+def test_balanced_phase1_is_the_whole_tile_grid_bitwise(cuda, case, off):
+    """fp32 phase 1 on the plan's schedule against the whole-tile grid at
+    the plan's G (the parent's order): bitwise equal, reruns too, on a
+    strided C and at an odd column offset (4-byte copies); near the plain
+    sums in the same groups; ``PROJECT`` counts the launch by schedule."""
+    m, n, mr, fold, groups, ranges = BALANCED_CASES[case]
+    balanced = case in BALANCED
+    y, c, tm = _phase1_inputs(cuda, m, n, off, fold, seed=m + n)
+    plan = (panel_apply.project_plan(m, n, 256, mr, _build.sm_count(c), "highest", fold)
+            if groups is None else
+            panel_apply.project_plan_at(m, n, 256, mr, groups, "highest", fold, ranges))
+    whole = panel_apply.project_plan_at(m, n, 256, mr, plan.groups, "highest", fold)
+    assert (plan.ranges > 0) == balanced and whole.ranges == 0
+    assert groups is None or plan.groups == groups
+    _build.reset_counts()
+    got = panel_apply._launch_project(y, tm, c, mr, "highest", plan)
+    again = panel_apply._launch_project(y, tm, c, mr, "highest", plan)
+    assert _build.PROJECT == ({"balanced": 2, "whole_tiles": 0, "handed": 2 * plan.handed}
+                              if balanced else {"balanced": 0, "whole_tiles": 2, "handed": 0})
+    parent = panel_apply._launch_project(y, tm, c, mr, "highest", whole)
+    own = panel_apply._project_plain(y, c, mr, "highest", groups=plan.groups)
+    if fold:
+        own = tm @ own
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, parent)
+    assert rel(got, own) <= TOL
+
+
+@pytest.mark.parametrize("off", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("kind", ["b6", "b7"])
+def test_b6_b7_on_the_balanced_schedule_keep_the_parents_bits(cuda, kind, off):
+    """B6 at panel 29 of 16384² (window 8960 × 8704, carry k = 0) and B7 on
+    window 30 (8704²), both on the balanced schedule: bitwise their two
+    phases with phase 1 on the whole-tile grid at the plan's G, and near
+    their plain twins at that G."""
+    nb = 256
+    m, n = (8960, 8704) if kind == "b6" else (8704, 8704)
+    rng = np.random.default_rng(29 + off)
+    y = torch.from_numpy(rng.standard_normal((m, nb), dtype=np.float32)).to(cuda) / m ** 0.5
+    t = torch.from_numpy(np.triu(rng.standard_normal((nb, nb), dtype=np.float32))).to(cuda) / nb
+    width = n + nb if kind == "b6" else n
+    big = torch.from_numpy(rng.standard_normal((m, width + 4), dtype=np.float32)).to(cuda)
+
+    def view(x):
+        return x[:, off : off + width]
+
+    mr = panel_apply._block(m, nb, 512 if kind == "b6" else 1024)
+    win = (lambda x: x[:, nb:]) if kind == "b6" else (lambda x: x)
+    plan = panel_apply.project_plan(m, n, nb, mr, _build.sm_count(y), "highest", True)
+    assert plan.groups == 1 and plan.handed > 0
+    got, parent = view(big.clone()), view(big.clone())
+    if kind == "b6":
+        panel_apply.panel_apply_carry(y, t, got, 0, nb)
+        twin = panel_apply.panel_apply_carry_plain(y, t, view(big).clone(), 0, nb, groups=1)
+    else:
+        panel_apply.panel_apply(y, t, got, precision="highest")
+        twin = panel_apply.panel_apply_plain(y, t, view(big).clone(), precision="highest",
+                                             groups=1)
+    whole = panel_apply.project_plan_at(m, n, nb, mr, 1, "highest", True)
+    w = panel_apply._launch_project(y, t.T.contiguous(), win(parent), mr, "highest", whole)
+    panel_apply._sub_on_card(y, w, win(parent), "highest")
+    torch.cuda.synchronize()
+    assert torch.equal(got, parent)
+    assert rel(win(got), win(twin)) <= TOL
+
+
+def test_balanced_phase1_twenty_launches_back_to_back(cuda):
+    """Twenty launches of one balanced plan in a row, each zeroing its own
+    ticket and flags first: all bitwise the first and the whole-tile
+    grid's."""
+    m, n, mr = 8960, 8704, 256
+    y, c, tm = _phase1_inputs(cuda, m, n, 0, True, seed=20)
+    plan = panel_apply.project_plan(m, n, 256, mr, _build.sm_count(c), "highest", True)
+    outs = [panel_apply._launch_project(y, tm, c, mr, "highest", plan) for _ in range(20)]
+    parent = panel_apply._launch_project(
+        y, tm, c, mr, "highest", panel_apply.project_plan_at(m, n, 256, mr, 1, "highest", True))
+    torch.cuda.synchronize()
+    assert plan.ranges > 0 and all(torch.equal(o, parent) for o in outs)
+
+
+def test_balanced_phase1_on_two_streams_at_once(cuda):
+    """Two streams each launching balanced phase 1 five times, on their own
+    inputs, at once: the two launches share the card's SMs, and a block
+    that finds no SM free waits for one; each result is bitwise what the
+    same launch gives alone on the default stream."""
+    m, n, mr = 8960, 8704, 256
+    ins = [_phase1_inputs(cuda, m, n, 0, True, seed=s) for s in (31, 32)]
+    plan = panel_apply.project_plan(m, n, 256, mr, _build.sm_count(ins[0][1]), "highest", True)
+    alone = [panel_apply._launch_project(y, tm, c, mr, "highest", plan) for y, c, tm in ins]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in ins]
+    outs = [[], []]
+    for _ in range(5):
+        for i, ((y, c, tm), st) in enumerate(zip(ins, streams)):
+            with torch.cuda.stream(st):
+                outs[i].append(panel_apply._launch_project(y, tm, c, mr, "highest", plan))
+    torch.cuda.synchronize()
+    assert plan.ranges > 0
+    for want, got in zip(alone, outs):
+        assert all(torch.equal(g, want) for g in got)
+
+
+def test_hr_qr_at_16384_counts_its_phase1_schedules(cuda):
+    """hr qr (reduced) at 16384² (the square-16384-hr cell's size), one
+    eager call: ``PROJECT`` equal to ``planned_hr_counts``' derivation
+    (60 balanced launches with 7300 chains handed, 63 whole-tile, on 132
+    SMs), the launches as planned, the residual at the fp32 level."""
+    from tileqr_torch.drivers import square_hr
+
+    n = 16384
+    g = torch.Generator(device="cuda").manual_seed(23)
+    a = torch.randn((n, n), generator=g, device=cuda)
+    a.diagonal().add_(4 * n ** 0.5)
+    cfg = tileqr_torch.QRConfig(square_method="hr")
+    tileqr_torch.release_graphs()
+    _build.reset_counts()
+    q, r = tileqr_torch.qr(a, config=cfg)
+    torch.cuda.synchronize()
+    assert not any(isinstance(v, square_hr._LoopGraphs) for v in square_hr._LOOPS.values())
+    want = planned_hr_counts(n, n, 256, sms=_build.sm_count(a))
+    assert _build.PROJECT == want["project"]
+    if _build.sm_count(a) == 132:
+        assert want["project"] == {"balanced": 60, "whole_tiles": 63, "handed": 7300}
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == want["launches"]
+    assert residuals_f64(a, q, r)["relerr"] <= 3e-6
+    tileqr_torch.release_graphs()
 
 
 @pytest.mark.parametrize("mode", ["highest"] + MODES)

@@ -111,14 +111,19 @@ def test_the_guard_holds_far_below_tau_with_one_check():
 def test_the_16384_plan():
     """The cell's call: 64 panels, 63 B6 launches (none past the last
     column), and Q's 64 applies: the 60 windows wider than 1024 columns on
-    B7, the last 4 (1024 to 256 columns) by one torch product each."""
+    B7, the last 4 (1024 to 256 columns) by one torch product each; of
+    the 123 fp32 phase-1 launches on 132 SMs, 60 on the balanced schedule
+    with 7300 chains handed, 63 on the whole-tile grid (none in b3, whose
+    phase 1 is the split kernel)."""
     assert planned_hr_counts(16384, 16384, 256) == {
         "panels": 64,
         "launches": {"potrf_batched": 64, "modified_lu": 64, "panel_apply_carry": 63,
                      "panel_apply": 60},
-        "hr_apply": {"b7": 60, "pair": 0, "splitk": 0, "one": 4, "emulated": 0}}
+        "hr_apply": {"b7": 60, "pair": 0, "splitk": 0, "one": 4, "emulated": 0},
+        "project": {"balanced": 60, "whole_tiles": 63, "handed": 7300}}
     b3 = planned_hr_counts(16384, 16384, 256, "b3")
     assert b3["launches"]["panel_apply_carry[b3]"] == 63 and b3["hr_apply"]["b7"] == 64
+    assert not any(b3["project"].values())
 
 
 @pytest.mark.parametrize("precision", ["highest", "b3"])

@@ -83,7 +83,7 @@ def _strip(case):
 def _project(case):
     m, n, nb, mr, prec, fold = case
     p = panel_apply.project_plan(m, n, nb, mr, H100_SMS, prec, fold)
-    return p, panel_apply.project_plan_at(m, n, nb, mr, p.groups, prec, fold)
+    return p, panel_apply.project_plan_at(m, n, nb, mr, p.groups, prec, fold, p.ranges)
 
 
 TALL_SHAPES = [shape for shape, (route, _) in batched_cases.ROUTE_CASES.values()

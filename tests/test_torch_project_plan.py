@@ -20,7 +20,15 @@ takes the same G (``_project_plain(..., groups=G)``). On the CPU:
   reference);
 - ``groups=1`` is bitwise the single Kahan chain of the plain version
   before groups existed (``_single_chain`` below), so the CPU path, which
-  always takes it, is unchanged.
+  always takes it, is unchanged;
+- the fp32 launches' balanced schedule (``project_walk``,
+  ``project_ranges``): every (chain, row block) in exactly one range,
+  ranges within one unit of each other, no chain across more than two
+  ranges where the plan takes it, the whole-tile grid exactly where the
+  rule says (against a count of the units by brute force), no rank read;
+  and a torch emulation of the schedule, the head's pair handed on and
+  the tail's partials folded into it, bitwise ``_project_plain(...,
+  groups=G)`` in float32 and float64.
 """
 
 import jax.numpy as jnp
@@ -29,7 +37,7 @@ import pytest
 import torch
 
 from tileqr.kernels import panel_apply as jpa
-from tileqr_torch.kernels import panel_apply
+from tileqr_torch.kernels import _build, panel_apply
 from tileqr_torch.kernels.common import dot_t
 
 H100_SMS = 132
@@ -61,35 +69,51 @@ def _single_chain(y, c, mr, precision):
 
 # ---- the plan ----
 
-# (m, n, nb, mr, precision, fold) → (tile, G, workspace floats)
+# the balanced schedule's workspace beyond the groups' pairs: a handed pair
+# a block, the ticket and a flag a block
+HAND = 132 * 2 * 128 * 128 + 133
+
+# (m, n, nb, mr, precision, fold) → (tile, G, workspace floats, balanced
+# blocks, chains handed)
 PLAN_CASES = {
-    # B7a, rank (0, 0)'s segment-0 slice of the 16384² sharded hr path
-    "b7a-fp32": ((4096, 8192, 256, 512, "highest", False), ((128, 128), 1, 0)),
-    "b7a-b3": ((4096, 8192, 256, 512, "b3", False), ((128, 64), 1, 0)),
-    "b7a-default": ((4096, 8192, 256, 512, "default", False), ((128, 64), 1, 0)),
+    # B7a, rank (0, 0)'s segment-0 slice of the 16384² sharded hr path: 128
+    # tiles of 8 row blocks fill one wave, so the whole-tile grid
+    "b7a-fp32": ((4096, 8192, 256, 512, "highest", False), ((128, 128), 1, 0, 0, 0)),
+    "b7a-b3": ((4096, 8192, 256, 512, "b3", False), ((128, 64), 1, 0, 0, 0)),
+    "b7a-default": ((4096, 8192, 256, 512, "default", False), ((128, 64), 1, 0, 0, 0)),
     # B6, panel 0 of the 16384² hr path: 252 tiles, one group; the fold
-    # reads W's pair from the workspace
-    "b6-panel0": ((16384, 16128, 256, 512, "highest", True), ((128, 128), 1, 2 * 256 * 16128)),
-    # B6, panel 48: 60 tiles leave 72 SMs, two groups of the 8 row blocks
-    "b6-panel48": ((4096, 3840, 256, 512, "highest", True), ((128, 128), 2, 2 * 2 * 256 * 3840)),
+    # reads W's pair from the workspace; 8064 units on 132 blocks of 61 or
+    # 62 against two waves of 32, 128 chains handed
+    "b6-panel0": ((16384, 16128, 256, 512, "highest", True),
+                  ((128, 128), 1, 2 * 256 * 16128 + HAND, 132, 128)),
+    # B6, panel 29: 136 tiles of 35 row blocks (mr = 256), which the
+    # whole-tile grid runs in two waves of 35 against ranges of 36 or 37
+    "b6-panel29": ((8960, 8704, 256, 256, "highest", True),
+                   ((128, 128), 1, 2 * 256 * 8704 + HAND, 132, 128)),
+    # B6, panel 48: 60 tiles leave 72 SMs, two groups of the 8 row blocks;
+    # ranges of 3 or 4 blocks save nothing on chains of 4
+    "b6-panel48": ((4096, 3840, 256, 512, "highest", True),
+                   ((128, 128), 2, 2 * 2 * 256 * 3840, 0, 0)),
     # B6, panel 62: one row block, so one group however idle the card
-    "b6-panel62": ((512, 256, 256, 512, "highest", True), ((128, 128), 1, 2 * 256 * 256)),
+    "b6-panel62": ((512, 256, 256, 512, "highest", True), ((128, 128), 1, 2 * 256 * 256, 0, 0)),
     # B7 in b3 of the tsqr cholqr2 factor (1048576 × 512, nb = 512, mr =
     # 1024): 32 tiles, four groups of 256 row blocks
-    "tsqr-factor-b3": ((1048576, 512, 512, 1024, "b3", True), ((128, 64), 4, 4 * 2 * 512 * 512)),
+    "tsqr-factor-b3": ((1048576, 512, 512, 1024, "b3", True),
+                       ((128, 64), 4, 4 * 2 * 512 * 512, 0, 0)),
     # a narrow bare sum: 4 tiles, 32 row blocks, every block its own group
-    "narrow": ((16384, 256, 256, 512, "highest", False), ((128, 128), 32, 32 * 2 * 256 * 256)),
+    "narrow": ((16384, 256, 256, 512, "highest", False),
+               ((128, 128), 32, 32 * 2 * 256 * 256, 0, 0)),
     # 32 tiles leave room for 4 groups of 5 row blocks: ceil(5 / 4) = 2 blocks
     # a group, so 3 groups
-    "uneven": ((2560, 1024, 256, 512, "b4", False), ((128, 64), 3, 3 * 2 * 256 * 1024)),
+    "uneven": ((2560, 1024, 256, 512, "b4", False), ((128, 64), 3, 3 * 2 * 256 * 1024, 0, 0)),
 }
 
 
 @pytest.mark.parametrize("case", list(PLAN_CASES), ids=str)
 def test_project_plan_at_the_main_paths_shapes(case):
-    (m, n, nb, mr, prec, fold), (tile, groups, work) = PLAN_CASES[case]
+    (m, n, nb, mr, prec, fold), want = PLAN_CASES[case]
     plan = panel_apply.project_plan(m, n, nb, mr, H100_SMS, prec, fold=fold)
-    assert plan == (tile, groups, work)
+    assert plan == want
 
 
 def test_project_plan_high_takes_the_split_tile():
@@ -123,7 +147,9 @@ def test_project_plan_invariants_on_the_hr_panels(prec, n):
             assert plan.groups == 1
         else:
             assert tiles * plan.groups <= H100_SMS
-        assert plan.workspace == plan.groups * 2 * nb * w
+        hand = plan.ranges * panel_apply.PROJECT_SLOT + plan.ranges + 1 if plan.ranges else 0
+        assert plan.workspace == plan.groups * 2 * nb * w + hand
+        assert plan.ranges == 0 or (prec == "highest" and plan.ranges == min(H100_SMS, tiles * rb))
 
 
 def test_project_plan_keeps_one_group_on_the_wide_hr_panels():
@@ -243,3 +269,243 @@ def test_the_cpu_path_takes_one_group():
     y, c = (t(x) for x in inputs(16384, 64, 64, np.float32, seed=4))
     assert panel_apply.project_plan(16384, 64, 64, 512, H100_SMS, "b3").groups > 1
     assert torch.equal(panel_apply.panel_project(y, c, "b3"), _single_chain(y, c, 512, "b3"))
+
+
+# ---- the balanced schedule of the fp32 launches ----
+
+
+def _hr_launches(n, nb=256):
+    """(m, n, mr) of every fp32 phase-1 launch of one n² hr ``qr``: B6 on
+    each panel with columns right of it, then B7 on Q's windows wider than
+    1024 columns (``square_hr._apply_route``)."""
+    b6 = _hr_panels(n, nb)
+    b7 = [(n - k * nb, n - k * nb, panel_apply._block(n - k * nb, nb, 1024))
+          for k in range(n // nb) if n - k * nb > 1024]
+    return b6 + b7
+
+
+def _units_of(plan, m, n, nb, mr):
+    tiles = -(-nb // plan.tile[0]) * -(-n // plan.tile[1])
+    return tiles, m // mr
+
+
+# (tiles, row blocks, G, ranges): one group with chains cut, groups of 3 and
+# a shorter last one, one unit a range, a range inside one chain (a block
+# that both takes and hands on a pair, which the rule never picks), B6 at
+# panels 0 and 29 of 16384² and B7 at window 0
+WALKS = [(3, 6, 1, 4), (3, 8, 3, 7), (2, 2, 1, 4), (2, 9, 1, 5), (252, 32, 1, 132),
+         (136, 35, 1, 132), (256, 16, 1, 132), (5, 7, 2, 9)]
+
+
+@pytest.mark.parametrize("tiles,rb,groups,ranges", WALKS, ids=str)
+def test_every_unit_lies_in_exactly_one_range(tiles, rb, groups, ranges):
+    """Each (chain, row block) of the launch in one segment of one range,
+    the ranges' unit counts within one of each other, each range's chains
+    walked last first with its row blocks ascending, a head only at a
+    range's first segment and a tail only at its last, and each head
+    taken over by the next range's tail of the same chain."""
+    walk = panel_apply.project_walk(tiles, rb, groups, ranges)
+    per = -(-rb // groups)
+    want = {(z * tiles + w, b) for z in range(groups) for w in range(tiles)
+            for b in range(z * per, min(rb, (z + 1) * per))}
+    got = [(s.chain, b) for segs in walk for s in segs for b in range(s.b0, s.b1)]
+    assert len(got) == len(set(got)) and set(got) == want
+    sizes = [sum(s.b1 - s.b0 for s in segs) for segs in walk]
+    assert len(walk) == ranges and max(sizes) - min(sizes) <= 1
+    for r, segs in enumerate(walk):
+        assert [s.chain for s in segs] == sorted((s.chain for s in segs), reverse=True)
+        assert all(not s.head for s in segs[1:]) and all(not s.tail for s in segs[:-1])
+        if segs[0].head:
+            nxt = walk[r + 1][-1]
+            assert nxt.tail and nxt.chain == segs[0].chain and nxt.b0 == segs[0].b1
+
+
+def _crossings(walk):
+    """Ranges each chain falls in."""
+    out = {}
+    for segs in walk:
+        for s in segs:
+            out[s.chain] = out.get(s.chain, 0) + 1
+    return out
+
+
+@pytest.mark.parametrize("n", [4096, 16384])
+def test_no_balanced_launch_cuts_a_chain_across_more_than_two_ranges(n):
+    for m, w, mr in _hr_launches(n):
+        plan = panel_apply.project_plan(m, w, 256, mr, H100_SMS, fold=True)
+        if plan.ranges:
+            tiles, rb = _units_of(plan, m, w, 256, mr)
+            walk = panel_apply.project_walk(tiles, rb, plan.groups, plan.ranges)
+            cuts = _crossings(walk)
+            assert max(cuts.values()) <= 2
+            assert plan.handed == sum(v == 2 for v in cuts.values()) > 0
+
+
+def _rule_by_units(tiles, rb, groups, sms):
+    """The rule counted unit by unit, apart from ``project_walk``: each
+    unit's chain and range listed, chains spanning more than two ranges or
+    none spanning two refused, then the longest range and the longest cut
+    chain (summed by its two blocks in turn) against the whole-tile grid's
+    waves times its longest chain."""
+    per = -(-rb // groups)
+    chains = [z * tiles + w for z in range(groups) for w in range(tiles)
+              for _ in range(z * per, min(rb, (z + 1) * per))]
+    units = len(chains)
+    if not units:
+        return 0
+    ranges = min(sms, units)
+    base, extra = divmod(units, ranges)
+    owner = [r for r in range(ranges) for _ in range(base + (r < extra))]
+    spans = {}
+    for ch, r in zip(chains, owner):
+        spans.setdefault(ch, set()).add(r)
+    widest = max(len(v) for v in spans.values())
+    if widest > 2 or widest < 2:
+        return 0
+    cut = max(chains.count(ch) for ch, v in spans.items() if len(v) == 2)
+    ends = max(base + (extra > 0), cut)
+    return ranges if ends < -(-tiles * groups // sms) * per else 0
+
+
+SMALL = [(t, rb, g, sms) for t in (1, 3, 8, 20) for rb in (1, 2, 5, 9) for g in (1, 2, 3)
+         for sms in (4, 7, 16) if g <= rb and panel_apply._groups_at(rb, g) == g]
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 7])
+def test_the_whole_tile_grid_is_chosen_exactly_where_the_rule_says(sms):
+    """``project_ranges`` against the rule counted unit by unit, on every
+    fp32 launch of the 4096² and 16384² hr ``qr`` and on small launches of
+    1-20 tiles, 1-9 row blocks and 1-3 groups."""
+    cases = set()
+    for n in (4096, 16384):
+        for m, w, mr in _hr_launches(n):
+            plan = panel_apply.project_plan(m, w, 256, mr, sms, fold=True)
+            cases.add((*_units_of(plan, m, w, 256, mr), plan.groups, sms))
+    cases |= {c for c in SMALL if c[3] == sms or sms == H100_SMS}
+    for tiles, rb, groups, s in sorted(cases):
+        assert panel_apply.project_ranges(tiles, rb, groups, s) == _rule_by_units(
+            tiles, rb, groups, s), (tiles, rb, groups, s)
+
+
+def test_the_16384_hr_launches_by_schedule():
+    """The 123 fp32 launches of one 16384² hr ``qr`` on 132 SMs: 60
+    balanced with 7300 chains handed, all of more than 132 tiles; the
+    other 63 on the whole-tile grid: the exactly full 132-tile ones, B7's
+    256 tiles of 16 row blocks (two waves of 16 against ranges of 31 or
+    32), and those of at most one wave, whose cut chains would be longer
+    than the ranges (B6 on panel 40: 92 tiles of 12 row blocks on ranges
+    of 8 or 9)."""
+    plans = [panel_apply.project_plan(m, w, 256, mr, H100_SMS, fold=True)
+             for m, w, mr in _hr_launches(16384)]
+    tiles = [-(-w // 128) * 2 for _, w, _ in _hr_launches(16384)]
+    assert len(plans) == 123
+    assert all(t > H100_SMS and t % H100_SMS for p, t in zip(plans, tiles) if p.ranges)
+    assert all(p.ranges == 0 for p, t in zip(plans, tiles) if t <= H100_SMS or t == 256)
+    assert sum(p.ranges > 0 for p in plans) == 60 and sum(p.handed for p in plans) == 7300
+    full = panel_apply.project_plan(256 * 34, 256 * 33, 256, 512, H100_SMS, fold=True)
+    assert full.groups == 1 and full.ranges == 0
+    one_wave = panel_apply.project_plan(6144, 5888, 256, 512, H100_SMS, fold=True)
+    assert one_wave.groups == 1 and one_wave.ranges == 0
+    walk = panel_apply.project_walk(92, 12, 1, H100_SMS)
+    assert any(r[0].head for r in walk) and not any(s.head and s.tail for r in walk for s in r)
+
+
+def test_the_plan_reads_no_rank(monkeypatch):
+    """The chooser takes shapes and an SM count only: with every way of
+    asking for a rank made to raise, the plans are the same."""
+    import inspect
+
+    want = [panel_apply.project_plan(m, w, 256, mr, H100_SMS, fold=True)
+            for m, w, mr in _hr_launches(4096)]
+
+    def no_rank(*a, **k):
+        raise AssertionError("the plan read a rank")
+
+    for name in ("get_rank", "get_world_size", "is_initialized"):
+        monkeypatch.setattr(torch.distributed, name, no_rank, raising=False)
+    panel_apply.project_ranges.cache_clear()
+    panel_apply.project_walk.cache_clear()
+    assert [panel_apply.project_plan(m, w, 256, mr, H100_SMS, fold=True)
+            for m, w, mr in _hr_launches(4096)] == want
+    params = set(inspect.signature(panel_apply.project_plan).parameters)
+    assert params == {"m", "n", "nb", "mr", "sms", "precision", "fold"}
+
+
+@pytest.mark.parametrize("args", [(256, 256, 256, 512, 1, "b3", True, 2),
+                                  (256, 256, 256, 512, 1, "highest", True, 3),
+                                  (256, 256, 256, 512, 1, "highest", True, -1)],
+                         ids=["split-mode", "past-the-units", "negative"])
+def test_project_plan_at_refuses_a_schedule_it_cannot_run(args):
+    with pytest.raises(ValueError, match="project_plan_at"):
+        panel_apply.project_plan_at(*args)
+
+
+def _emulate(y, c, mr, precision, groups, ranges):
+    """Phase 1 as the balanced kernel orders it, in torch: each row block's
+    partial Yᵢᵀ Cᵢ once, then the ranges in ticket order, each walking its
+    segments (``project_walk``) on the fp32 tile of W: a tail starts from
+    the pair the previous range handed on, a head hands its pair on, every
+    other segment ends its group's pair of that tile; then the groups'
+    pairs combined in group order (``combine_kernel``)."""
+    tr, tc = panel_apply.PROJECT_TILES["fp32"]
+    nb, n = y.shape[1], c.shape[1]
+    rb = y.shape[0] // mr
+    xt = -(-nb // tr)
+    tiles = xt * -(-n // tc)
+    groups = panel_apply._groups_at(rb, groups)
+    parts = [dot_t(y[b * mr : (b + 1) * mr], c[b * mr : (b + 1) * mr], precision)
+             for b in range(rb)]
+    out = [[c.new_zeros((nb, n)), c.new_zeros((nb, n))] for _ in range(groups)]
+    handed = {}
+    for r, segs in enumerate(panel_apply.project_walk(tiles, rb, groups, ranges)):
+        for s in segs:
+            w = s.chain % tiles
+            at = (slice((w % xt) * tr, (w % xt + 1) * tr), slice((w // xt) * tc, (w // xt + 1) * tc))
+            acc, comp = handed.pop(r - 1) if s.tail else (parts[0][at] * 0, parts[0][at] * 0)
+            for b in range(s.b0, s.b1):
+                yk = parts[b][at] - comp
+                tk = acc + yk
+                comp = (tk - acc) - yk
+                acc = tk
+            if s.head:
+                handed[r] = (acc, comp)
+            else:
+                out[s.chain // tiles][0][at] = acc
+                out[s.chain // tiles][1][at] = comp
+    assert not handed
+    acc, comp = out[0]
+    for a_g, c_g in out[1:]:
+        yk = (a_g - c_g) - comp
+        tk = acc + yk
+        comp = (tk - acc) - yk
+        acc = tk
+    return acc
+
+
+# (m, nb, n, mr, G, ranges): one group with handed chains (3 tiles, 6 row
+# blocks on 4 blocks), three groups with a short last one on 7 blocks, two
+# row tiles and a ragged column tile, a range inside one chain, the
+# whole-tile grid (a range a chain), every unit its own range
+EMULATED = [(1536, 128, 384, 256, 1, 4), (2048, 128, 384, 256, 3, 7),
+            (1280, 256, 320, 256, 1, 9), (2304, 128, 256, 256, 1, 5),
+            (1536, 128, 384, 256, 2, 6), (768, 128, 256, 256, 1, 6)]
+
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("m,nb,n,mr,groups,ranges", EMULATED, ids=str)
+def test_the_balanced_schedule_is_the_plain_sum_bitwise(m, nb, n, mr, groups, ranges, dt):
+    y, c = (t(x) for x in inputs(m, nb, n, dt, seed=m + ranges))
+    got = _emulate(y, c, mr, "highest", groups, ranges)
+    want = panel_apply._project_plain(y, c, mr, "highest", groups=groups)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_the_counter_counts_launches_by_schedule():
+    """``count_project``: a balanced launch with its chains handed, a
+    whole-tile one; ``reset_counts`` clears both."""
+    _build.reset_counts()
+    _build.count_project(132, 128)
+    _build.count_project(0, 0)
+    assert _build.PROJECT == {"balanced": 1, "whole_tiles": 1, "handed": 128}
+    _build.reset_counts()
+    assert not any(_build.PROJECT.values())

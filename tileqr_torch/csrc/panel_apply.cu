@@ -38,6 +38,27 @@
 //     partial Y_i^T C_i is a register accumulator per W entry, then added to
 //     the running (acc, comp) with Kahan compensation (fp32: in shared
 //     memory, touched once per row block; split modes: in registers).
+//   - fp32, the balanced schedule: the fp32 kernel holds 176 KiB of shared
+//     memory, one block an SM, and a block walks all its group's rows, so a
+//     grid of 136 tiles takes two block-times for 1.03 blocks of work. Where
+//     the whole-tile grid ends on a part-filled wave, project_plan instead
+//     cuts the launch's units (tile, row block), chain by chain (a chain:
+//     one tile's row blocks in one group), into min(SMs, units) contiguous
+//     ranges that differ by at most one unit, one persistent block a range,
+//     taken by an atomic ticket in start order. A chain cut between two
+//     ranges is summed by both blocks in turn: the first sums its row blocks
+//     at the start of its run and stores its (acc, comp) into a slot of the
+//     workspace behind a release flag; the second reaches the chain's rest
+//     at the end of its run, acquires the flag, loads the pair and
+//     Kahan-adds its own row blocks' partials in order. Each partial is the
+//     same fmaf chain and each fold the same sequence, so W is bitwise the
+//     whole-tile grid's at the same G. A cut chain thus takes its whole
+//     length to finish, so the rule (kernels/panel_apply.py:project_ranges)
+//     takes the schedule only where no chain is cut across more than two
+//     ranges and the ranges and cut chains end before the whole-tile grid's
+//     waves would: grids of more than one wave. The flags and the ticket are
+//     zeroed by a memset in the stream before the launch, so a CUDA graph
+//     replays the pair as it was captured.
 //   - With G = 1 and no T the block writes acc as W. Otherwise it writes
 //     (acc, comp) into the workspace (G x 2 x nb x n) and a second launch
 //     (combine_kernel) combines the groups IN GROUP ORDER: starting from
@@ -79,6 +100,7 @@
 // kernels take a batch (grid z) of independent products: K3's stage 3
 // (strip.cu) runs all of a strip's couples C_bot_q -= V2_q W2_q in one
 // launch through tq_sub_launch.
+#include <limits.h>
 #include <stdint.h>
 
 #include "tile_gemm.cuh"
@@ -110,31 +132,27 @@ constexpr int FE = 64;  // W entries a thread
 constexpr size_t F_SMEM =
     sizeof(float) * ((size_t)FSTAGES * FK * (FM + FN) + 2 * (size_t)FE * PA_THREADS);
 
-// Block (x, y, z) = (row tile, column tile, group): W rows 128x.., columns
-// 128y.., row blocks [z per, min(rb, (z+1) per)); the row tiles of a
-// column tile are neighbours in the launch order, so they share C's rows
-// in L2. Thread (ty, tx) = (tid / 16, tid % 16) owns rows {4ty + r, 64 +
-// 4ty + r} and columns {4tx + q, 64 + 4tx + q}. Writes acc to acc_out (nb
-// x n) and, when comp_out is not null, comp to comp_out, both offset by z
-// * gstride. VEC: Y and C 16-byte aligned rows (16-byte cp.async), else
-// 4-byte copies. nb a multiple of 32, mr of FK, n of 32.
+// handed pair: a block's (acc, comp) of one W tile, in its threads' order
+constexpr int SLOT = 2 * FE * PA_THREADS;
+
+// W tile (i0, j0), row blocks [b0, b1): each row block's partial Kahan-added
+// IN ORDER into the block's (acc, comp) in shared memory (accs, comps: entry
+// e of thread t at e*256+t, each thread touching only its own). Thread (ty,
+// tx) = (tid / 16, tid % 16) owns rows {4ty + r, 64 + 4ty + r} and columns
+// {4tx + q, 64 + 4tx + q}. VEC: Y and C 16-byte aligned rows (16-byte
+// cp.async), else 4-byte copies. nb a multiple of 32, mr of FK, n of 32.
 template <bool VEC>
-__global__ void __launch_bounds__(PA_THREADS, 1)
-project_f32_kernel(const float* __restrict__ y, const float* __restrict__ c, long long ldc,
-                   int m, int n, int nb, int mr, int per, float* acc_out, float* comp_out,
-                   long long gstride) {
-  extern __shared__ __align__(16) float smf[];
+__device__ __forceinline__ void f32_rows(float* smf, const float* __restrict__ y,
+                                         const float* __restrict__ c, long long ldc, int n,
+                                         int nb, int mr, int i0, int j0, int b0, int b1) {
   float* As = smf;                          // FSTAGES x FK x FM: As[kk][i] = Y(k, i0 + i)
   float* Bs = As + FSTAGES * FK * FM;       // FSTAGES x FK x FN: Bs[kk][j] = C(k, j0 + j)
-  float* accs = Bs + FSTAGES * FK * FN;     // FE x PA_THREADS: entry e of thread t at e*256+t
+  float* accs = Bs + FSTAGES * FK * FN;     // FE x PA_THREADS
   float* comps = accs + FE * PA_THREADS;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int i0 = blockIdx.x * FM, j0 = blockIdx.y * FN;
-  const int rb = m / mr, b0 = blockIdx.z * per, b1 = min(rb, b0 + per);
   const int spb = mr / FK, S = (b1 - b0) * spb;
-  for (int e = 0; e < FE; ++e) accs[e * PA_THREADS + tid] = comps[e * PA_THREADS + tid] = 0.f;
 
-  // stage s: rows b0 mr + s FK .. + FK of Y and C (the group's rows are contiguous)
+  // stage s: rows b0 mr + s FK .. + FK of Y and C (the row blocks are contiguous)
   auto load = [&](int s) {
     if (s < S) {
       const long long k0 = (long long)b0 * mr + (long long)s * FK;
@@ -186,10 +204,10 @@ project_f32_kernel(const float* __restrict__ y, const float* __restrict__ c, lon
     for (int kk = 0; kk < FK; ++kk) {
       const float4 a0 = *reinterpret_cast<const float4*>(as + kk * FM + ty * 4);
       const float4 a1 = *reinterpret_cast<const float4*>(as + kk * FM + 64 + ty * 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * FN + tx * 4);
+      const float4 b0v = *reinterpret_cast<const float4*>(bs + kk * FN + tx * 4);
       const float4 b1v = *reinterpret_cast<const float4*>(bs + kk * FN + 64 + tx * 4);
       const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1v.x, b1v.y, b1v.z, b1v.w};
+      const float bv[8] = {b0v.x, b0v.y, b0v.z, b0v.w, b1v.x, b1v.y, b1v.z, b1v.w};
 #pragma unroll
       for (int r = 0; r < 8; ++r)
 #pragma unroll
@@ -210,8 +228,14 @@ project_f32_kernel(const float* __restrict__ y, const float* __restrict__ c, lon
     }
   }
   cp_wait<0>();
+}
 
-  const long long go = (long long)blockIdx.z * gstride;
+// (acc, comp) of W tile (i0, j0) into acc_out (nb x n) and, when comp_out is
+// not null, comp_out, both offset by go
+__device__ __forceinline__ void f32_store(const float* accs, const float* comps, float* acc_out,
+                                          float* comp_out, long long go, int i0, int j0, int nb,
+                                          int n) {
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int i = i0 + (r < 4 ? ty * 4 + r : 64 + ty * 4 + r - 4);
@@ -229,6 +253,95 @@ project_f32_kernel(const float* __restrict__ y, const float* __restrict__ c, lon
         *reinterpret_cast<float4*>(comp_out + at) =
             make_float4(comps[o], comps[o + PA_THREADS], comps[o + 2 * PA_THREADS],
                         comps[o + 3 * PA_THREADS]);
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* f) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(f) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* f, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(f), "r"(v) : "memory");
+}
+
+// The whole-tile grid (BAL false): block (x, y, z) = (row tile, column
+// tile, group) sums W rows 128x.., columns 128y.. over row blocks [z per,
+// min(rb, (z+1) per)); the row tiles of a column tile are neighbours in the
+// launch order, so they share C's rows in L2.
+// The balanced schedule (BAL true; kernels/panel_apply.py:project_walk):
+// gridDim.x persistent blocks, one a range of the launch's units (tile,
+// row block), chains (a tile's row blocks in one group) in order, tile
+// fastest; a block takes its range from the ticket sync[0], so it waits
+// only on blocks already running. It walks its range's chains last first,
+// each chain's row blocks ascending: a chain that runs on into the next
+// range (its head) comes first, its pair stored into slot r and flag
+// sync[1 + r] released; a chain that began in the previous range (its
+// tail) comes last, its pair taken from slot r - 1 once that flag is up.
+// Each group's pair is written where the whole-tile grid writes it: acc to
+// acc_out and, when comp_out is not null, comp to comp_out, both offset by
+// z * gstride.
+template <bool VEC, bool BAL>
+__global__ void __launch_bounds__(PA_THREADS, 1)
+project_f32_kernel(const float* __restrict__ y, const float* __restrict__ c, long long ldc,
+                   int m, int n, int nb, int mr, int per, float* acc_out, float* comp_out,
+                   long long gstride, float* slots, unsigned* sync) {
+  extern __shared__ __align__(16) float smf[];
+  float* accs = smf + FSTAGES * FK * (FM + FN);
+  float* comps = accs + FE * PA_THREADS;
+  const int tid = threadIdx.x, rb = m / mr;
+  auto zero = [&]() {
+    for (int e = 0; e < FE; ++e) accs[e * PA_THREADS + tid] = comps[e * PA_THREADS + tid] = 0.f;
+  };
+  if constexpr (!BAL) {
+    const int b0 = blockIdx.z * per, i0 = blockIdx.x * FM, j0 = blockIdx.y * FN;
+    zero();
+    f32_rows<VEC>(smf, y, c, ldc, n, nb, mr, i0, j0, b0, min(rb, b0 + per));
+    f32_store(accs, comps, acc_out, comp_out, (long long)blockIdx.z * gstride, i0, j0, nb, n);
+  } else {
+    __shared__ int ticket;
+    if (tid == 0) ticket = (int)atomicAdd(sync, 1u);
+    __syncthreads();
+    const int r = ticket, ranges = (int)gridDim.x;
+    const int xt = ceil_div(nb, FM), tiles = xt * ceil_div(n, FN), groups = ceil_div(rb, per);
+    const int units = tiles * rb, base = units / ranges, extra = units % ranges;
+    const int u0 = r * base + min(r, extra), u1 = u0 + base + (r < extra ? 1 : 0);
+    for (int u = u1; u > u0;) {
+      const int z = min((u - 1) / (tiles * per), groups - 1), len = min(per, rb - z * per);
+      const int w = (u - 1 - z * tiles * per) / len;
+      const int start = z * tiles * per + w * len, s0 = max(start, u0);
+      const int i0 = (w % xt) * FM, j0 = (w / xt) * FN, b = z * per - start;
+      if (start < u0) {  // the tail: the pair range r - 1 handed on
+        if (tid == 0)
+          while (ld_acquire(sync + r) == 0) __nanosleep(64);
+        __syncthreads();
+        const float* from = slots + (long long)(r - 1) * SLOT;
+        for (int e = 0; e < FE; ++e) {
+          const int o = e * PA_THREADS + tid;
+          accs[o] = __ldcg(from + o);
+          comps[o] = __ldcg(from + FE * PA_THREADS + o);
+        }
+      } else {
+        zero();
+      }
+      f32_rows<VEC>(smf, y, c, ldc, n, nb, mr, i0, j0, b + s0, b + u);
+      if (start + len > u1) {  // the head: the pair handed on to range r + 1
+        float* to = slots + (long long)r * SLOT;
+        for (int e = 0; e < FE; ++e) {
+          const int o = e * PA_THREADS + tid;
+          to[o] = accs[o];
+          to[FE * PA_THREADS + o] = comps[o];
+        }
+        __threadfence();
+        __syncthreads();
+        if (tid == 0) st_release(sync + 1 + r, 1u);
+      } else {
+        f32_store(accs, comps, acc_out, comp_out, (long long)z * gstride, i0, j0, nb, n);
+        __syncthreads();  // every stage buffer consumed before the next chain's copies
+      }
+      u = s0;
     }
   }
 }
@@ -528,18 +641,36 @@ int launch_sub(K kernel, size_t smem, int threads, int tm, int tn, const float* 
 using ProjectFn = void (*)(const float*, const float*, long long, int, int, int, int, int,
                           float*, float*, long long);
 
-// phase 1a's launch: the mode's kernel on grid (row tiles, column tiles, groups)
-template <class K>
-int launch_tiles(K kernel, size_t smem, int tm_rows, int tn_cols, const float* y,
-                 const float* c, long long ldc, int m, int n, int nb, int mr, int groups,
-                 int per, float* acc_out, float* comp_out, long long gstride,
-                 cudaStream_t stream) {
+// phase 1a's launch: the mode's kernel on `grid` (the extra arguments: the
+// fp32 kernel's slots and sync words)
+template <class K, class... Extra>
+int launch_project(K kernel, size_t smem, dim3 grid, const float* y, const float* c,
+                   long long ldc, int m, int n, int nb, int mr, int per, float* acc_out,
+                   float* comp_out, long long gstride, cudaStream_t stream, Extra... extra) {
   const int e = set_smem(kernel, smem);
   if (e != 0) return e;
-  const dim3 grid(ceil_div(nb, tm_rows), ceil_div(n, tn_cols), groups);
   kernel<<<grid, PA_THREADS, smem, stream>>>(y, c, ldc, m, n, nb, mr, per, acc_out, comp_out,
-                                             gstride);
+                                             gstride, extra...);
   return (int)cudaGetLastError();
+}
+
+// the fp32 kernel on the whole-tile grid (ranges = 0) or the balanced
+// schedule's `ranges` blocks, its ticket and flags zeroed first in the
+// stream (a CUDA graph captures the memset with the launch)
+template <bool VEC>
+int launch_f32(const float* y, const float* c, long long ldc, int m, int n, int nb, int mr,
+               int groups, int per, float* acc_out, float* comp_out, long long gstride,
+               int ranges, float* slots, cudaStream_t stream) {
+  if (ranges == 0)
+    return launch_project(project_f32_kernel<VEC, false>, F_SMEM,
+                          dim3(ceil_div(nb, FM), ceil_div(n, FN), groups), y, c, ldc, m, n, nb,
+                          mr, per, acc_out, comp_out, gstride, stream, (float*)nullptr,
+                          (unsigned*)nullptr);
+  unsigned* sync = reinterpret_cast<unsigned*>(slots + (long long)ranges * SLOT);
+  const int e = (int)cudaMemsetAsync(sync, 0, sizeof(unsigned) * (ranges + 1), stream);
+  if (e != 0) return e;
+  return launch_project(project_f32_kernel<VEC, true>, F_SMEM, dim3(ranges), y, c, ldc, m, n,
+                        nb, mr, per, acc_out, comp_out, gstride, stream, slots, sync);
 }
 
 }  // namespace
@@ -549,20 +680,24 @@ int launch_tiles(K kernel, size_t smem, int tm_rows, int tn_cols, const float* y
 // with row stride ldc; m a multiple of mr. The row blocks run in `groups`
 // contiguous groups (kernels/panel_apply.py:project_plan; G must be
 // ceil(rb / ceil(rb / G)), so that no group is empty, and 1 when m = 0,
-// which gives W = 0); work holds G x 2 x nb x n floats, and may be null
-// when G = 1 and tm is null. passes: 0
+// which gives W = 0). work holds G x 2 x nb x n floats, none when G = 1 and
+// tm is null (W written directly), then, where `ranges` > 0 (the fp32
+// kernel's balanced schedule on that many blocks, at most the launch's
+// units), ranges x SLOT floats of handed pairs and ranges + 1 words of
+// ticket and flags; work may be null when it holds nothing. passes: 0
 // ("highest"; nb a multiple of 32, <= 256, mr of 16, n of 32), 1
 // ("default"), 3 ("b3"/"high"), 4 ("b4") (any nb <= BX_MAX_NB, any n).
 extern "C" int tq_panel_project(const float* y, const float* tm, const float* c,
                                 long long ldc, int m, int n, int nb, int mr, float* w,
-                                float* work, int groups, int passes, void* stream_) {
+                                float* work, int groups, int ranges, int passes,
+                                void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (m < 0 || n < 1 || nb < 1 || mr < 1 || m % mr || groups < 1)
+  if (m < 0 || n < 1 || nb < 1 || mr < 1 || m % mr || groups < 1 || ranges < 0)
     return (int)cudaErrorInvalidValue;
   const int rb = m / mr, per = ceil_div(rb, groups);
   if (rb ? ceil_div(rb, per) != groups : groups != 1) return (int)cudaErrorInvalidValue;
   const bool direct = groups == 1 && tm == nullptr;
-  if (!direct && work == nullptr) return (int)cudaErrorInvalidValue;
+  if ((!direct || ranges > 0) && work == nullptr) return (int)cudaErrorInvalidValue;
   float* acc_out = direct ? w : work;
   float* comp_out = direct ? nullptr : work + (long long)nb * n;
   const long long gstride = 2LL * nb * n;
@@ -570,18 +705,21 @@ extern "C" int tq_panel_project(const float* y, const float* tm, const float* c,
   switch (passes) {
     case 0: {
       if (nb % 32 || nb > 256 || mr % FK || n % 32) return (int)cudaErrorInvalidValue;
+      const long long units = (long long)ceil_div(nb, FM) * ceil_div(n, FN) * rb;
+      if (ranges > 0 && (ranges > units || units > INT_MAX)) return (int)cudaErrorInvalidValue;
       const bool vec = reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(c) % 16 == 0 && ldc % 4 == 0;
-      e = vec ? launch_tiles(project_f32_kernel<true>, F_SMEM, FM, FN, y, c, ldc, m, n, nb, mr,
-                             groups, per, acc_out, comp_out, gstride, stream)
-              : launch_tiles(project_f32_kernel<false>, F_SMEM, FM, FN, y, c, ldc, m, n, nb, mr,
-                             groups, per, acc_out, comp_out, gstride, stream);
+      float* slots = ranges > 0 ? work + (direct ? 0 : groups * gstride) : nullptr;
+      e = vec ? launch_f32<true>(y, c, ldc, m, n, nb, mr, groups, per, acc_out, comp_out,
+                                 gstride, ranges, slots, stream)
+              : launch_f32<false>(y, c, ldc, m, n, nb, mr, groups, per, acc_out, comp_out,
+                                  gstride, ranges, slots, stream);
       break;
     }
     case 1:
     case 3:
     case 4: {
-      if (nb > BX_MAX_NB) return (int)cudaErrorInvalidValue;
+      if (nb > BX_MAX_NB || ranges > 0) return (int)cudaErrorInvalidValue;
       const bool vec = reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(c) % 16 == 0 && ldc % 4 == 0 &&
                        nb % 4 == 0 && n % 4 == 0;
@@ -589,8 +727,8 @@ extern "C" int tq_panel_project(const float* y, const float* tm, const float* c,
       if (passes == 4 && vec) k = &project_wg_kernel<4, true>;
       if (passes == 3) k = vec ? &project_wg_kernel<3, true> : &project_wg_kernel<3, false>;
       if (passes == 1) k = vec ? &project_wg_kernel<1, true> : &project_wg_kernel<1, false>;
-      e = launch_tiles(k, WG_SMEM, WM, WN, y, c, ldc, m, n, nb, mr, groups, per, acc_out,
-                       comp_out, gstride, stream);
+      e = launch_project(k, WG_SMEM, dim3(ceil_div(nb, WM), ceil_div(n, WN), groups), y, c, ldc,
+                         m, n, nb, mr, per, acc_out, comp_out, gstride, stream);
       break;
     }
     default: return (int)cudaErrorInvalidValue;

@@ -243,8 +243,8 @@ class _LoopGraphs:
     when the loop ends or is dropped; a loop that finds it taken runs
     eagerly. Each loop's device work waits on the ``done`` event that the
     previous one recorded on its stream, so loops on different streams
-    never share the static operands at once. ``LAUNCHES`` gains, at the
-    end of each replayed loop, what the capture launched."""
+    never share the static operands at once. ``LAUNCHES`` and ``PROJECT``
+    gain, at the end of each replayed loop, what the capture counted."""
 
     def __init__(self, ap: torch.Tensor, nb: int, stats: bool, precision: str):
         self.lock = threading.Lock()
@@ -252,7 +252,8 @@ class _LoopGraphs:
         self.ap = torch.empty_like(ap)
         self.pool = torch.cuda.graph_pool_handle()
         self.panels = []
-        held = dict(_build.LAUNCHES)
+        counters = (_build.LAUNCHES, _build.PROJECT)
+        held = [dict(c) for c in counters]
         side = torch.cuda.Stream(ap.device)
         side.wait_stream(torch.cuda.current_stream(ap.device))
         try:
@@ -264,9 +265,10 @@ class _LoopGraphs:
                     self.panels.append((graphs, out))
         finally:
             torch.cuda.current_stream(ap.device).wait_stream(side)
-            self.launched = {key: n - held[key] for key, n in _build.LAUNCHES.items()
-                             if n != held[key]}
-            _build.LAUNCHES.update(held)  # a capture launches nothing
+            self.launched = [(c, {key: n - h[key] for key, n in c.items() if n != h[key]})
+                             for c, h in zip(counters, held)]
+            for c, h in zip(counters, held):
+                c.update(h)  # a capture launches nothing
 
     def _capture(self, graphs: list, name: str, phase):
         # capture_begin/end, not torch.cuda.graph: that one synchronizes,
@@ -293,8 +295,9 @@ class _LoopGraphs:
                         graph.replay()
                 yield y.clone(), t.clone(), (None if defect is None else defect.clone())
             ap.copy_(self.ap)
-            for key, n in self.launched.items():
-                _build.LAUNCHES[key] += n
+            for counter, launched in self.launched:
+                for key, n in launched.items():
+                    counter[key] += n
         finally:
             self.done = stream.record_event()
             self.lock.release()

@@ -85,6 +85,11 @@ STRIP: dict = {}
 # (``chain.chain_bands``): {bands: {"launches", "couples"}} with the couples
 # they swept; counted by K3's launcher (``count_chain``), K4's not
 CHAIN: dict = {}
+# fp32 phase-1 launches (B6, B7, B7a in "highest") by their schedule
+# (``panel_apply.project_plan``): the balanced persistent grid or the
+# whole-tile grid, and the chains the balanced launches handed between
+# blocks; counted by phase 1's launcher (``count_project``)
+PROJECT = {"balanced": 0, "whole_tiles": 0, "handed": 0}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tileqr_torch"
@@ -125,9 +130,9 @@ SIGNATURES = {
     # g, r, batch, n, bp, ctas, threads, smem, resident (kernels/potrf.py:potrf_plan),
     # stream
     "tq_potrf_batched": (_P, _P, _I, _I, _I, _I, _I, _L, _I, _P),
-    # y, tm (or NULL), c, ldc, m, n, nb, mr, w, work (or NULL), groups, passes,
-    # stream
-    "tq_panel_project": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _I, _I, _P),
+    # y, tm (or NULL), c, ldc, m, n, nb, mr, w, work (or NULL), groups,
+    # ranges (0: the whole-tile grid), passes, stream
+    "tq_panel_project": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P),
     # y, w, c, ldc, m, n, nb, tile rows, tile columns
     # (kernels/panel_apply.py:sub_plan), passes, stream
     "tq_panel_sub": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
@@ -167,6 +172,8 @@ def reset_counts() -> None:
         PIPELINE[k] = 0
     for k in EXCHANGE:
         EXCHANGE[k] = 0
+    for k in PROJECT:
+        PROJECT[k] = 0
     STRIP.clear()
     CHAIN.clear()
     for k in trace.LOOKAHEAD:
@@ -183,6 +190,14 @@ def count_exchange(ctas: int, columns: int) -> None:
     if ctas > 1:
         EXCHANGE["launches"] += 1
         EXCHANGE["columns"] += columns
+
+
+def count_project(ranges: int, handed: int) -> None:
+    """Count one fp32 phase-1 launch in ``PROJECT``: balanced over
+    ``ranges`` blocks with ``handed`` chains handed on, or (ranges = 0) on
+    the whole-tile grid."""
+    PROJECT["balanced" if ranges else "whole_tiles"] += 1
+    PROJECT["handed"] += handed
 
 
 def count_strip(key: tuple, couples: int) -> None:

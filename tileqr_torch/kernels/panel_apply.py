@@ -38,10 +38,21 @@ is summed on its own, and the pairs are combined in group order
 (``_project_plain(..., groups=G)`` is the same order in torch). G = 1, the
 reference's single chain, whenever the tiles take more than half the
 card, and always on the CPU.
+
+In fp32 a launch of more than one wave whose whole-tile grid would end
+on a part-filled wave runs a balanced schedule instead
+(``project_ranges``): its units, (W tile, row block), are cut in chain
+order (a chain: one tile's row blocks in one group) into contiguous
+ranges that differ by at most one unit, one persistent block a range
+(``project_walk``). A chain cut between two ranges is summed by both
+blocks in turn: the first hands its Kahan pair on, the second folds its
+own row blocks into it, so every fold is the plan's and W's bits are
+those of the whole-tile grid at the same G.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -108,10 +119,27 @@ def _check_value(y, t, c):
 PROJECT_TILES = {"fp32": (128, 128), "split": (128, 64)}
 
 
+# one handed chain's Kahan pair in the workspace: (acc, comp) of an fp32 W
+# tile (``csrc/panel_apply.cu``: SLOT)
+PROJECT_SLOT = 2 * PROJECT_TILES["fp32"][0] * PROJECT_TILES["fp32"][1]
+
+
 class ProjectPlan(NamedTuple):
     tile: Tuple[int, int]  # (W rows, W columns) a block owns
     groups: int            # G: contiguous groups of the m / mr row blocks
-    workspace: int         # floats of the (G, 2, nb, n) Kahan pairs (0: W written directly)
+    workspace: int         # floats: the (G, 2, nb, n) Kahan pairs (none where W is written
+                           # directly), then ``ranges`` handed pairs and ranges + 1 sync words
+    ranges: int = 0        # persistent blocks of the balanced schedule; 0: the whole-tile grid
+    handed: int = 0        # chains a block hands on to the next (balanced only)
+
+
+class Segment(NamedTuple):
+    """A part of one chain that one block of the balanced schedule sums."""
+    chain: int   # tile chain % tiles (row tile fastest), group chain // tiles
+    b0: int      # the launch's row blocks [b0, b1)
+    b1: int
+    tail: bool   # starts from the pair the previous range's block handed on
+    head: bool   # hands its pair on to the next range's block
 
 
 def _group_size(blocks: int, groups: int) -> int:
@@ -120,20 +148,113 @@ def _group_size(blocks: int, groups: int) -> int:
     return -(-blocks // groups)
 
 
+def _groups_at(blocks: int, groups: int) -> int:
+    """G cut to the non-empty groups of ceil(blocks / G) row blocks; one
+    (empty) group where there are no row blocks."""
+    return -(-blocks // _group_size(blocks, groups)) if blocks else 1
+
+
+def _chain_span(chain: int, tiles: int, rb: int, per: int) -> Tuple[int, int]:
+    """[start, end) of a chain among the launch's units, chains in order
+    (tile fastest, then group), each as long as its group."""
+    z, w = divmod(chain, tiles)
+    length = min(per, rb - z * per)
+    start = z * tiles * per + w * length
+    return start, start + length
+
+
+def _chain_at(unit: int, tiles: int, rb: int, per: int) -> int:
+    """The chain that holds a unit."""
+    z = min(unit // (tiles * per), -(-rb // per) - 1)
+    return z * tiles + (unit - z * tiles * per) // min(per, rb - z * per)
+
+
+def _range_span(r: int, units: int, ranges: int) -> Tuple[int, int]:
+    """[start, end) of range r: the first units % ranges ranges one unit
+    longer."""
+    base, extra = divmod(units, ranges)
+    start = r * base + min(r, extra)
+    return start, start + base + (r < extra)
+
+
+@functools.lru_cache(maxsize=512)
+def project_walk(tiles: int, rb: int, groups: int, ranges: int) -> Tuple[Tuple[Segment, ...], ...]:
+    """The balanced schedule of a launch of ``tiles`` W tiles over ``rb``
+    row blocks in G = ``groups``: each range's segments in the order its
+    block sums them (``csrc/panel_apply.cu:project_f32_kernel``), its last
+    chain first and each chain's row blocks ascending, so that a block
+    hands its pair on at the start of its run and takes one over at the
+    end."""
+    per = _group_size(rb, groups)
+    units = tiles * rb
+    if not 1 <= ranges <= units or groups != _groups_at(rb, groups):
+        raise ValueError(f"project_walk: tiles={tiles}, rb={rb}, groups={groups}, "
+                         f"ranges={ranges}")
+    walk = []
+    for r in range(ranges):
+        u0, u1 = _range_span(r, units, ranges)
+        segs, u = [], u1
+        while u > u0:
+            chain = _chain_at(u - 1, tiles, rb, per)
+            start, end = _chain_span(chain, tiles, rb, per)
+            s0 = max(start, u0)
+            b = (chain // tiles) * per - start
+            segs.append(Segment(chain, b + s0, b + u, start < u0, end > u1))
+            u = s0
+        walk.append(tuple(segs))
+    return tuple(walk)
+
+
+@functools.lru_cache(maxsize=512)
+def project_ranges(tiles: int, rb: int, groups: int, sms: int) -> int:
+    """The rule of phase 1's fp32 grid, from the shapes and the SM count:
+    the balanced schedule's min(sms, units) blocks where a chain is cut,
+    none is cut across more than two ranges (no block both takes a pair
+    and hands one on), and the schedule ends sooner than the whole-tile
+    grid's waves times its longest chain; else 0, the whole-tile grid. The
+    schedule ends with its longest range or its longest cut chain, which
+    ends only once its two blocks have summed their parts in turn: so a
+    grid of one wave, whose chains are longer than the ranges, gains
+    nothing."""
+    units = tiles * rb
+    if units < 1:
+        return 0
+    ranges = min(sms, units)
+    walk = project_walk(tiles, rb, groups, ranges)
+    heads = [segs[0] for segs in walk if segs[0].head]
+    if not heads or any(s.head and s.tail for segs in walk for s in segs):
+        return 0
+    per = _group_size(rb, groups)
+    ends = max(-(-units // ranges), *(min(per, rb - s.chain // tiles * per) for s in heads))
+    return ranges if ends < -(-tiles * groups // sms) * per else 0
+
+
 def project_plan_at(m: int, n: int, nb: int, mr: int, groups: int, precision: str = "highest",
-                    fold: bool = False) -> ProjectPlan:
+                    fold: bool = False, ranges: int = 0) -> ProjectPlan:
     """Phase 1's launch for Y (m, nb), C (m, n) and row blocks of mr rows
-    at G = ``groups``: the mode's W tile, G cut to the number of non-empty
-    groups of ceil(rb / G) blocks, and the workspace of the groups' Kahan
-    pairs (none at G = 1 without ``fold``: W written directly). ``fold``:
-    op(T) is folded in (B6, B7), which reads the pairs from the workspace
-    at any G. No rows (m = 0) is one empty group: W = 0."""
-    if min(n, nb, mr, groups) < 1 or m < 0 or m % mr:
-        raise ValueError(f"project_plan_at: m={m}, n={n}, nb={nb}, mr={mr}, groups={groups}")
+    at G = ``groups`` and ``ranges`` blocks of the balanced schedule (0:
+    the whole-tile grid; fp32 only): the mode's W tile, G cut to the
+    number of non-empty groups of ceil(rb / G) blocks, the workspace of
+    the groups' Kahan pairs (none at G = 1 without ``fold``: W written
+    directly) and of the schedule's handed pairs, and the chains handed.
+    ``fold``: op(T) is folded in (B6, B7), which reads the pairs from the
+    workspace at any G. No rows (m = 0) is one empty group: W = 0."""
+    if min(n, nb, mr, groups) < 1 or m < 0 or m % mr or ranges < 0:
+        raise ValueError(f"project_plan_at: m={m}, n={n}, nb={nb}, mr={mr}, groups={groups}, "
+                         f"ranges={ranges}")
     rb = m // mr
-    groups = -(-rb // _group_size(rb, groups)) if rb else 1
+    groups = _groups_at(rb, groups)
     work = 0 if groups == 1 and not fold else groups * 2 * nb * n
-    return ProjectPlan(PROJECT_TILES["split" if passes_of(precision) else "fp32"], groups, work)
+    tile = PROJECT_TILES["split" if passes_of(precision) else "fp32"]
+    handed = 0
+    if ranges:
+        tiles = -(-nb // tile[0]) * -(-n // tile[1])
+        if passes_of(precision) or ranges > tiles * rb:
+            raise ValueError(f"project_plan_at: {ranges} ranges of {tiles * rb} units in "
+                             f"{precision!r} (fp32 only)")
+        handed = sum(s.head for r in project_walk(tiles, rb, groups, ranges) for s in r)
+        work += ranges * PROJECT_SLOT + ranges + 1
+    return ProjectPlan(tile, groups, work, ranges, handed)
 
 
 def project_plan(m: int, n: int, nb: int, mr: int, sms: int, precision: str = "highest",
@@ -141,13 +262,16 @@ def project_plan(m: int, n: int, nb: int, mr: int, sms: int, precision: str = "h
     """Phase 1's launch on a card of ``sms`` SMs for Y (m, nb), C (m, n)
     and row blocks of mr rows: ``project_plan_at`` at G = the SMs the
     mode's W tiles leave, sms // tiles, at most one group per row block and
-    at least 1 (so G = 1 when the tiles take more than half the card)."""
+    at least 1 (so G = 1 when the tiles take more than half the card), and
+    in fp32 at ``project_ranges``' blocks."""
     if min(n, nb, mr, sms) < 1 or m < 0 or m % mr:
         raise ValueError(f"project_plan: m={m}, n={n}, nb={nb}, mr={mr}, sms={sms}")
     tile = PROJECT_TILES["split" if passes_of(precision) else "fp32"]
     tiles = -(-nb // tile[0]) * -(-n // tile[1])
-    groups = max(1, min(m // mr, sms // tiles))
-    return project_plan_at(m, n, nb, mr, groups, precision, fold)
+    rb = m // mr
+    groups = _groups_at(rb, max(1, min(rb, sms // tiles)))
+    ranges = 0 if passes_of(precision) else project_ranges(tiles, rb, groups, sms)
+    return project_plan_at(m, n, nb, mr, groups, precision, fold, ranges)
 
 
 # phase 2's C tiles (csrc/panel_apply.cu, tile_gemm.cuh): the large and the
@@ -243,16 +367,19 @@ def _require_kernel(y, c, nb: int, precision: str) -> None:
 def _launch_project(y, tm: Optional[torch.Tensor], c, mr: int, precision: str,
                     plan: ProjectPlan) -> torch.Tensor:
     """Phase 1 on the card at ``plan`` (``project_plan``'s, or
-    ``project_plan_at``'s at any G): W (nb, n) = tm·Σᵢ Yᵢᵀ Cᵢ, or the bare
+    ``project_plan_at``'s at any G and schedule): W (nb, n) = tm·Σᵢ Yᵢᵀ Cᵢ, or the bare
     sum when tm is None."""
     m, nb = y.shape
     n = c.shape[1]
     w = torch.empty((nb, n), dtype=c.dtype, device=c.device)
     work = torch.empty(plan.workspace, dtype=c.dtype, device=c.device) if plan.workspace else None
+    passes = passes_of(precision)
     rc = _build.lib().tq_panel_project(y.data_ptr(), _build.ptr(tm), c.data_ptr(), c.stride(0),
                                        m, n, nb, mr, w.data_ptr(), _build.ptr(work), plan.groups,
-                                       passes_of(precision), _build.stream())
+                                       plan.ranges, passes, _build.stream())
     _build.check(rc, "panel_project")
+    if not passes:
+        _build.count_project(plan.ranges, plan.handed)
     return w
 
 

@@ -41,7 +41,9 @@ lookahead and its panels launched beside a rest update
 (``core/trace.py:LOOKAHEAD``), the CholeskyQR guard's
 checks and trips by call site (``core/trace.py:GUARD``), and the hr
 square path's block-reflector applies by route
-(``core/trace.py:HR_APPLY``). ``--group G``
+(``core/trace.py:HR_APPLY``), and B6's and B7's fp32 phase-1 launches by
+schedule, balanced or on the whole-tile grid, with the chains handed
+between blocks (``_build.PROJECT``). ``--group G``
 prints the device ms of G's kernels alone inside each span, and inside the
 narrow hh updates (``narrow_updates``). With ``--health`` (hr
 only) it also prints each panel's round-1 orthogonality defect, whose max
@@ -342,6 +344,9 @@ def main(argv=None) -> int:
               f"a rest update {trace.LOOKAHEAD['beside']} of {_build.LAUNCHES['panel_factor']}")
         print(f"CholeskyQR guard checks and trips by site: {trace.GUARD or 'none'}")
         print(f"hr applies by route: {trace.HR_APPLY}")
+        print(f"fp32 phase-1 launches by schedule: balanced {_build.PROJECT['balanced']}, "
+              f"whole tiles {_build.PROJECT['whole_tiles']}, chains handed "
+              f"{_build.PROJECT['handed']}")
     print(f"{what} {'x'.join(map(str, shape))}: wall {wall_ms:.3f} ms under the profiler, "
           f"device total {total:.3f} ms, idle share {max(0.0, 1 - total / wall_ms):.4f}"
           f"{' (of rank 0 alone)' if sharded else ''} [{card}]")
